@@ -1,0 +1,255 @@
+"""Columnar Frame — the port of ``h2o3_tpu/frame/frame.py``.
+
+A ``Frame`` is a named list of ``Column``s. A column's canonical storage is
+one dense numpy array on the host (float64 with NaN for NUM/TIME, int32
+codes with -1 for CAT, object for STR). The model builders move what they
+need to the device themselves, so the frame itself holds no tensors.
+
+Kept from the JAX package: ``Column``, ``Frame``, ``from_dict`` and the
+rollups that trees need (min/max/mean/sigma), computed in numpy. CSV
+parsing, the native tokenizer, the chunk codecs and the munging surface
+(row/column selection, binds) are not part of this package yet.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+
+
+class ColType(enum.Enum):
+    """Column types (water/fvec/Vec.java type ids)."""
+
+    NUM = "numeric"
+    CAT = "categorical"
+    TIME = "time"
+    STR = "string"
+    UUID = "uuid"
+    BAD = "bad"  # all-NA column
+
+
+NA_CAT = np.int32(-1)  # categorical NA sentinel (codes); numeric NA is NaN
+
+#: string tokens read as NA when ``from_dict`` builds a categorical column
+_NA_STRINGS = frozenset({"", "NA"})
+
+
+@dataclass
+class RollupStats:
+    """Per-column summary (water/fvec/RollupStats.java), float64-exact."""
+
+    min: float
+    max: float
+    mean: float
+    sigma: float
+    na_count: int
+    is_int: bool
+
+
+def compute_rollups(col: "Column") -> RollupStats:
+    if col.type in (ColType.STR, ColType.UUID):
+        return RollupStats(np.nan, np.nan, np.nan, np.nan, col.na_count(), False)
+    x = col.numeric_view()
+    ok = ~np.isnan(x)
+    n = int(ok.sum())
+    if n == 0:
+        return RollupStats(np.nan, np.nan, np.nan, np.nan, x.size, True)
+    v = x[ok]
+    return RollupStats(
+        float(v.min()),
+        float(v.max()),
+        float(v.mean()),
+        float(v.std(ddof=1)) if n > 1 else 0.0,
+        x.size - n,
+        bool(np.all(np.floor(v) == v)),
+    )
+
+
+class Column:
+    """One named, typed column with host-canonical numpy storage."""
+
+    __slots__ = ("name", "type", "data", "domain", "_rollups")
+
+    def __init__(
+        self,
+        name: str,
+        data: np.ndarray,
+        type: Optional[ColType] = None,
+        domain: Optional[List[str]] = None,
+    ) -> None:
+        if type is None:
+            arr = np.asarray(data)
+            type = ColType.STR if arr.dtype == object or arr.dtype.kind in "US" \
+                else ColType.NUM
+        self.name = name
+        self.type = type
+        self.data = _canonicalize(data, type)
+        self.domain = list(domain) if domain is not None else None
+        self._rollups: Optional[RollupStats] = None
+        if self.type is ColType.CAT and self.domain is None:
+            raise ValueError(f"CAT column {name!r} requires a domain")
+
+    def __len__(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def nrows(self) -> int:
+        return len(self)
+
+    def isna(self) -> np.ndarray:
+        if self.type is ColType.CAT:
+            return self.data < 0
+        if self.type in (ColType.STR, ColType.UUID):
+            return np.array([v is None for v in self.data], dtype=bool)
+        return np.isnan(self.data)
+
+    def na_count(self) -> int:
+        return int(self.isna().sum())
+
+    @property
+    def rollups(self) -> RollupStats:
+        if self._rollups is None:
+            self._rollups = compute_rollups(self)
+        return self._rollups
+
+    def numeric_view(self) -> np.ndarray:
+        """float64 view: CAT codes as floats with NaN NAs."""
+        if self.type is ColType.CAT:
+            out = self.data.astype(np.float64)
+            out[self.data < 0] = np.nan
+            return out
+        if self.type in (ColType.STR, ColType.UUID):
+            raise TypeError(
+                f"column {self.name!r} of type {self.type} has no numeric view")
+        return self.data
+
+    def as_factor(self) -> "Column":
+        """NUM/STR -> CAT with a sorted domain (rapids AstAsFactor)."""
+        if self.type is ColType.CAT:
+            return self
+        if self.type in (ColType.STR, ColType.UUID):
+            mask = np.array([v is not None for v in self.data], dtype=bool)
+            uniq = sorted({str(v) for v in self.data[mask]})
+            index = {lv: i for i, lv in enumerate(uniq)}
+            codes = np.full(len(self.data), NA_CAT, dtype=np.int32)
+            codes[mask] = [index[str(v)] for v in self.data[mask]]
+            return Column(self.name, codes, ColType.CAT, uniq)
+        vals = self.data
+        mask = ~np.isnan(vals)
+        uniq = np.unique(vals[mask])
+        domain = [_format_level(v) for v in uniq]
+        codes = np.full(len(vals), NA_CAT, dtype=np.int32)
+        codes[mask] = np.searchsorted(uniq, vals[mask]).astype(np.int32)
+        return Column(self.name, codes, ColType.CAT, domain)
+
+    def copy(self) -> "Column":
+        return Column(self.name, self.data.copy(), self.type, self.domain)
+
+    def select(self, idx: np.ndarray) -> "Column":
+        return Column(self.name, self.data[idx], self.type, self.domain)
+
+    def __repr__(self) -> str:
+        dom = f", card={len(self.domain)}" if self.domain is not None else ""
+        return f"<Column {self.name!r} {self.type.value} n={len(self)}{dom}>"
+
+
+def _canonicalize(data: Any, type: ColType) -> np.ndarray:
+    data = np.asarray(data)
+    if type in (ColType.NUM, ColType.TIME, ColType.BAD):
+        return np.ascontiguousarray(data, dtype=np.float64)
+    if type is ColType.CAT:
+        return np.ascontiguousarray(data, dtype=np.int32)
+    if type in (ColType.STR, ColType.UUID):
+        return data if data.dtype == object else data.astype(object)
+    raise ValueError(f"unknown column type {type}")
+
+
+def _format_level(v: float) -> str:
+    return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+
+def _is_number(t: str) -> bool:
+    try:
+        float(t)
+    except ValueError:
+        return False
+    return True
+
+
+def _column_from_strings(name: str, tokens: Sequence[Optional[str]]) -> Column:
+    """String tokens -> NUM when every non-NA token parses as a number,
+    else CAT with a lexicographically sorted domain (the parser's type
+    guess for the cases a tree frame holds)."""
+    toks = [None if t is None or t in _NA_STRINGS else str(t) for t in tokens]
+    vals = [t for t in toks if t is not None]
+    if not vals:
+        return Column(name, np.full(len(toks), np.nan), ColType.BAD)
+    if all(_is_number(t) for t in vals):
+        return Column(name, np.array(
+            [np.nan if t is None else float(t) for t in toks]), ColType.NUM)
+    return Column(name, np.array(toks, dtype=object), ColType.STR).as_factor()
+
+
+class Frame:
+    """A named collection of equal-length Columns (water/fvec/Frame.java)."""
+
+    def __init__(self, columns: Sequence[Column], key: Optional[str] = None) -> None:
+        cols = list(columns)
+        if cols:
+            n = len(cols[0])
+            for c in cols:
+                if len(c) != n:
+                    raise ValueError(
+                        f"column {c.name!r} has {len(c)} rows, expected {n}")
+        names = [c.name for c in cols]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate column names: {names}")
+        self._cols: List[Column] = cols
+        self.key = key
+
+    @staticmethod
+    def from_dict(d: Dict[str, Any]) -> "Frame":
+        cols = []
+        for name, vals in d.items():
+            if isinstance(vals, Column):
+                c = vals.copy()
+                c.name = name
+                cols.append(c)
+                continue
+            arr = np.asarray(vals)
+            if arr.dtype == object or arr.dtype.kind in "US":
+                cols.append(_column_from_strings(name, list(arr)))
+            else:
+                cols.append(Column(name, arr.astype(np.float64), ColType.NUM))
+        return Frame(cols)
+
+    @property
+    def nrows(self) -> int:
+        return len(self._cols[0]) if self._cols else 0
+
+    @property
+    def ncols(self) -> int:
+        return len(self._cols)
+
+    @property
+    def names(self) -> List[str]:
+        return [c.name for c in self._cols]
+
+    @property
+    def columns(self) -> List[Column]:
+        return list(self._cols)
+
+    def col(self, name_or_idx: Union[str, int]) -> Column:
+        if isinstance(name_or_idx, int):
+            return self._cols[name_or_idx]
+        for c in self._cols:
+            if c.name == name_or_idx:
+                return c
+        raise KeyError(f"no column {name_or_idx!r} in {self.names}")
+
+    def __repr__(self) -> str:
+        more = "..." if self.ncols > 8 else ""
+        return f"<Frame {self.nrows}x{self.ncols} {self.names[:8]}{more}>"

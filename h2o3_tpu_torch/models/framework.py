@@ -1,0 +1,250 @@
+"""Model framework — the port of ``h2o3_tpu/models/framework.py``.
+
+Parameters / Job / Model / ModelBuilder lifecycle (``hex/Model.java``,
+``hex/ModelBuilder.java:368-377``, ``water/Job.java``): validate the
+parameters, build, score, compute metrics. ``ModelBuilder.train`` resolves
+the device the build runs on once (``device.resolve_device``) and the model
+keeps it, so scoring runs where training ran.
+
+Not part of this package yet: the telemetry spans, homing a finished model
+on a cluster's serving ring, and cross-validation (``nfolds``/``fold_column``
+raise ``NotImplementedError``).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field as dataclass_field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.frame.frame import ColType, Column, Frame
+from h2o3_tpu_torch.keyed import DKV
+from h2o3_tpu_torch.models import metrics as M
+from h2o3_tpu_torch.models.data_info import DataInfo, response_vector
+
+
+@dataclass
+class ModelParameters:
+    """Common hyperparameters (hex/Model.Parameters).
+
+    ``device``: where the build runs — ``"cuda"``, ``"cpu"``, or None for
+    the innermost ``use_device`` block, else ``cuda``."""
+
+    response_column: Optional[str] = None
+    ignored_columns: List[str] = dataclass_field(default_factory=list)
+    weights_column: Optional[str] = None
+    offset_column: Optional[str] = None
+    fold_column: Optional[str] = None
+    nfolds: int = 0
+    fold_assignment: str = "auto"
+    keep_cross_validation_predictions: bool = False
+    seed: int = -1
+    max_runtime_secs: float = 0.0
+    stopping_rounds: int = 0
+    stopping_metric: str = "auto"
+    stopping_tolerance: float = 1e-3
+    categorical_encoding: str = "auto"
+    checkpoint: Optional[str] = None
+    device: Optional[str] = None
+
+    def actual_seed(self) -> int:
+        if self.seed is None or self.seed == -1:
+            return int(time.time_ns() % (2**31))
+        return int(self.seed)
+
+
+class Job:
+    """Progress-reporting handle (water/Job.java)."""
+
+    def __init__(self, description: str = "") -> None:
+        self.key = DKV.make_key("job")
+        self.description = description
+        self.progress = 0.0
+        self.status = "CREATED"
+        self.start_time: Optional[float] = None
+        self.end_time: Optional[float] = None
+        self.exception: Optional[BaseException] = None
+        DKV.put(self.key, self)
+
+    def start(self) -> "Job":
+        self.start_time = time.time()
+        self.status = "RUNNING"
+        return self
+
+    def done(self) -> None:
+        self.end_time = time.time()
+        self.progress = 1.0
+        self.status = "DONE"
+
+    def fail(self, e: BaseException) -> None:
+        self.end_time = time.time()
+        self.exception = e
+        self.status = "FAILED"
+
+
+def prediction_frame(raw: np.ndarray, domain, threshold: float = 0.5) -> Frame:
+    """Raw scores -> the predictions frame (Model.score layout): 'predict'
+    plus, for a classifier, one probability column per class. Binomial
+    labels threshold ``p[:, 1]``; multinomial labels take the argmax."""
+    if domain is None:
+        if raw.ndim == 1:
+            return Frame([Column("predict", raw.astype(np.float64), ColType.NUM)])
+        return Frame([
+            Column(f"C{k + 1}", raw[:, k].astype(np.float64), ColType.NUM)
+            for k in range(raw.shape[1])
+        ])
+    if raw.shape[1] == 2:
+        labels = (raw[:, 1] >= threshold).astype(np.int32)
+    else:
+        labels = raw.argmax(axis=1).astype(np.int32)
+    cols = [Column("predict", labels, ColType.CAT, list(domain))]
+    for k, lv in enumerate(domain):
+        cols.append(Column(f"p{lv}", raw[:, k].astype(np.float64), ColType.NUM))
+    return Frame(cols)
+
+
+class Model:
+    """Trained model: predict + metrics (hex/Model.java).
+
+    Subclasses implement ``_predict_raw(frame) -> np.ndarray``: [N] for
+    regression, [N, K] class probabilities for a classifier."""
+
+    algo_name: str = "model"
+
+    def __init__(self, params: ModelParameters, data_info: DataInfo,
+                 device: torch.device) -> None:
+        self.key = DKV.make_key(self.algo_name)
+        self.params = params
+        self.data_info = data_info
+        self.device = device
+        self.training_metrics: Optional[Any] = None
+        self.validation_metrics: Optional[Any] = None
+        self.scoring_history: List[Dict[str, Any]] = []
+        self.run_time: float = 0.0
+        DKV.put(self.key, self)
+
+    @property
+    def nclasses(self) -> int:
+        dom = self.data_info.response_domain
+        return len(dom) if dom else 1
+
+    @property
+    def is_classifier(self) -> bool:
+        return self.nclasses > 1
+
+    def _predict_raw(self, frame: Frame) -> np.ndarray:
+        raise NotImplementedError
+
+    def default_threshold(self) -> float:
+        """Binomial label threshold: the training max-F1
+        (Model._output.defaultThreshold())."""
+        return getattr(self.training_metrics, "max_f1_threshold", 0.5) or 0.5
+
+    def predict(self, frame: Frame) -> Frame:
+        """Predictions frame: 'predict' (+ per-class probability columns)."""
+        raw = self._predict_raw(frame)
+        if not self.is_classifier:
+            return prediction_frame(raw, None)
+        return prediction_frame(raw, self.data_info.response_domain,
+                                self.default_threshold())
+
+    def model_performance(self, frame: Frame) -> Any:
+        """Score a frame and build its ModelMetrics."""
+        raw = self._predict_raw(frame)
+        y = response_vector(self.data_info, frame)
+        w = (
+            frame.col(self.params.weights_column).numeric_view()
+            if self.params.weights_column
+            else None
+        )
+        if not self.is_classifier:
+            return M.regression_metrics(y, raw, weights=w)
+        if self.nclasses == 2:
+            return M.binomial_metrics(y, raw[:, 1], weights=w)
+        return M.multinomial_metrics(
+            y.astype(np.int64), raw, self.data_info.response_domain, weights=w
+        )
+
+    def __repr__(self) -> str:
+        return f"<{type(self).__name__} {self.key} metrics={self.training_metrics!r}>"
+
+
+class ModelBuilder:
+    """Train lifecycle (hex/ModelBuilder.java:368-377 trainModel).
+
+    Subclasses implement ``_fit(frame, valid, device) -> Model``."""
+
+    algo_name: str = "builder"
+
+    #: common ModelParameters fields this builder honors; any other guarded
+    #: field set to a non-default value raises instead of being ignored
+    SUPPORTED_COMMON: frozenset = frozenset()
+
+    _GUARDED_DEFAULTS = {
+        "weights_column": None,
+        "offset_column": None,
+        "checkpoint": None,
+        "stopping_rounds": 0,
+        "max_runtime_secs": 0.0,
+        "categorical_encoding": "auto",
+    }
+
+    def __init__(self, params: ModelParameters) -> None:
+        self.params = params
+        self.job: Optional[Job] = None
+
+    def _validate(self, frame: Frame) -> None:
+        p = self.params
+        for name, default in self._GUARDED_DEFAULTS.items():
+            val = getattr(p, name, default)
+            if val != default and name not in self.SUPPORTED_COMMON:
+                raise ValueError(
+                    f"{self.algo_name} does not support {name!r} "
+                    f"(got {val!r}); supported common params: "
+                    f"{sorted(self.SUPPORTED_COMMON) or 'none'}"
+                )
+        if p.nfolds or p.fold_column:
+            raise NotImplementedError(
+                "cross-validation (nfolds / fold_column) is not ported to "
+                "h2o3_tpu_torch yet (ROADMAP A5: host model layer)")
+        if p.response_column and p.response_column not in frame.names:
+            raise ValueError(f"response_column {p.response_column!r} not in frame")
+        if p.weights_column and p.weights_column not in frame.names:
+            raise ValueError(f"weights_column {p.weights_column!r} not in frame")
+
+    def _fit(self, frame: Frame, valid: Optional[Frame],
+             device: torch.device) -> Model:
+        raise NotImplementedError
+
+    def train(self, frame: Frame, valid: Optional[Frame] = None) -> Model:
+        self._validate(frame)
+        device = resolve_device(self.params.device)
+        self.job = Job(f"{self.algo_name} train").start()
+        t0 = time.time()
+        # the training frame(s) must not be deleted mid-build (Lockable)
+        locked = [
+            fr.key for fr in (frame, valid)
+            if fr is not None and getattr(fr, "key", None)
+        ]
+        for k in locked:
+            DKV.read_lock(k, self.job.key)
+        # a failed build leaves no half-built model in the DKV
+        DKV.scope_enter()
+        keep = [self.job.key]
+        try:
+            model = self._fit(frame, valid, device)
+            model.run_time = time.time() - t0
+            self.job.done()
+            keep = None
+            return model
+        except BaseException as e:
+            self.job.fail(e)
+            raise
+        finally:
+            DKV.scope_exit(keep=DKV.keys() if keep is None else keep)
+            for k in locked:
+                DKV.read_unlock(k, self.job.key)

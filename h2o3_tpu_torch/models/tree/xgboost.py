@@ -1,0 +1,124 @@
+"""XGBoost-style booster — the port of ``h2o3_tpu/models/tree/xgboost.py``.
+
+Second-order split gains with lambda/alpha/gamma regularization as
+libxgboost defines them (``h2o-extensions/xgboost``, ``grow_gpu_hist``), on
+the booster core of ``models/tree/booster.py``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.models.framework import ModelBuilder, ModelParameters
+from h2o3_tpu_torch.models.tree.booster import TreeParams, train_boosted
+from h2o3_tpu_torch.models.tree.common import (
+    TreeModelBase,
+    make_tree_monitor,
+    tree_fit_setup,
+)
+
+
+@dataclass
+class XGBoostParameters(ModelParameters):
+    ntrees: int = 50
+    max_depth: int = 6
+    learn_rate: float = 0.3  # eta
+    nbins: int = 256  # max_bins (hist/gpu_hist default)
+    min_rows: float = 1.0  # min_child_weight analogue on row counts
+    min_split_improvement: float = 0.0
+    reg_lambda: float = 1.0
+    reg_alpha: float = 0.0
+    gamma: float = 0.0
+    sample_rate: float = 1.0  # subsample
+    col_sample_rate_per_tree: float = 1.0  # colsample_bytree
+    distribution: str = "auto"
+    score_tree_interval: int = 1
+    tweedie_power: float = 1.5  # reg:tweedie variance power
+    monotone_constraints: Optional[dict] = None  # {col: -1|+1}
+    #: "kernel" | "plain" histogram; None: kernel on cuda, plain on cpu
+    hist_impl: Optional[str] = None
+    #: histogram subtraction; None: on for cuda, off for cpu
+    tree_subtract: Optional[bool] = None
+
+
+class XGBoostModel(TreeModelBase):
+    algo_name = "xgboost"
+
+
+class XGBoost(ModelBuilder):
+
+    SUPPORTED_COMMON = frozenset(
+        {
+            "checkpoint",
+            "stopping_rounds",
+            "weights_column",
+            "categorical_encoding",
+            "max_runtime_secs",
+        }
+    )
+    algo_name = "xgboost"
+
+    #: distributions the XGBoost objective surface supports (libxgboost's
+    #: reg:squarederror / binary:logistic / multi:softprob / count:poisson /
+    #: reg:gamma / reg:tweedie)
+    DISTRIBUTIONS = frozenset(
+        {"auto", "gaussian", "bernoulli", "multinomial", "poisson", "gamma", "tweedie"}
+    )
+
+    def __init__(self, params: Optional[XGBoostParameters] = None, **kw) -> None:
+        super().__init__(params or XGBoostParameters(**kw))
+
+    def _fit(self, frame: Frame, valid: Optional[Frame],
+             device: torch.device) -> XGBoostModel:
+        p: XGBoostParameters = self.params
+        if p.distribution not in self.DISTRIBUTIONS:
+            raise ValueError(
+                f"xgboost does not support distribution {p.distribution!r}; "
+                f"choose from {sorted(self.DISTRIBUTIONS)}"
+            )
+        model, X, y, weights, _, objective, f0, n_class_trees, mono = (
+            tree_fit_setup(frame, p, XGBoostModel, use_offset=False, device=device)
+        )
+        tp = TreeParams(
+            ntrees=p.ntrees,
+            max_depth=p.max_depth,
+            learn_rate=p.learn_rate,
+            nbins=p.nbins,
+            min_rows=p.min_rows,
+            min_split_improvement=p.min_split_improvement,
+            reg_lambda=p.reg_lambda,
+            reg_alpha=p.reg_alpha,
+            gamma=p.gamma,
+            sample_rate=p.sample_rate,
+            col_sample_rate_per_tree=p.col_sample_rate_per_tree,
+            seed=p.actual_seed(),
+        )
+        history = []
+        monitor, score_interval = make_tree_monitor(
+            model, p, objective, y, weights, history
+        )
+        model.booster = train_boosted(
+            X,
+            objective=objective,
+            y=y,
+            n_class_trees=n_class_trees,
+            init_margin=f0,
+            params=tp,
+            monitor=monitor,
+            score_interval=score_interval,
+            device=device,
+            timings=model.timings,
+            weights=weights,
+            monotone=mono,
+            hist_impl=p.hist_impl,
+            subtract=p.tree_subtract,
+        )
+        model.ntrees_built = model.booster.trees_per_class[0].ntrees
+        model.training_metrics = model.model_performance(frame)
+        if valid is not None:
+            model.validation_metrics = model.model_performance(valid)
+        return model

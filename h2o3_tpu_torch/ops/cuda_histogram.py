@@ -1,0 +1,233 @@
+"""The node-matmul histogram kernel for Hopper: build, binding and wrapper.
+
+Replaces the TPU kernel ``_nm_kernel`` (``h2o3_tpu/ops/pallas_histogram.py:94``,
+via ``_build_histogram_nodematmul`` :162): the [K, F, B1, 3] histogram of
+(Σg, Σh, Σw) per (node, feature, bin) for every node of one tree level in
+one pass. The CUDA source is ``h2o3_tpu_torch/csrc/hist_nodematmul.cu``; its
+header says what bounds it on the card and how its design keeps the result
+deterministic.
+
+- ``hist_nodematmul`` is the wrapper: on a CUDA tensor it launches the
+  kernel (or raises), on a CPU tensor it computes the plain version.
+- ``hist_nodematmul_reference`` is the plain PyTorch version: an
+  ``index_add_`` over the flat (node, feature, bin) index, accumulated in
+  float64 and rounded once to float32. The CPU tests hold it against the
+  JAX package, and ``chip_smoke.py`` holds the kernel against it.
+- The shared library is built from the source with ``nvcc`` on first use,
+  into ``h2o3_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded
+  with ``ctypes``. Nothing is built or imported at module import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "hist_nodematmul.cu"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+#: launches of each kernel, counted by its wrapper where it launches
+LAUNCHES: Dict[str, int] = {"hist_nodematmul": 0}
+
+#: most warps (one per feature) in one block
+_MAX_WARPS_PER_BLOCK = 8
+#: shared memory a block may use on Hopper (227 KB opt-in limit)
+_SMEM_LIMIT = 232_448
+#: longest row chunk one warp sums in float before the float64 reduce
+_MAX_CHUNK_ROWS = 32_768
+#: shortest row chunk worth a warp of its own
+_MIN_CHUNK_ROWS = 1_024
+#: (feature, chunk) warps wanted per call: 16 for each of the card's 132 SMs
+_TARGET_WARPS = 132 * 16
+
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: nvcc's output (ptxas register and shared-memory report) of the last build
+BUILD_LOG = ""
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _smem_bytes(n_nodes: int, n_bins1: int, warps_per_block: int) -> int:
+    """Dynamic shared memory of one block (smem_bytes in the CUDA source):
+    per warp a [K, 3, B1] histogram and a [3, 32] lane scratch."""
+    return 4 * warps_per_block * (n_nodes * 3 * n_bins1 + 3 * 32)
+
+
+def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
+                n_bins1: int) -> Tuple[int, int, int]:
+    """(warps per block, chunk rows, chunks) for one call.
+
+    The row chunks are a function of (rows, features) alone, so the float
+    summation order — and the result — is the same on every run and every
+    card, and does not change with the node count: a level padded to more
+    nodes gives bit-identical cells. Raises ValueError when one warp's
+    [K, 3, B1] histogram does not fit in shared memory."""
+    per_warp = _smem_bytes(n_nodes, n_bins1, 1)
+    if per_warp > _SMEM_LIMIT:
+        raise ValueError(
+            f"hist_nodematmul: {n_nodes} nodes x {n_bins1} bins do not fit "
+            f"one block's shared memory ({_SMEM_LIMIT} bytes)")
+    wpb = max(1, min(n_feat, _MAX_WARPS_PER_BLOCK, _SMEM_LIMIT // per_warp))
+    n_chunks = max(-(-n_rows // _MAX_CHUNK_ROWS),
+                   min(-(-n_rows // _MIN_CHUNK_ROWS), -(-_TARGET_WARPS // n_feat)))
+    n_chunks = max(1, n_chunks)
+    chunk_rows = -(-n_rows // n_chunks)
+    chunk_rows = -(-chunk_rows // 32) * 32
+    return wpb, chunk_rows, -(-n_rows // chunk_rows)
+
+
+def _build() -> Path:
+    """Compile the source into BUILD_DIR (once per source content)."""
+    global BUILD_LOG
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"libhist_nodematmul_{digest}.so"
+    if out.exists():
+        return out
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: cannot build the hist_nodematmul kernel")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+            capture_output=True, text=True,
+        )
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{BUILD_LOG}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (at first use) and load the kernel library."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.hist_nodematmul_launch.argtypes = [
+                p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+            lib.hist_nodematmul_launch.restype = i
+            lib.hist_nodematmul_error_string.argtypes = [i]
+            lib.hist_nodematmul_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def hist_nodematmul_reference(
+    bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
+    h: torch.Tensor, n_nodes: int, n_bins1: int,
+    rw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw).
+
+    bins_fm: [F, N] int bin codes (feature-major); nodes: [N] int (-1 =
+    inactive row); g, h: [N] float; rw: optional [N] count weight. An
+    ``index_add_`` per channel over the flat (node, feature, bin) index,
+    in float64 so the float32 result is the correctly rounded sum."""
+    n_feat, n = bins_fm.shape
+    dev = bins_fm.device
+    valid = nodes >= 0
+    node = torch.where(valid, nodes, 0).long()
+    flat = ((node[None, :] * n_feat
+             + torch.arange(n_feat, device=dev)[:, None]) * n_bins1
+            + bins_fm.long()).reshape(-1)
+    w = valid.double()
+    cw = w if rw is None else w * rw.double()
+    size = n_nodes * n_feat * n_bins1
+    out = torch.zeros(3, size, dtype=torch.float64, device=dev)
+    for c, v in enumerate((g.double() * w, h.double() * w, cw)):
+        out[c].index_add_(0, flat, v.expand(n_feat, n).reshape(-1))
+    return out.reshape(3, n_nodes, n_feat, n_bins1).permute(1, 2, 3, 0) \
+        .float().contiguous()
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"hist_nodematmul: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"hist_nodematmul: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(
+            f"hist_nodematmul: {name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"hist_nodematmul: {name} must be contiguous")
+
+
+def hist_nodematmul(
+    bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
+    h: torch.Tensor, n_nodes: int, n_bins1: int,
+    rw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw) per (node, feature,
+    bin) over the rows whose node is >= 0. Bin codes lie in [0, n_bins1)
+    and nodes in [-1, n_nodes), as the booster makes them.
+
+    On a CUDA tensor: launches the kernel on the current stream (bins_fm
+    [F, N] int32, nodes [N] int32, g/h/rw [N] float32, all contiguous on one
+    card) and raises on anything else or on a launch error. On a CPU
+    tensor: the plain version, ``hist_nodematmul_reference``."""
+    if bins_fm.device.type == "cpu":
+        return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+    if bins_fm.device.type != "cuda":
+        raise ValueError(f"hist_nodematmul: unsupported device {bins_fm.device}")
+    dev = bins_fm.device
+    if bins_fm.dim() != 2:
+        raise ValueError("hist_nodematmul: bins_fm must be [F, N]")
+    n_feat, n = bins_fm.shape
+    _check("bins_fm", bins_fm, torch.int32, (n_feat, n), dev)
+    _check("nodes", nodes, torch.int32, (n,), dev)
+    _check("g", g, torch.float32, (n,), dev)
+    _check("h", h, torch.float32, (n,), dev)
+    if rw is not None:
+        _check("rw", rw, torch.float32, (n,), dev)
+    if n_nodes < 1 or n_bins1 < 1:
+        raise ValueError("hist_nodematmul: n_nodes and n_bins1 must be >= 1")
+    out = torch.empty((n_nodes, n_feat, n_bins1, 3), dtype=torch.float32, device=dev)
+    if n == 0 or n_feat == 0:
+        return out.zero_()
+    wpb, chunk_rows, n_chunks = launch_plan(n, n_feat, n_nodes, n_bins1)
+    partial = torch.empty(
+        (n_chunks, n_feat, n_nodes, 3, n_bins1), dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hist_nodematmul_launch(
+            bins_fm.data_ptr(), nodes.data_ptr(), g.data_ptr(), h.data_ptr(),
+            None if rw is None else rw.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n, n_feat, n_nodes, n_bins1, wpb, chunk_rows,
+            n_chunks, stream,
+        )
+    if err != 0:
+        msg = lib.hist_nodematmul_error_string(err).decode()
+        raise RuntimeError(f"hist_nodematmul launch failed: {msg} (cuda error {err})")
+    LAUNCHES["hist_nodematmul"] += 1
+    return out

@@ -61,6 +61,11 @@ def pytest_configure(config):
         "slow: excluded from the tier-1 run (-m 'not slow'): multi-node "
         "formation tests and other long-wall-clock coverage",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels "
+        "have no CPU mode); skips without one",
+    )
 
 
 def _sweep_keys(keys):

@@ -1,0 +1,150 @@
+"""Parity: the PyTorch port's booster pieces vs the JAX package on the CPU.
+
+``grad_hess_device`` for every objective family, ``_split_search`` (with
+and without the subtraction flow's child stats), the ensemble scorer
+``_predict_stacked``, and the parameters that are not ported yet, which
+must raise ``NotImplementedError`` rather than fall back.
+
+Tolerances: float32 elementwise math in two frameworks (rtol 1e-6 for
+g/h); split decisions are compared exactly on inputs whose best gains are
+well separated, and gains/leaf values at rtol 1e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from h2o3_tpu.models.tree import booster as jb
+from h2o3_tpu_torch import use_device
+from h2o3_tpu_torch.models.tree import booster as tb
+
+torch.set_num_threads(1)
+
+OBJECTIVES = [
+    "gaussian", "bernoulli", "multinomial", "poisson", "gamma", "tweedie:1.5",
+    "huber:0.7", "laplace", "quantile:0.3",
+]
+
+
+@pytest.mark.parametrize("objective", OBJECTIVES)
+def test_grad_hess_matches_jax(objective):
+    rng = np.random.default_rng(len(objective))
+    n = 500
+    C = 3 if objective == "multinomial" else 1
+    margin = rng.normal(size=(n, C)).astype(np.float32)
+    if objective == "multinomial":
+        y = rng.integers(0, C, size=n).astype(np.float32)
+    elif objective == "bernoulli":
+        y = rng.integers(0, 2, size=n).astype(np.float32)
+    elif objective.partition(":")[0] in ("poisson", "gamma", "tweedie"):
+        y = rng.gamma(2.0, size=n).astype(np.float32) + 0.01
+    else:
+        y = rng.normal(size=n).astype(np.float32)
+    gj, hj = jb.grad_hess_device(objective, jnp.asarray(y), jnp.asarray(margin))
+    gt, ht = tb.grad_hess_device(objective, torch.from_numpy(y), torch.from_numpy(margin))
+    assert gt.shape == (n, C) and ht.shape == (n, C)
+    assert gt.dtype == torch.float32 and ht.dtype == torch.float32
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=1e-6, atol=1e-6)
+
+
+def test_grad_hess_fixed_targets():
+    y = np.arange(12, dtype=np.float32).reshape(6, 2)
+    g, h = tb.grad_hess_device("fixed", torch.from_numpy(y), torch.zeros(6, 2))
+    np.testing.assert_array_equal(g.numpy(), -y)
+    np.testing.assert_array_equal(h.numpy(), np.ones_like(y))
+
+
+def test_custom_objective_raises():
+    with pytest.raises(NotImplementedError, match="A11"):
+        tb.grad_hess_device("custom:mine", torch.zeros(3), torch.zeros(3, 1))
+
+
+def _random_hist(rng, k, f, b1):
+    """A level histogram with integer counts, consistent totals across
+    features (every row lands in one bin of every feature), and one node
+    too small to split."""
+    n = 400 * k
+    nodes = rng.integers(0, k, size=n)
+    nodes[nodes == k - 1] = 0
+    nodes[: 3] = k - 1  # a 3-row node: min_rows blocks every split
+    bins = rng.integers(0, b1, size=(n, f))
+    g = rng.normal(size=n) + 0.8 * (bins[:, 0] > b1 // 2)  # feature 0 splits
+    h = rng.random(n) + 0.2
+    hist = np.zeros((k, f, b1, 3), np.float32)
+    for j in range(f):
+        np.add.at(hist, (nodes, j, bins[:, j]), np.stack([g, h, np.ones(n)], 1))
+    return hist
+
+
+@pytest.mark.parametrize("child_stats", [False, True])
+@pytest.mark.parametrize("lam,alpha,gamma,min_rows", [
+    (1.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.0, 10.0), (2.0, 0.3, 0.1, 5.0)])
+def test_split_search_matches_jax(child_stats, lam, alpha, gamma, min_rows):
+    rng = np.random.default_rng(int(lam * 10 + min_rows))
+    k, f, b1 = 4, 5, 17
+    hist = _random_hist(rng, k, f, b1)
+    mask = np.ones(f, bool)
+    mask[3] = False
+    want = jb._split_search(
+        jnp.asarray(hist), jnp.float32(lam), jnp.float32(alpha),
+        jnp.float32(gamma), jnp.float32(0.1), jnp.asarray(mask),
+        min_rows=min_rows, n_bins1=b1, child_stats=child_stats)
+    got = tb._split_search(
+        torch.from_numpy(hist), lam, alpha, gamma, 0.1, torch.from_numpy(mask),
+        min_rows=min_rows, n_bins1=b1, child_stats=child_stats)
+    assert len(got) == len(want)
+    feat, bin_, dl, gain = (np.asarray(w) for w in want[:4])
+    np.testing.assert_array_equal(got[0].numpy(), feat)
+    np.testing.assert_array_equal(got[1].numpy(), bin_)
+    np.testing.assert_array_equal(got[2].numpy(), dl)
+    if min_rows > 3:  # the 3-row node has no allowed split
+        assert np.isneginf(gain[-1]) and np.isneginf(got[3][-1].item())
+    np.testing.assert_allclose(got[3].numpy(), gain, rtol=1e-5, atol=1e-6)
+    for g_, w_ in zip(got[4:], want[4:]):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
+
+
+def test_predict_stacked_matches_jax():
+    rng = np.random.default_rng(9)
+    depth, b1, n, f, T = 3, 9, 600, 4, 5
+    M = 2 ** (depth + 1) - 1
+    bins = rng.integers(0, b1, size=(n, f)).astype(np.int32)
+    feat = rng.integers(0, f, size=(T, M)).astype(np.int32)
+    split_bin = rng.integers(0, b1 - 1, size=(T, M)).astype(np.int32)
+    default_left = rng.random((T, M)) < 0.5
+    is_split = rng.random((T, M)) < 0.7
+    leaf = rng.normal(size=(T, M)).astype(np.float32)
+    want = jb._predict_stacked(
+        jnp.asarray(bins), jnp.asarray(feat), jnp.asarray(split_bin),
+        jnp.asarray(default_left), jnp.asarray(is_split), jnp.asarray(leaf),
+        max_depth=depth, n_bins1_arr=jnp.int32(b1))
+    t = torch.from_numpy
+    got = tb._predict_stacked(
+        t(np.ascontiguousarray(bins.T)), t(feat), t(split_bin), t(default_left),
+        t(is_split), t(leaf), max_depth=depth, n_bins1=b1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+class _DistX(np.ndarray):
+    is_dist_hist = True
+
+
+@pytest.mark.parametrize("change,item", [
+    (dict(params=dict(sample_rate=0.5)), "A1"),
+    (dict(params=dict(col_sample_rate_per_tree=0.5)), "A1"),
+    (dict(params=dict(mtries=2)), "A1"),
+    (dict(monotone=np.array([1, 0])), "A4"),
+    (dict(resume_from=object()), "A4"),
+    (dict(dist=True), "A10"),
+])
+def test_unported_parameters_raise(change, item):
+    X = np.random.default_rng(0).normal(size=(50, 2)).astype(np.float32)
+    if change.get("dist"):
+        X = X.view(_DistX)
+    kw = {k: v for k, v in change.items() if k not in ("params", "dist")}
+    p = tb.TreeParams(ntrees=1, max_depth=2, nbins=8, **change.get("params", {}))
+    with use_device("cpu"), pytest.raises(NotImplementedError, match=item):
+        tb.train_boosted(X, "gaussian", X[:, 0], 1, np.zeros(1), p, **kw)

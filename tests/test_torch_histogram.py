@@ -1,0 +1,167 @@
+"""Parity: the PyTorch port's histogram (h2o3_tpu_torch.ops) vs the JAX package.
+
+The port's CPU histogram is the plain version of its CUDA kernel
+(``hist_nodematmul_reference``, an ``index_add_`` accumulated in float64).
+It is held here to the JAX scatter oracle ``_shard_histogram`` and to the
+Pallas node-matmul kernel run in interpret mode with f32 operands, over the
+shape matrix of ``tests/test_pallas_histogram.py``. Tolerance: the f32
+tolerance that file uses (rtol 1e-5, atol 1e-4) — the two packages add the
+same float32 values in different orders; counts are exact.
+
+The kernel itself runs only on the card: see ``tests/test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from h2o3_tpu.ops.histogram import (
+    _shard_histogram,
+    _shard_node_totals,
+    apply_bins as jax_apply_bins,
+    make_bins as jax_make_bins,
+    pad_nodes as jax_pad_nodes,
+)
+from h2o3_tpu.ops.pallas_histogram import build_histogram_pallas
+from h2o3_tpu_torch.ops import cuda_histogram as ch
+from h2o3_tpu_torch.ops.histogram import (
+    apply_bins,
+    build_histogram,
+    make_bins,
+    node_totals,
+    pad_nodes,
+)
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-4
+
+
+def _mk(n, f, k, b1, seed, frac_inactive=0.0, empty_node=None, weighted=False):
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, b1, size=(n, f)).astype(np.int32)
+    nodes = rng.integers(0, k, size=n).astype(np.int32)
+    if empty_node is not None:
+        nodes[nodes == empty_node] = (empty_node + 1) % k
+    if frac_inactive:
+        nodes[rng.random(n) < frac_inactive] = -1
+    g = rng.normal(size=n).astype(np.float32)
+    h = rng.random(n).astype(np.float32) + 0.1
+    rw = rng.integers(1, 4, size=n).astype(np.float32) if weighted else None
+    return bins, nodes, g, h, rw
+
+
+def _port(bins, nodes, g, h, k, b1, rw=None):
+    t = torch.from_numpy
+    return build_histogram(
+        t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1,
+        rw=None if rw is None else t(rw)).numpy()
+
+
+def _jax_both(bins, nodes, g, h, k, b1, row_tile, rw=None):
+    scatter = np.asarray(_shard_histogram(bins, nodes, g, h, k, b1, rw=rw))
+    pallas = np.asarray(build_histogram_pallas(
+        bins, nodes, g, h, k, b1, row_tile=row_tile, interpret=True,
+        kernel="nodematmul", rw=rw, dtype="f32"))
+    return scatter, pallas
+
+
+def _assert_hist_close(got, want):
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])  # counts exact
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "n,f,k,b1,row_tile",
+    [
+        (1000, 5, 4, 17, 128),
+        (513, 3, 1, 9, 256),      # single node, non-divisible rows
+        (2048, 7, 8, 33, 512),
+        (900, 11, 4, 17, 128),    # features not a multiple of the 8-wide block
+    ],
+)
+def test_plain_matches_jax(n, f, k, b1, row_tile):
+    bins, nodes, g, h, _ = _mk(n, f, k, b1, seed=n)
+    got = _port(bins, nodes, g, h, k, b1)
+    scatter, pallas = _jax_both(bins, nodes, g, h, k, b1, row_tile)
+    assert got.shape == (k, f, b1, 3)
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_inactive_rows_empty_nodes_and_count_weight(weighted):
+    bins, nodes, g, h, rw = _mk(
+        1500, 4, 6, 13, seed=7, frac_inactive=0.3, empty_node=2, weighted=weighted)
+    got = _port(bins, nodes, g, h, 6, 13, rw=rw)
+    scatter, pallas = _jax_both(bins, nodes, g, h, 6, 13, 128, rw=rw)
+    assert np.all(got[2] == 0)  # the empty node is exactly zero
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+
+
+def test_counts_are_exact_integers():
+    bins, nodes, g, h, _ = _mk(700, 2, 3, 5, seed=3)
+    counts = _port(bins, nodes, g, h, 3, 5)[..., 2]
+    np.testing.assert_array_equal(counts, np.round(counts))
+    assert counts.sum() == 700 * 2
+
+
+def test_wrapper_on_cpu_tensors_is_the_plain_version():
+    bins, nodes, g, h, rw = _mk(777, 6, 5, 11, seed=11, frac_inactive=0.2,
+                                weighted=True)
+    args = (torch.from_numpy(np.ascontiguousarray(bins.T)), torch.from_numpy(nodes),
+            torch.from_numpy(g), torch.from_numpy(h), 5, 11)
+    before = dict(ch.LAUNCHES)
+    a = ch.hist_nodematmul(*args, rw=torch.from_numpy(rw))
+    b = ch.hist_nodematmul_reference(*args, rw=torch.from_numpy(rw))
+    assert torch.equal(a, b)
+    assert ch.LAUNCHES == before  # the plain version launches nothing
+
+
+def test_padded_node_bucket_is_bit_identical():
+    # 5 nodes pad to the 8-bucket; 40 to the 64-bucket: slicing the real
+    # nodes back out must equal the unpadded build bit for bit
+    for k in (5, 40):
+        assert pad_nodes(k) != k
+        bins, nodes, g, h, rw = _mk(1200, 4, k, 9, seed=k, frac_inactive=0.1,
+                                    weighted=True)
+        t = torch.from_numpy
+        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h))
+        padded = ch.hist_nodematmul_reference(*args, pad_nodes(k), 9, rw=t(rw))
+        unpadded = build_histogram(*args, k, 9, rw=t(rw))
+        assert torch.equal(padded[:k], unpadded)
+        assert torch.all(padded[k:] == 0)
+        tot_pad = node_totals(t(nodes), t(g), t(h), pad_nodes(k), rw=t(rw))[:k]
+        assert torch.equal(tot_pad, node_totals(t(nodes), t(g), t(h), k, rw=t(rw)))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_node_totals_match_jax(weighted):
+    _, nodes, g, h, rw = _mk(1100, 1, 7, 3, seed=5, frac_inactive=0.25,
+                             weighted=weighted)
+    t = torch.from_numpy
+    got = node_totals(t(nodes), t(g), t(h), 7,
+                      rw=None if rw is None else t(rw)).numpy()
+    want = np.asarray(_shard_node_totals(nodes, g, h, 7, rw=rw))
+    np.testing.assert_array_equal(got[:, 2], want[:, 2])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_pad_nodes_ladder_matches_jax():
+    for k in range(1, 700):
+        assert pad_nodes(k) == jax_pad_nodes(k)
+
+
+@pytest.mark.parametrize("n,f,nbins", [(5000, 6, 256), (3000, 4, 20), (8, 400, 16)])
+def test_bins_bit_identical(n, f, nbins):
+    rng = np.random.default_rng(n + f)
+    X = rng.normal(size=(n, f))
+    X[rng.random((n, f)) < 0.1] = np.nan
+    X[:, 0] = np.round(X[:, 0])  # low cardinality: midpoint edges
+    edges = make_bins(X, nbins, seed=3)
+    np.testing.assert_array_equal(edges, jax_make_bins(X, nbins, seed=3))
+    codes = apply_bins(X, edges)
+    np.testing.assert_array_equal(codes, jax_apply_bins(X, edges))
+    assert codes.dtype == np.int32 and codes.max() <= nbins

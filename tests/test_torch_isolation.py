@@ -1,0 +1,115 @@
+"""The PyTorch port stands alone: ``h2o3_tpu_torch`` and ``chip_smoke.py``
+import neither ``jax`` nor anything of ``h2o3_tpu``, and the port's entry
+points refuse to run quietly on the CPU when no card is present.
+
+Mind the prefix: ``h2o3_tpu_torch`` starts with ``h2o3_tpu``, so the
+import check matches ``h2o3_tpu`` only when a ``.``, a space or the end of
+the name follows it.
+"""
+
+import ast
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import h2o3_tpu_torch as ht
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = re.compile(r"^(jax|jaxlib|h2o3_tpu)(\.|\s|$)")
+
+
+def _port_files():
+    files = sorted((ROOT / "h2o3_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            yield ("." * node.level) + (node.module or "")
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None)
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_matcher_minds_the_prefix():
+    for bad in ("jax", "jax.numpy", "h2o3_tpu", "h2o3_tpu.ops.histogram", "jaxlib"):
+        assert FORBIDDEN.match(bad), bad
+    for ok in ("h2o3_tpu_torch", "h2o3_tpu_torch.ops", "jaxtyping", "torch"):
+        assert not FORBIDDEN.match(ok), ok
+
+
+def test_no_jax_or_reference_imports_in_the_port():
+    files = _port_files()
+    assert len(files) > 10
+    bad = [(str(p.relative_to(ROOT)), m) for p in files
+           for m in _imported_modules(p) if FORBIDDEN.match(m)]
+    assert not bad, bad
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["h2o3_tpu"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import h2o3_tpu_torch as ht
+        rng = np.random.default_rng(0)
+        X = rng.normal(size=(300, 3))
+        fr = ht.Frame.from_dict({"a": X[:, 0], "b": X[:, 1], "c": X[:, 2],
+                                 "y": np.where(X[:, 0] > 0, "p", "q")})
+        with ht.use_device("cpu"):
+            m = ht.XGBoost(ntrees=2, max_depth=2, response_column="y",
+                           seed=1).train(fr)
+            m.predict(fr)
+        assert m.training_metrics.auc > 0.9
+        leaked = [k for k in sys.modules
+                  if k.split(".")[0] in ("jax", "jaxlib", "h2o3_tpu")
+                  and sys.modules[k] is not None]
+        assert not leaked, leaked
+        print("ISOLATED-OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=str(ROOT), env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "ISOLATED-OK" in proc.stdout
+
+
+def test_entry_points_refuse_the_cpu_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    fr = ht.Frame.from_dict({"a": np.arange(20.0), "y": np.arange(20.0) % 3})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.XGBoost(ntrees=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.GBM(ntrees=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.resolve_device("cuda")
+    m = ht.GBM(ntrees=1, max_depth=2, response_column="y", device="cpu").train(fr)
+    assert m.device == torch.device("cpu")
+
+
+def test_use_device_nests_and_restores():
+    with ht.use_device("cpu") as dev:
+        assert ht.resolve_device() == dev == torch.device("cpu")
+        with ht.use_device("cpu"):
+            assert ht.resolve_device().type == "cpu"
+        assert ht.resolve_device().type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            ht.resolve_device()

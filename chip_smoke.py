@@ -6,23 +6,35 @@
 Run from the root of a checkout. Phases, each of which must pass:
 
 1. a CUDA card is present (else exit 2); print its name and power limit;
-2. build the histogram kernel from ``h2o3_tpu_torch/csrc`` with nvcc;
-3. hold the kernel against its plain PyTorch version on the card at the
-   shapes the fits give it (N rows x 28 features, 257 and 21 bins, 1 to 64
-   nodes, 11 features, 30% inactive rows with one empty node, with and
-   without a count weight): rtol 1e-5 / atol 1e-4 on Σg/Σh, counts exact,
-   empty node exactly zero, two calls bit-identical and so the build for
-   the padded node count; time the kernel, the plain version and one
-   ``index_add_`` call;
-4. train XGBoost (10 trees, defaults: depth 6, 256 bins) on a HIGGS-shaped
-   frame (N x 28 numeric, binary response), predict, score; check that the
-   kernel ran once per level built, that AUC is finite and above 0.5, that
-   the same fit with the plain histogram on the card gives the same trees
-   (or AUC within 1e-4), and that a small fit on the card gives the same
-   trees as on the CPU;
-5. the same for GBM (10 trees, defaults: depth 5, 20 bins);
-6. with ``--profile``, one more XGBoost fit under ``torch.profiler``: device
-   time by kernel, and the device's idle share of the fit.
+2. build both histogram kernels from ``h2o3_tpu_torch/csrc`` with nvcc, one
+   nvcc per source, started together;
+3. hold the node-matmul kernel (``hist_nodematmul``) against its plain
+   PyTorch version on the card at the shapes the fits give it (N rows x 28
+   features, 257 and 21 bins, 1 to 64 nodes, 11 features, 30% inactive
+   rows with one empty node, with and without a count weight): rtol 1e-5 /
+   atol 1e-4 on Σg/Σh, counts exact, empty node exactly zero, two calls
+   bit-identical and so the build for the padded node count; time the
+   kernel, the plain version and one ``index_add_`` call;
+4. the same for the sorted per-node kernel (``hist_sorted``) at DRF's wide
+   levels (N x 28, 21 bins, 128 / 1024 / 2048 nodes; 257 bins at 512
+   nodes; 11 features at 300 nodes with a count weight; 30% inactive rows,
+   empty nodes in the middle of the range), and against the node-matmul
+   kernel at 64 nodes;
+5. the port's ``jax.random`` streams (``util/jrandom.py``) give on the card
+   the bits they give on the CPU;
+6. train XGBoost (``--trees`` trees, defaults: depth 6, 256 bins) on a
+   HIGGS-shaped frame (N x 28 numeric, binary response), predict, score;
+   check that each kernel ran exactly once per level it serves, that AUC
+   is finite and above 0.5, that the same fit with the plain histogram on
+   the card gives the same trees (or AUC within 1e-4), and that a small
+   fit on the card gives the same trees as on the CPU;
+7. the same for GBM (``--trees`` trees, defaults: depth 5, 20 bins);
+8. the same for DRF at its defaults (``--drf-trees`` 50 trees, depth 12,
+   20 bins, sample_rate 0.632, mtries sqrt(F)): 8 node-matmul and 4 sorted
+   launches per tree;
+9. with ``--profile``, one more XGBoost fit and one more DRF fit under
+   ``torch.profiler``: device time by kernel, and the device's idle share
+   of the fit.
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -88,52 +100,77 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_case(n, n_feat, n_bins1, k, weighted, seed, dev):
-    """One kernel-vs-plain check on k nodes; returns its record."""
-    import torch
-
+def kernel_fns(kernel: str):
+    """(wrapper, plain version) of one of the port's histogram kernels."""
     from h2o3_tpu_torch.ops import cuda_histogram as ch
-    from h2o3_tpu_torch.ops.histogram import pad_nodes
+    from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
+
+    return {
+        "hist_nodematmul": (ch.hist_nodematmul, ch.hist_nodematmul_reference),
+        "hist_sorted": (cs.hist_sorted, cs.hist_sorted_reference),
+    }[kernel]
+
+
+def kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev, empty_run=False):
+    """Random level inputs: 30% inactive rows, node k // 2 empty, and with
+    ``empty_run`` also nodes k // 3 .. k // 3 + 4. Returns (args, rw,
+    empty nodes)."""
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     bins_fm = torch.randint(0, n_bins1, (n_feat, n), generator=gen,
                             device=dev, dtype=torch.int32)
     nodes = torch.randint(0, k, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
-    empty = k // 2 if k >= 3 else None
-    if empty is not None:
-        nodes[nodes == empty] = empty + 1
+    empty = [k // 2] if k >= 3 else []
+    if empty:
+        nodes[nodes == empty[0]] = empty[0] + 1
+    if empty_run and k >= 16:
+        lo = k // 3
+        nodes[(nodes >= lo) & (nodes < lo + 5)] = lo + 5
+        empty += list(range(lo, lo + 5))
     nodes[torch.rand(n, generator=gen, device=dev) < 0.3] = -1
     g = torch.rand(n, generator=gen, device=dev) * 2 - 1
     h = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
     rw = (torch.randint(1, 4, (n,), generator=gen, device=dev).float()
           if weighted else None)
+    return (bins_fm, nodes, g, h, k, n_bins1), rw, empty
 
-    a = ch.hist_nodematmul(bins_fm, nodes, g, h, k, n_bins1, rw=rw)
-    b = ch.hist_nodematmul(bins_fm, nodes, g, h, k, n_bins1, rw=rw)
-    ref = ch.hist_nodematmul_reference(bins_fm, nodes, g, h, k, n_bins1, rw=rw)
+
+def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
+    """One kernel-vs-plain check of ``kernel`` on k nodes; returns its record."""
+    import torch
+
+    from h2o3_tpu_torch.ops.histogram import pad_nodes
+
+    wrapper, reference = kernel_fns(kernel)
+    args, rw, empty = kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev,
+                                    empty_run=kernel == "hist_sorted")
+    bins_fm, nodes, g, h, _, _ = args
+
+    a = wrapper(*args, rw=rw)
+    b = wrapper(*args, rw=rw)
+    ref = reference(*args, rw=rw)
     torch.cuda.synchronize()
-    name = f"N={n} F={n_feat} B1={n_bins1} K={k}{' rw' if weighted else ''}"
+    name = f"{kernel} N={n} F={n_feat} B1={n_bins1} K={k}{' rw' if weighted else ''}"
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: two kernel calls differ")
     k_pad = pad_nodes(k)
-    if not torch.equal(ch.hist_nodematmul(bins_fm, nodes, g, h, k_pad, n_bins1, rw=rw)[:k], a):
+    if kernel == "hist_nodematmul" and not torch.equal(
+            wrapper(bins_fm, nodes, g, h, k_pad, n_bins1, rw=rw)[:k], a):
         raise AssertionError(f"{name}: the build for {k_pad} padded nodes differs")
     if not torch.equal(a[..., 2], ref[..., 2]):
         raise AssertionError(f"{name}: counts differ from the plain version")
-    if empty is not None and not torch.all(a[empty] == 0):
-        raise AssertionError(f"{name}: empty node {empty} is not exactly zero")
+    if empty and not torch.all(a[empty] == 0):
+        raise AssertionError(f"{name}: empty nodes {empty} are not exactly zero")
     if not torch.allclose(a, ref, rtol=RTOL, atol=ATOL):
         raise AssertionError(
             f"{name}: max |kernel - plain| {(a - ref).abs().max().item()} "
             f"outside rtol {RTOL} / atol {ATOL}")
     max_err = (a - ref).abs().max().item()
 
-    ms = time_ms(lambda: ch.hist_nodematmul(bins_fm, nodes, g, h, k, n_bins1, rw=rw),
-                 reps=10)
-    plain_ms = time_ms(
-        lambda: ch.hist_nodematmul_reference(bins_fm, nodes, g, h, k, n_bins1, rw=rw),
-        reps=3)
+    ms = time_ms(lambda: wrapper(*args, rw=rw), reps=10)
+    plain_ms = time_ms(lambda: reference(*args, rw=rw), reps=3)
     # the one PyTorch call computing the same function: index_add_ of the
     # [N*F, 3] masked (g, h, w) rows at the flat (node, feature, bin) index
     valid = nodes >= 0
@@ -154,11 +191,63 @@ def kernel_case(n, n_feat, n_bins1, k, weighted, seed, dev):
     bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 3 * n_active * n_feat / FP32_OPS_PER_S * 1e3
     rec = {
-        "case": name, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "kernel": kernel, "case": name, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
     print(f"kernel check ok: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def cross_check(n, n_feat, n_bins1, k, seed, dev):
+    """The sorted kernel against the node-matmul kernel on one level both
+    serve: counts exact, sums within the tolerance."""
+    import torch
+
+    from h2o3_tpu_torch.ops import cuda_histogram as ch
+    from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
+
+    args, rw, _ = kernel_inputs(n, n_feat, n_bins1, k, True, seed, dev, empty_run=True)
+    a = cs.hist_sorted(*args, rw=rw)
+    b = ch.hist_nodematmul(*args, rw=rw)
+    torch.cuda.synchronize()
+    name = f"hist_sorted vs hist_nodematmul N={n} F={n_feat} B1={n_bins1} K={k} rw"
+    if not torch.equal(a[..., 2], b[..., 2]):
+        raise AssertionError(f"{name}: counts differ")
+    if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{name}: max diff {(a - b).abs().max().item()}")
+    rec = {"case": name, "max_abs_diff": (a - b).abs().max().item()}
+    print(f"cross check ok: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def jrandom_check(dev):
+    """The port's jax.random streams give the same bits on the card as on
+    the CPU: uniforms at the shapes a fit draws, and key splits computed as
+    tensors on the card against the host's integer keys."""
+    import torch
+
+    from h2o3_tpu_torch.util import jrandom as jr
+
+    n_checked = 0
+    for seed in (0, 42, 2**31 + 3, -1):
+        key = jr.fold_in(jr.PRNGKey(seed), 7)
+        for shape in ((2_000_000,), (1024, 28), (28,), (3, 5), (1,)):
+            a = jr.uniform(key, shape, dev).cpu()
+            b = jr.uniform(key, shape, "cpu")
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"jrandom: uniform{shape} seed {seed} differs on the card")
+            n_checked += 1
+        counter = torch.arange(64, dtype=torch.int64, device=dev)
+        k0, k1 = jr.threefry2x32(key[0], key[1], torch.zeros_like(counter), counter)
+        if list(zip(k0.tolist(), k1.tolist())) != jr.split(key, 64):
+            raise AssertionError(f"jrandom: split keys of seed {seed} differ on the card")
+        if (k0[9].item(), k1[9].item()) != jr.fold_in(key, 9):
+            raise AssertionError(f"jrandom: fold_in of seed {seed} differs on the card")
+        n_checked += 2
+    rec = {"jrandom_checks": n_checked}
+    print(f"jrandom ok: {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -171,14 +260,15 @@ def trees_equal(ma, mb) -> bool:
 
 
 def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **kw):
-    """Train + predict + score one builder on the card through the kernel,
-    then check it against the plain histogram and against the CPU."""
+    """Train + predict + score one builder on the card through the kernels,
+    then check it against the plain histogram and against the CPU.
+    expect_launches: {kernel: launches} the fit must make, exactly."""
     import torch
 
     from h2o3_tpu_torch import use_device
-    from h2o3_tpu_torch.ops import cuda_histogram as ch
+    from h2o3_tpu_torch.ops import cuda_build
 
-    ch.reset_launch_counts()
+    cuda_build.reset_launch_counts()
     t0 = time.time()
     model = builder_cls(response_column="y", **kw).train(frame)
     torch.cuda.synchronize()
@@ -189,11 +279,11 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
     t0 = time.time()
     perf = model.model_performance(frame)
     perf_s = time.time() - t0
-    launches = ch.LAUNCHES["hist_nodematmul"]
+    launches = dict(cuda_build.LAUNCHES)
     if launches != expect_launches:
         raise AssertionError(
-            f"{label}: hist_nodematmul launched {launches} times on the main "
-            f"path, expected {expect_launches} (one per level built)")
+            f"{label}: kernel launches on the main path {launches}, expected "
+            f"{expect_launches} (one per level each kernel serves)")
     p1 = pred.col("p1").data
     if p1.shape != (n_rows,) or not np.all(np.isfinite(p1)):
         raise AssertionError(f"{label}: predictions are not {n_rows} finite values")
@@ -222,7 +312,7 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
         "fit": label, "rows": n_rows, "train_s": train_s,
         "train_rows_per_s": n_rows / train_s, "predict_s": predict_s,
         "predict_rows_per_s": n_rows / predict_s, "model_performance_s": perf_s,
-        "auc": auc, "logloss": perf.logloss, "hist_launches": launches,
+        "auc": auc, "logloss": perf.logloss, "launches": launches,
         "prep_s": model.timings["prep_s"], "boost_s": model.timings["train_s"],
         "plain_trees_equal": same_plain, "plain_auc": plain_auc,
         "small_card_vs_cpu_trees_equal": same_cpu,
@@ -233,7 +323,7 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
     return rec
 
 
-def profile_fit(builder_cls, frame, **kw):
+def profile_fit(builder_cls, frame, label, **kw):
     """Device time by kernel name over one more fit, from torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -250,9 +340,9 @@ def profile_fit(builder_cls, frame, **kw):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:10]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:12]
     rec = {
-        "fit_wall_s": wall_s, "prep_s": model.timings["prep_s"],
+        "fit": label, "fit_wall_s": wall_s, "prep_s": model.timings["prep_s"],
         "boost_s": model.timings["train_s"], "device_busy_ms": busy_ms,
         "device_idle_share_of_fit": 1 - busy_ms / 1e3 / wall_s,
         "top_device_ms": [[e.key[:60], e.count, e.self_device_time_total / 1e3]
@@ -262,14 +352,34 @@ def profile_fit(builder_cls, frame, **kw):
     return rec
 
 
+def kernel_record(name, source, replaces, checks, main_case, launches):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in checks if c["kernel"] == name),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["library_ms"],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=2_000_000)
-    ap.add_argument("--trees", type=int, default=10)
+    ap.add_argument("--trees", type=int, default=10,
+                    help="trees of the XGBoost and GBM fits")
+    ap.add_argument("--drf-trees", type=int, default=50,
+                    help="trees of the DRF fit (its default: 50)")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more XGBoost fit (device time by kernel)")
+                    help="also profile one more XGBoost and DRF fit "
+                         "(device time by kernel)")
     args = ap.parse_args()
 
     import torch
@@ -277,8 +387,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from h2o3_tpu_torch import GBM, XGBoost
-    from h2o3_tpu_torch.ops import cuda_histogram as ch
+    from h2o3_tpu_torch import DRF, GBM, XGBoost
+    from h2o3_tpu_torch.ops import cuda_build
 
     smi = smi_line()
     print(f"card: {smi}", flush=True)
@@ -287,58 +397,67 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
 
     t0 = time.time()
-    ch.load_library()
+    cuda_build.build()
     build_s = time.time() - t0
-    print(f"kernel build: {build_s:.1f} s", flush=True)
-    for line in ch.BUILD_LOG.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    print(f"kernel build (both, in parallel): {build_s:.1f} s", flush=True)
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     n, seed = args.rows, args.seed
     cases = [
-        (n, 28, 257, 16, False),  # XGBoost's widest level built (subtraction)
-        (n, 28, 257, 1, True),  # the root
-        (n, 28, 257, 64, False),  # the widest level this kernel serves
-        (n, 28, 21, 8, False),  # GBM's widest level built (subtraction)
-        (n, 28, 21, 64, True),
-        (n, 11, 257, 40, True),  # F not a multiple of 8
+        ("hist_nodematmul", n, 28, 257, 16, False),  # XGBoost's widest level built
+        ("hist_nodematmul", n, 28, 257, 1, True),  # the root
+        ("hist_nodematmul", n, 28, 257, 64, False),  # the widest level it serves
+        ("hist_nodematmul", n, 28, 21, 8, False),  # GBM's widest level built
+        ("hist_nodematmul", n, 28, 21, 64, True),  # DRF's level 7 (subtraction)
+        ("hist_nodematmul", n, 11, 257, 40, True),  # F not a multiple of 8
+        ("hist_sorted", n, 28, 21, 1024, False),  # DRF's widest level built
+        ("hist_sorted", n, 28, 21, 128, False),  # DRF's level 8 (subtraction)
+        ("hist_sorted", n, 28, 21, 2048, True),  # level 11 without subtraction
+        ("hist_sorted", n, 28, 257, 512, False),  # XGBoost's 256 bins, 512 nodes
+        ("hist_sorted", n, 11, 21, 300, True),  # K not a power of 2, F not of 8
     ]
     checks = [kernel_case(*c, seed=seed + i, dev=dev) for i, c in enumerate(cases)]
+    cross = cross_check(n, 28, 21, 64, seed + len(cases), dev)
     torch.cuda.empty_cache()
+    rand = jrandom_check(dev)
 
     X, y = synth_higgs(n, 28, seed)
     frame = make_frame(X, y)
     small_frame = make_frame(*synth_higgs(20_000, 28, seed + 1))
     fits = [
-        run_fit(XGBoost, frame, n, args.trees * 6, "xgboost", small_frame,
-                ntrees=args.trees, seed=seed),
-        run_fit(GBM, frame, n, args.trees * 5, "gbm", small_frame,
-                ntrees=args.trees, seed=seed),
+        run_fit(XGBoost, frame, n, {"hist_nodematmul": args.trees * 6, "hist_sorted": 0},
+                "xgboost", small_frame, ntrees=args.trees, seed=seed),
+        run_fit(GBM, frame, n, {"hist_nodematmul": args.trees * 5, "hist_sorted": 0},
+                "gbm", small_frame, ntrees=args.trees, seed=seed),
+        # DRF at depth 12 with subtraction: levels 0-7 build <= 64 nodes
+        # (node-matmul), levels 8-11 build 128-1024 (sorted); 12 is terminal
+        run_fit(DRF, frame, n, {"hist_nodematmul": args.drf_trees * 8,
+                                "hist_sorted": args.drf_trees * 4},
+                "drf", small_frame, ntrees=args.drf_trees, seed=seed),
     ]
 
-    prof = (profile_fit(XGBoost, frame, ntrees=args.trees, seed=seed)
+    prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.trees, seed=seed),
+             profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed)]
             if args.profile else None)
 
-    main_case = checks[0]
-    kernels = [{
-        "name": "hist_nodematmul",
-        "route": "cuda",
-        "source": "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
-        "replaces": "h2o3_tpu/ops/pallas_histogram.py:94",
-        "launches": fits[0]["hist_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
-        "ms": main_case["ms"],
-        "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-    }]
+    total = {k: sum(f["launches"][k] for f in fits) for k in cuda_build.KERNELS}
+    kernels = [
+        kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
+                      "h2o3_tpu/ops/pallas_histogram.py:94", checks, checks[0],
+                      total["hist_nodematmul"]),
+        kernel_record("hist_sorted", "h2o3_tpu_torch/csrc/hist_sorted.cu",
+                      "h2o3_tpu/ops/pallas_histogram.py:353", checks, checks[6],
+                      total["hist_sorted"]),
+    ]
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "device": kind, "torch": torch.__version__,
                        "build_s": build_s, "kernel_checks": checks,
-                       "fits": fits, "profile": prof, "kernels": kernels},
-                      fh, indent=1)
+                       "cross_check": cross, "jrandom": rand, "fits": fits,
+                       "profile": prof, "kernels": kernels}, fh, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

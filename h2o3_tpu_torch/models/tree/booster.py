@@ -8,17 +8,22 @@ eager PyTorch on one device:
   feature-major ([F, N] int32), which is the layout the histogram kernel
   reads and the row router gathers from;
 * a tree grows level by level with a fixed node capacity 2^d per level;
-  each level builds one histogram for all its nodes (on the card: the
-  hand-written kernel), searches the best split per node and routes rows.
+  each level builds one histogram for all its nodes (on the card: a
+  hand-written kernel, node-matmul up to 64 padded nodes, sorted per-node
+  beyond), searches the best split per node and routes rows.
   g/h, the row -> node assignment and the margin stay on the device and no
   level waits for the host; the tree arrays of a block of rounds come back
   to the host once, at the end of the block;
 * histogram subtraction (build the smaller sibling, derive the larger from
   the parent) is an explicit argument: on by default on the card, off on
-  the CPU — the same defaults as the JAX package on the TPU and on the CPU.
+  the CPU — the same defaults as the JAX package on the TPU and on the CPU;
+* row sampling (``sample_rate``), per-tree column sampling
+  (``col_sample_rate_per_tree``) and per-node feature sampling (``mtries``)
+  draw from the JAX package's random streams (``util/jrandom.py``), keyed
+  by the absolute tree index, so a seeded fit samples what the JAX
+  package samples, on any device.
 
-Not part of this package yet, each raising ``NotImplementedError``: row and
-column sampling and mtries (they need the JAX random streams, ROADMAP A1),
+Not part of this package yet, each raising ``NotImplementedError``:
 monotone constraints and checkpoint-continue (ROADMAP A4), the custom
 objective (ROADMAP A11) and chunk-homed distributed training (ROADMAP A10).
 """
@@ -41,6 +46,7 @@ from h2o3_tpu_torch.ops.histogram import (
     make_bins,
     node_totals,
 )
+from h2o3_tpu_torch.util import jrandom
 
 #: boosting rounds whose tree arrays come back to the host together when no
 #: monitor is active
@@ -170,7 +176,8 @@ def _split_search(
 ):
     """Per-node best split over (feature, bin, NA direction).
 
-    hist: [K, F, B+1, 3] (Σg, Σh, count). Returns per-node tensors feat,
+    hist: [K, F, B+1, 3] (Σg, Σh, count); feat_mask: [F] for every node or
+    [K, F] per node (mtries). Returns per-node tensors feat,
     bin, default_left, gain, leaf_value (lr-scaled); with child_stats=True
     also the winning split's unscaled child values (wl, wr) and whether
     the left child holds no more rows than the right — what the
@@ -216,7 +223,8 @@ def _split_search(
 
     go_left_better = gain_l > gain_r
     gain_fb = torch.where(go_left_better, gain_l, gain_r)  # [K, F, B]
-    gain_fb = torch.where(feat_mask[None, :, None], gain_fb, -torch.inf)
+    fm = feat_mask[None, :, None] if feat_mask.dim() == 1 else feat_mask[:, :, None]
+    gain_fb = torch.where(fm, gain_fb, -torch.inf)
 
     K = hist.shape[0]
     flat = gain_fb.reshape(K, -1)
@@ -270,18 +278,22 @@ def _predict_stacked(bins_fm, feat, split_bin, default_left, is_split, leaf,
 
 def _build_one_tree(
     bins_fm: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
-    feat_mask: torch.Tensor, p: TreeParams,
+    sample: Optional[torch.Tensor], feat_mask: torch.Tensor,
+    key: jrandom.Key, p: TreeParams,
     rw: Optional[torch.Tensor], subtract: bool, hist_impl: str,
 ):
     """Grow one tree to max_depth with per-level node capacity 2^d.
 
-    Every row is routed, so its leaf is known at the end and the margin
-    update is one gather. (Row sampling, which would keep unsampled rows
-    out of the histograms, waits for ROADMAP A1.)
+    Every row (sampled or not) is routed, so its leaf is known at the end
+    and the margin update is one gather; only ``sample`` rows ([N] bool,
+    None = all) reach the histograms and the terminal totals. With
+    ``p.mtries > 0`` each built level splits ``key`` and draws a [K, F]
+    uniform, keeping per node the features at or below its mtries-th
+    smallest draw (ties kept), within ``feat_mask``.
     Returns (heap arrays [M] x5, per-row leaf value [N])."""
     D = p.max_depth
     n_bins1 = p.nbins + 1
-    n = bins_fm.shape[1]
+    n_feat, n = bins_fm.shape
     dev = bins_fm.device
     pos = torch.zeros(n, dtype=torch.long, device=dev)  # absolute heap position
     lr, lam, alpha = p.learn_rate, p.reg_lambda, p.reg_alpha
@@ -293,7 +305,8 @@ def _build_one_tree(
         lo = K - 1
         local = pos - lo
         in_lvl = (local >= 0) & (local < K)
-        hist_nodes = torch.where(in_lvl, local, -1).int()
+        in_hist = in_lvl if sample is None else in_lvl & sample
+        hist_nodes = torch.where(in_hist, local, -1).int()
         if d == D:
             if subtract and prev_wl is not None:
                 # terminal leaves straight from the parent split's child
@@ -320,7 +333,7 @@ def _build_one_tree(
             parity = local % 2
             small_parity = torch.where(prev_left_small, 0, 1)  # [Kp]
             half_nodes = torch.where(
-                in_lvl & (parity == small_parity[par]), par, -1).int()
+                in_hist & (parity == small_parity[par]), par, -1).int()
             hist_small = build_histogram(
                 bins_fm, half_nodes, g, h, Kp, n_bins1, rw=rw, impl=hist_impl)
             can_m = prev_can[:, None, None, None]
@@ -332,8 +345,16 @@ def _build_one_tree(
         else:
             hist = build_histogram(
                 bins_fm, hist_nodes, g, h, K, n_bins1, rw=rw, impl=hist_impl)
+        node_feat_mask = feat_mask
+        if p.mtries > 0:
+            key, sub = jrandom.split(key)
+            r = jrandom.uniform(sub, (K, n_feat), dev)
+            # mtries > F keeps every feature (JAX clamps the index)
+            m = min(p.mtries, n_feat)
+            thresh = torch.sort(r, dim=1).values[:, m - 1:m]
+            node_feat_mask = (r <= thresh) & feat_mask[None, :]
         out = _split_search(
-            hist, lam, alpha, p.gamma, lr, feat_mask,
+            hist, lam, alpha, p.gamma, lr, node_feat_mask,
             min_rows=float(p.min_rows), n_bins1=n_bins1, child_stats=subtract,
         )
         if subtract:
@@ -441,9 +462,6 @@ def train_boosted(
         raise _not_ported("chunk-homed distributed training",
                           "ROADMAP A10: cluster-side compute")
     p = params
-    if p.sample_rate < 1.0 or p.col_sample_rate_per_tree < 1.0 or p.mtries > 0:
-        raise _not_ported("row/column sampling and mtries",
-                          "ROADMAP A1: JAX-compatible random streams")
     if monotone is not None and np.any(np.asarray(monotone) != 0):
         raise _not_ported("monotone_constraints", "ROADMAP A4: booster")
     if resume_from is not None:
@@ -473,7 +491,10 @@ def train_boosted(
     w_d = None
     if weights is not None:
         w_d = torch.from_numpy(np.asarray(weights, dtype=np.float32)).to(dev)
-    feat_mask = torch.ones(F, dtype=torch.bool, device=dev)
+    all_feats = torch.ones(F, dtype=torch.bool, device=dev)
+    key = jrandom.PRNGKey(p.seed)
+    # sampling draws compare float32 uniforms with the rate as float32
+    sample_rate = float(np.float32(p.sample_rate))
 
     trees_per_class = [Trees(p.max_depth, n_bins1, edges) for _ in range(C)]
     if dev.type == "cuda":
@@ -485,17 +506,28 @@ def train_boosted(
         block = min(score_interval if monitor is not None else DEFAULT_TREE_BLOCK,
                     p.ntrees - built)
         rounds = []
-        for _ in range(block):
+        for t in range(built, built + block):
             g_all, h_all = grad_hess_device(objective, y_d, margin)
             if w_d is not None:
                 # row weights fold into (g, h): every Σg/Σh is weighted
                 g_all = g_all * w_d[:, None]
                 h_all = h_all * w_d[:, None]
+            # one key per absolute tree index, split as the JAX block does
+            kr, kc, kt = jrandom.split(jrandom.fold_in(key, t), 3)
+            sample = None
+            if p.sample_rate < 1.0:
+                sample = jrandom.uniform(kr, (n,), dev) < sample_rate
+            feat_mask = all_feats
+            if p.col_sample_rate_per_tree < 1.0:
+                ncols = max(1, int(round(p.col_sample_rate_per_tree * F)))
+                r = jrandom.uniform(kc, (F,), dev)
+                feat_mask = r <= torch.sort(r).values[ncols - 1]
             outs = []
             for c in range(C):
                 tree, pred = _build_one_tree(
                     bins_fm, g_all[:, c].float().contiguous(),
-                    h_all[:, c].float().contiguous(), feat_mask, p,
+                    h_all[:, c].float().contiguous(), sample, feat_mask,
+                    jrandom.fold_in(kt, c), p,
                     rw=w_d, subtract=subtract_on, hist_impl=hist_impl,
                 )
                 margin[:, c] += pred

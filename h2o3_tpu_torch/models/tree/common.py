@@ -1,7 +1,7 @@
 """Shared plumbing for tree models — the port of ``h2o3_tpu/models/tree/common.py``.
 
-Matrices, distributions, monitors and the prediction path GBM and XGBoost
-share. Trees consume raw (non-standardized) predictors; categoricals are
+Matrices, distributions, monitors and the prediction path GBM, DRF and
+XGBoost share. Trees consume raw (non-standardized) predictors; categoricals are
 label-encoded ordinals by default or one-hot indicators with
 ``categorical_encoding="one_hot_explicit"``.
 
@@ -383,7 +383,7 @@ def monotone_array(
 
 
 class TreeModelBase(Model):
-    """Common prediction path for GBM/XGBoost models."""
+    """Common prediction path for GBM/DRF/XGBoost models."""
 
     def __init__(self, params, data_info, distribution: str,
                  device: torch.device):
@@ -410,6 +410,11 @@ class TreeModelBase(Model):
                 raise ValueError(
                     f"offset_column {off!r} has NA values in the scoring frame")
             margin = margin + off_vals[:, None]
+        return self._raw_from_margin(margin)
+
+    def _raw_from_margin(self, margin: np.ndarray) -> np.ndarray:
+        """Raw scores (probabilities / inverse-linked response) from the
+        ensemble margin; DRF overrides it (its margin is averaged leaves)."""
         if self.is_classifier:
             return margin_to_probs(self.distribution, margin)
         return link_inverse(self.distribution, margin[:, 0])

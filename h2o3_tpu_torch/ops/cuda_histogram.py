@@ -13,36 +13,27 @@ deterministic.
   ``index_add_`` over the flat (node, feature, bin) index, accumulated in
   float64 and rounded once to float32. The CPU tests hold it against the
   JAX package, and ``chip_smoke.py`` holds the kernel against it.
-- The shared library is built from the source with ``nvcc`` on first use,
-  into ``h2o3_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded
-  with ``ctypes``. Nothing is built or imported at module import time.
+- The shared library is built from the source with ``nvcc`` on first use
+  (``ops/cuda_build.py``) and loaded with ``ctypes``. Nothing is built or
+  imported at module import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "hist_nodematmul.cu"
-BUILD_DIR = _PKG / "_build"
-
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+from h2o3_tpu_torch.ops.cuda_build import (
+    LAUNCHES,
+    check_tensor,
+    load_library as _load,
+    reset_launch_counts,
 )
 
-#: launches of each kernel, counted by its wrapper where it launches
-LAUNCHES: Dict[str, int] = {"hist_nodematmul": 0}
+__all__ = ["LAUNCHES", "reset_launch_counts", "load_library", "launch_plan",
+           "hist_nodematmul", "hist_nodematmul_reference"]
 
 #: most warps (one per feature) in one block
 _MAX_WARPS_PER_BLOCK = 8
@@ -54,16 +45,6 @@ _MAX_CHUNK_ROWS = 32_768
 _MIN_CHUNK_ROWS = 1_024
 #: (feature, chunk) warps wanted per call: 16 for each of the card's 132 SMs
 _TARGET_WARPS = 132 * 16
-
-_lib_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-#: nvcc's output (ptxas register and shared-memory report) of the last build
-BUILD_LOG = ""
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _smem_bytes(n_nodes: int, n_bins1: int, warps_per_block: int) -> int:
@@ -95,50 +76,17 @@ def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
     return wpb, chunk_rows, -(-n_rows // chunk_rows)
 
 
-def _build() -> Path:
-    """Compile the source into BUILD_DIR (once per source content)."""
-    global BUILD_LOG
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libhist_nodematmul_{digest}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: cannot build the hist_nodematmul kernel")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hist_nodematmul_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.hist_nodematmul_launch.restype = i
+    lib.hist_nodematmul_error_string.argtypes = [i]
+    lib.hist_nodematmul_error_string.restype = ctypes.c_char_p
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.hist_nodematmul_launch.argtypes = [
-                p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-            lib.hist_nodematmul_launch.restype = i
-            lib.hist_nodematmul_error_string.argtypes = [i]
-            lib.hist_nodematmul_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+    return _load("hist_nodematmul", _bind)
 
 
 def hist_nodematmul_reference(
@@ -169,17 +117,8 @@ def hist_nodematmul_reference(
         .float().contiguous()
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"hist_nodematmul: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"hist_nodematmul: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(
-            f"hist_nodematmul: {name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"hist_nodematmul: {name} must be contiguous")
+def _check(name, t, dtype, shape, device) -> None:
+    check_tensor("hist_nodematmul", name, t, dtype, shape, device)
 
 
 def hist_nodematmul(

@@ -4,12 +4,13 @@
   on the host in numpy, so bin codes are bit-identical to the JAX package.
   The NA code is ``nbins`` (256 at XGBoost's default), so codes are int32.
 - ``pad_nodes`` (:70-89): the node-count ladder 8/64/512.
-- ``build_histogram`` is the dispatch: on ``cuda`` the hand-written kernel
-  (``ops/cuda_histogram.hist_nodematmul``) builds the histogram, on ``cpu``
-  the plain version (``hist_nodematmul_reference``, the ``index_add_`` twin
-  of ``_shard_histogram`` :254) does. A level whose padded node count is
-  wider than the TPU node-matmul kernel serves (K·4 > 512) raises on
-  ``cuda``: the kernel for it is not ported yet.
+- ``build_histogram`` is the dispatch, as ``pallas_histogram.py:501-512``
+  keys it off the padded node count (``histogram.py:398-402``): on ``cuda``
+  a level whose padded node count K satisfies K·4 <= 512 goes to the
+  node-matmul kernel (``ops/cuda_histogram.hist_nodematmul``), a wider one
+  to the sorted per-node kernel (``ops/cuda_sorted_histogram.hist_sorted``);
+  on ``cpu`` the plain version (``hist_nodematmul_reference``, the
+  ``index_add_`` twin of ``_shard_histogram`` :254) builds every level.
 - ``node_totals`` (:280): the terminal level's per-node totals, a scatter
   (``index_add_``) as in the JAX package.
 """
@@ -25,13 +26,15 @@ from h2o3_tpu_torch.ops.cuda_histogram import (
     hist_nodematmul,
     hist_nodematmul_reference,
 )
+from h2o3_tpu_torch.ops.cuda_sorted_histogram import hist_sorted
 
 #: the node-capacity ladder (``_DEFAULT_NODE_BUCKETS``)
 NODE_BUCKETS: Tuple[int, ...] = (8, 64, 512)
 
 #: channels per node of the TPU kernel's contraction (Σg, Σh, Σw, pad)
 _C = 4
-#: the TPU node-matmul kernel serves padded K·_C up to this; so does this port
+#: the TPU node-matmul kernel serves padded K·_C up to this, the sorted
+#: kernel every wider level; so do this port's kernels
 _NODE_MATMUL_MAX_KC = 512
 
 #: histogram implementations: the hand-written kernel, or the plain version
@@ -167,20 +170,17 @@ def build_histogram(
     takes the plain version.
 
     The JAX package pads the node count up the ladder so one compiled plan
-    serves a bucket; here nothing is compiled per shape, so both versions
-    build the real node count (the kernel's result does not depend on it).
-    The padded count still decides which TPU kernel a level needs: beyond
-    the node-matmul kernel's reach it raises on the card."""
+    serves a bucket; here nothing is compiled per shape, so every version
+    builds the real node count (the kernels' results do not depend on it).
+    The padded count still decides which kernel a level takes, as it
+    decides which TPU kernel the JAX package runs."""
     impl = impl or default_hist_impl(bins_fm.device)
     if impl not in HIST_IMPLS:
         raise ValueError(f"hist impl must be one of {HIST_IMPLS}, got {impl!r}")
     if impl == "plain":
         return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
-    if bins_fm.device.type == "cuda" and pad_nodes(n_nodes) * _C > _NODE_MATMUL_MAX_KC:
-        raise NotImplementedError(
-            f"a level of {n_nodes} nodes (padded {pad_nodes(n_nodes)}) needs "
-            f"the sorted tile-per-node histogram kernel, which is not ported "
-            f"yet (sorted kernel, ROADMAP B2)")
+    if pad_nodes(n_nodes) * _C > _NODE_MATMUL_MAX_KC:
+        return hist_sorted(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
     return hist_nodematmul(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
 
 

@@ -1,9 +1,11 @@
 """Parity: the PyTorch port's booster pieces vs the JAX package on the CPU.
 
 ``grad_hess_device`` for every objective family, ``_split_search`` (with
-and without the subtraction flow's child stats), the ensemble scorer
-``_predict_stacked``, and the parameters that are not ported yet, which
-must raise ``NotImplementedError`` rather than fall back.
+and without the subtraction flow's child stats, with a per-feature and a
+per-node feature mask), the ensemble scorer ``_predict_stacked``, the
+booster loop with row/column sampling and mtries (the JAX random streams,
+reproduced by ``util/jrandom.py``), and the parameters that are not ported
+yet, which must raise ``NotImplementedError`` rather than fall back.
 
 Tolerances: float32 elementwise math in two frameworks (rtol 1e-6 for
 g/h); split decisions are compared exactly on inputs whose best gains are
@@ -107,6 +109,67 @@ def test_split_search_matches_jax(child_stats, lam, alpha, gamma, min_rows):
         np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
 
 
+def test_split_search_per_node_mask_matches_jax():
+    # DRF's mtries: a [K, F] mask, one feature subset per node
+    rng = np.random.default_rng(4)
+    k, f, b1 = 6, 5, 11
+    hist = _random_hist(rng, k, f, b1)
+    mask = rng.random((k, f)) < 0.5
+    mask[:, 2] = True
+    mask[1] = False  # a node with no feature: no split
+    want = jb._split_search(
+        jnp.asarray(hist), jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0),
+        jnp.float32(1.0), jnp.asarray(mask), min_rows=1.0, n_bins1=b1,
+        child_stats=True)
+    got = tb._split_search(
+        torch.from_numpy(hist), 0.0, 0.0, 0.0, 1.0, torch.from_numpy(mask),
+        min_rows=1.0, n_bins1=b1, child_stats=True)
+    for name, g_, w_ in zip(("feat", "bin", "dl"), got[:3], want[:3]):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_), err_msg=name)
+    assert np.isneginf(got[3][1].item()) and np.isneginf(np.asarray(want[3])[1])
+    for g_, w_ in zip(got[3:], want[3:]):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
+
+
+SAMPLED = [
+    ("gaussian", dict(sample_rate=0.7), 1),
+    ("gaussian", dict(col_sample_rate_per_tree=0.6), 1),
+    ("gaussian", dict(mtries=2, sample_rate=0.632), 1),
+    ("gaussian", dict(mtries=12), 1),  # more than F: JAX keeps every feature
+    ("multinomial", dict(sample_rate=0.5, col_sample_rate_per_tree=0.75, mtries=2), 3),
+]
+
+
+@pytest.mark.parametrize("objective,sampling,C", SAMPLED)
+def test_sampled_booster_matches_jax(objective, sampling, C):
+    # the JAX booster draws its row mask at the padded row count of the
+    # 8-device CPU mesh (1003 -> 1008 rows): the port draws at 1003
+    rng = np.random.default_rng(C + len(sampling))
+    n, F = 1003, 7
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    if objective == "multinomial":
+        y = (X[:, 0] > 0).astype(np.float64) + (X[:, 1] > 0.3)
+        f0 = np.zeros(C)
+    else:
+        y = 2 * X[:, 0] - X[:, 1] + X[:, 2] * X[:, 3] + 0.1 * rng.normal(size=n)
+        f0 = np.array([float(y.mean())])
+    p = jb.TreeParams(ntrees=4, max_depth=4, nbins=16, seed=2**31 + 3, **sampling)
+    jens = jb.train_boosted(X, objective, y, C, f0, p)
+    with use_device("cpu"):
+        pens = tb.train_boosted(X, objective, y, C, f0,
+                                tb.TreeParams(**vars(p)), subtract=False)
+    for jt, pt in zip(jens.trees_per_class, pens.trees_per_class):
+        for f in ("feat", "split_bin", "default_left", "is_split"):
+            np.testing.assert_array_equal(np.stack(getattr(jt, f)),
+                                          np.stack(getattr(pt, f)), err_msg=f)
+        np.testing.assert_allclose(np.stack(jt.leaf), np.stack(pt.leaf),
+                                   rtol=1e-4, atol=1e-5)
+    if "col_sample_rate_per_tree" in sampling:
+        used = set(np.concatenate([t[s] for t, s in zip(
+            pens.trees_per_class[0].feat, pens.trees_per_class[0].is_split)]).tolist())
+        assert used and len(used) < F  # some features were left out
+
+
 def test_predict_stacked_matches_jax():
     rng = np.random.default_rng(9)
     depth, b1, n, f, T = 3, 9, 600, 4, 5
@@ -133,9 +196,6 @@ class _DistX(np.ndarray):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(params=dict(sample_rate=0.5)), "A1"),
-    (dict(params=dict(col_sample_rate_per_tree=0.5)), "A1"),
-    (dict(params=dict(mtries=2)), "A1"),
     (dict(monotone=np.array([1, 0])), "A4"),
     (dict(resume_from=object()), "A4"),
     (dict(dist=True), "A10"),

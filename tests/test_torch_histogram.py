@@ -1,16 +1,22 @@
 """Parity: the PyTorch port's histogram (h2o3_tpu_torch.ops) vs the JAX package.
 
-The port's CPU histogram is the plain version of its CUDA kernel
-(``hist_nodematmul_reference``, an ``index_add_`` accumulated in float64).
-It is held here to the JAX scatter oracle ``_shard_histogram`` and to the
-Pallas node-matmul kernel run in interpret mode with f32 operands, over the
-shape matrix of ``tests/test_pallas_histogram.py``. Tolerance: the f32
-tolerance that file uses (rtol 1e-5, atol 1e-4) — the two packages add the
-same float32 values in different orders; counts are exact.
+The port's CPU histograms are the plain versions of its CUDA kernels:
+``hist_nodematmul_reference`` (an ``index_add_`` accumulated in float64) and
+``hist_sorted_reference`` (the sorted kernel's prep, then an ``index_add_``
+over the sorted layout). They are held here to the JAX scatter oracle
+``_shard_histogram`` and to the Pallas kernels run in interpret mode with
+f32 operands (node-matmul, and the sorted tile-per-node kernel), over the
+shape matrix of ``tests/test_pallas_histogram.py`` and, for the sorted
+kernel, wider levels. The sorted prep (row order and per-node counts) is
+held to ``_prep_padded``'s ``jnp.argsort(nd, stable=True)`` and
+``jnp.bincount``. Tolerance: the f32 tolerance that file uses (rtol 1e-5,
+atol 1e-4) — the packages add the same float32 values in different orders;
+counts are exact.
 
-The kernel itself runs only on the card: see ``tests/test_torch_kernels.py``.
+The kernels themselves run only on the card: see ``tests/test_torch_kernels.py``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +30,7 @@ from h2o3_tpu.ops.histogram import (
 )
 from h2o3_tpu.ops.pallas_histogram import build_histogram_pallas
 from h2o3_tpu_torch.ops import cuda_histogram as ch
+from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 from h2o3_tpu_torch.ops.histogram import (
     apply_bins,
     build_histogram,
@@ -165,3 +172,110 @@ def test_bins_bit_identical(n, f, nbins):
     codes = apply_bins(X, edges)
     np.testing.assert_array_equal(codes, jax_apply_bins(X, edges))
     assert codes.dtype == np.int32 and codes.max() <= nbins
+
+
+# ---------------------------------------------------------------------------
+# the sorted per-node kernel's plain version and prep (B2)
+
+SORTED_SHAPES = [
+    (1000, 5, 4, 17, 128),
+    (513, 3, 1, 9, 256),      # single node, non-divisible rows
+    (2048, 7, 8, 33, 512),
+    (900, 11, 4, 17, 128),    # features not a multiple of the 8-wide block
+    (3000, 4, 130, 9, 128),   # wider than the node-matmul kernel serves
+    (2500, 3, 300, 21, 64),   # K not a power of two, many empty nodes
+]
+
+
+def _sorted_port(bins, nodes, g, h, k, b1, rw=None):
+    t = torch.from_numpy
+    return cs.hist_sorted_reference(
+        t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1,
+        rw=None if rw is None else t(rw)).numpy()
+
+
+def _jax_sorted(bins, nodes, g, h, k, b1, row_tile, rw=None):
+    scatter = np.asarray(_shard_histogram(bins, nodes, g, h, k, b1, rw=rw))
+    pallas = np.asarray(build_histogram_pallas(
+        bins, nodes, g, h, k, b1, row_tile=row_tile, interpret=True,
+        kernel="sorted", rw=rw, dtype="f32"))
+    return scatter, pallas
+
+
+@pytest.mark.parametrize("n,f,k,b1,row_tile", SORTED_SHAPES)
+def test_sorted_plain_matches_jax(n, f, k, b1, row_tile):
+    bins, nodes, g, h, _ = _mk(n, f, k, b1, seed=n + k)
+    got = _sorted_port(bins, nodes, g, h, k, b1)
+    scatter, pallas = _jax_sorted(bins, nodes, g, h, k, b1, row_tile)
+    assert got.shape == (k, f, b1, 3)
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sorted_inactive_rows_empty_nodes_and_count_weight(weighted):
+    k = 200
+    bins, nodes, g, h, rw = _mk(
+        4000, 5, k, 13, seed=17, frac_inactive=0.3, empty_node=100, weighted=weighted)
+    nodes[(nodes >= 40) & (nodes < 60)] = -1  # a run of empty nodes mid-range
+    got = _sorted_port(bins, nodes, g, h, k, 13, rw=rw)
+    scatter, pallas = _jax_sorted(bins, nodes, g, h, k, 13, 128, rw=rw)
+    assert np.all(got[100] == 0) and np.all(got[40:60] == 0)
+    np.testing.assert_array_equal(got[..., 2], np.round(got[..., 2]))
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+
+
+@pytest.mark.parametrize("k,frac_inactive", [(1, 0.0), (7, 0.3), (300, 0.5), (2048, 0.1)])
+def test_sorted_prep_matches_jax_prep(k, frac_inactive):
+    _, nodes, _, _, _ = _mk(5000, 1, k, 2, seed=k, frac_inactive=frac_inactive)
+    layout = cs.sorted_prep(torch.from_numpy(nodes), k, tile_rows=64)
+    nd = jnp.where(nodes >= 0, nodes, k)
+    np.testing.assert_array_equal(layout.order.numpy(),
+                                  np.asarray(jnp.argsort(nd, stable=True)))
+    counts = np.asarray(jnp.bincount(nd, length=k + 1)[:k])
+    np.testing.assert_array_equal(layout.counts.numpy(), counts)
+    assert layout.seg_off[0] == 0 and layout.seg_off[-1] == counts.sum()
+    tiles = np.maximum(-(-counts // 64), 1)
+    np.testing.assert_array_equal(layout.tile_off.numpy(),
+                                  np.concatenate([[0], np.cumsum(tiles)]))
+    _, extra = cs.launch_plan(5000, 1, 2, tile_rows=64)
+    assert layout.tile_off[-1] <= k + extra
+
+
+def test_sorted_prep_treats_out_of_range_nodes_as_inactive():
+    nodes = torch.tensor([2, -1, 5, 0, 2, 9, 1], dtype=torch.int32)
+    layout = cs.sorted_prep(nodes, 3)
+    assert layout.order.tolist()[:4] == [3, 6, 0, 4]
+    assert layout.counts.tolist() == [1, 1, 2]
+
+
+def test_sorted_wrapper_on_cpu_tensors_is_the_plain_version():
+    bins, nodes, g, h, rw = _mk(900, 6, 150, 11, seed=12, frac_inactive=0.2,
+                                weighted=True)
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 150, 11)
+    before = dict(ch.LAUNCHES)
+    a = cs.hist_sorted(*args, rw=t(rw))
+    assert torch.equal(a, cs.hist_sorted_reference(*args, rw=t(rw)))
+    assert ch.LAUNCHES == before  # the plain version launches nothing
+    # the two plain versions compute the same function
+    b = ch.hist_nodematmul_reference(*args, rw=t(rw))
+    assert torch.equal(a[..., 2], b[..., 2])
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def test_dispatch_takes_the_sorted_kernel_beyond_64_padded_nodes(monkeypatch):
+    from h2o3_tpu_torch.ops import histogram as hmod
+
+    calls = []
+    monkeypatch.setattr(hmod, "hist_sorted",
+                        lambda *a, **kw: calls.append(("sorted", a[4])) or "s")
+    monkeypatch.setattr(hmod, "hist_nodematmul",
+                        lambda *a, **kw: calls.append(("nodematmul", a[4])) or "n")
+    z = torch.zeros(1, 4, dtype=torch.int32)
+    for k in (1, 8, 64, 65, 128, 512, 1024):
+        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 3, impl="kernel")
+    assert calls == [("nodematmul", 1), ("nodematmul", 8), ("nodematmul", 64),
+                     ("sorted", 65), ("sorted", 128), ("sorted", 512),
+                     ("sorted", 1024)]

@@ -54,6 +54,10 @@ def test_matcher_minds_the_prefix():
 def test_no_jax_or_reference_imports_in_the_port():
     files = _port_files()
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    for module in ("util/jrandom.py", "ops/cuda_sorted_histogram.py",
+                   "ops/cuda_build.py", "models/tree/drf.py"):
+        assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
     assert not bad, bad
@@ -76,7 +80,12 @@ def test_port_runs_with_jax_and_reference_blocked():
             m = ht.XGBoost(ntrees=2, max_depth=2, response_column="y",
                            seed=1).train(fr)
             m.predict(fr)
+            # sampled, and wide enough for the sorted kernel's plain version
+            f = ht.DRF(ntrees=2, max_depth=8, response_column="y", seed=1,
+                       hist_impl="kernel").train(fr)
+            f.predict(fr)
         assert m.training_metrics.auc > 0.9
+        assert f.training_metrics.auc > 0.9
         leaked = [k for k in sys.modules
                   if k.split(".")[0] in ("jax", "jaxlib", "h2o3_tpu")
                   and sys.modules[k] is not None]
@@ -98,6 +107,8 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         ht.XGBoost(ntrees=1, response_column="y").train(fr)
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.GBM(ntrees=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.DRF(ntrees=1, response_column="y").train(fr)
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.resolve_device("cuda")
     m = ht.GBM(ntrees=1, max_depth=2, response_column="y", device="cpu").train(fr)

@@ -1,0 +1,92 @@
+"""Parity: the port's ``util/jrandom.py`` against ``jax.random``, bit for bit.
+
+The JAX package draws every sampled row, column and per-node feature set of
+a tree fit through ``jax.random`` (threefry2x32, partitionable mode, x64
+off). The port reproduces ``PRNGKey``, ``split``, ``fold_in`` and
+``uniform`` with torch integer ops; here the uint32 words of every key and
+the float32 uniforms (viewed as int32) must equal JAX's exactly, over a grid
+of seeds that covers the 32-bit wrap (2^31 - 1, 2^31 + 3, 2^32 + 9, -1).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from h2o3_tpu_torch.util import jrandom as jr
+
+torch.set_num_threads(1)
+
+SEEDS = [0, 1, 42, 2**31 - 1, 2**31 + 3, 2**32 + 9, -1]
+
+
+def _words(key) -> tuple:
+    return tuple(int(w) for w in np.asarray(key, dtype=np.uint32))
+
+
+def test_jax_runs_the_configuration_ported():
+    assert jax.config.jax_threefry_partitionable
+    assert jax.config.jax_default_prng_impl == "threefry2x32"
+    assert not jax.config.jax_enable_x64
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_prng_key(seed):
+    assert jr.PRNGKey(seed) == _words(jax.random.PRNGKey(seed))
+
+
+def test_prng_key_keeps_the_low_32_bits():
+    assert jr.PRNGKey(-1) == (0, 4294967295)
+    assert jr.PRNGKey(2**32 + 9) == (0, 9)
+
+
+@pytest.mark.parametrize("num", [2, 3])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split(seed, num):
+    want = [_words(k) for k in jax.random.split(jax.random.PRNGKey(seed), num)]
+    assert jr.split(jr.PRNGKey(seed), num) == want
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in(seed):
+    key = jax.random.PRNGKey(seed)
+    for data in (0, 1, 7, 49, 123_456, 2**31 + 5):
+        assert jr.fold_in(jr.PRNGKey(seed), data) == _words(jax.random.fold_in(key, data))
+
+
+@pytest.mark.parametrize("shape", [(1,), (8,), (1001,), (4096,), (3, 5), (64, 28), (1024, 11)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_uniform(seed, shape):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), 3)
+    want = np.asarray(jax.random.uniform(key, shape))
+    got = jr.uniform(_words(key), shape, "cpu")
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+
+
+def test_uniform_prefix_property():
+    # the JAX booster draws row masks at its padded row count; the port
+    # draws at the real one and must see the same first values
+    key = jr.fold_in(jr.PRNGKey(7), 11)
+    long = jr.uniform(key, (1008,), "cpu")
+    assert torch.equal(jr.uniform(key, (1001,), "cpu"), long[:1001])
+    assert torch.equal(jr.uniform(key, (3, 5), "cpu"), long[:15].reshape(3, 5))
+
+
+def test_booster_key_chain_matches_jax():
+    # the order in which the JAX block derives keys for one round and one
+    # class's tree (booster.py:853, :881, :584, :607, :491)
+    seed, tree, cls = 1234, 17, 2
+    jk = jax.random.fold_in(jax.random.PRNGKey(seed), tree)
+    jkr, jkc, jkt = jax.random.split(jk, 3)
+    jkey = jax.random.fold_in(jkt, cls)
+    pkr, pkc, pkt = jr.split(jr.fold_in(jr.PRNGKey(seed), tree), 3)
+    pkey = jr.fold_in(pkt, cls)
+    assert (pkr, pkc, pkey) == (_words(jkr), _words(jkc), _words(jkey))
+    for _ in range(3):  # three built levels of mtries draws
+        jkey, jsub = jax.random.split(jkey)
+        pkey, psub = jr.split(pkey)
+        want = np.asarray(jax.random.uniform(jsub, (4, 6)))
+        np.testing.assert_array_equal(
+            jr.uniform(psub, (4, 6), "cpu").numpy().view(np.int32), want.view(np.int32))

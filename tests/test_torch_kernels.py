@@ -1,13 +1,16 @@
-"""The PyTorch port's CUDA histogram kernel against its plain version.
+"""The PyTorch port's CUDA histogram kernels against their plain versions.
 
-The kernel has no CPU mode: the ``cuda``-marked test skips without a card.
+The node-matmul kernel (``hist_nodematmul``) and the sorted per-node kernel
+(``hist_sorted``) have no CPU mode: the ``cuda``-marked tests skip without
+a card.
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
-The launch-plan arithmetic around the kernel (shared-memory fit, row
-chunks that ignore the node count) is plain Python and runs everywhere.
+The launch-plan arithmetic around the kernels (shared-memory fit, row
+chunks that ignore the node count, the sorted kernel's tile bound) and the
+sorted kernel's prep are plain Python and run everywhere.
 Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh (the plain version
 sums in float64, the kernel in float32 per chunk); counts exact.
 """
@@ -16,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from h2o3_tpu_torch.ops import cuda_build
 from h2o3_tpu_torch.ops import cuda_histogram as ch
+from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 
 RTOL, ATOL = 1e-5, 1e-4
 
@@ -71,3 +76,59 @@ def test_kernel_matches_plain_on_card():
         assert torch.equal(a[..., 2], ref[..., 2])
         assert torch.all(a[1] == 0)
         torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_bins1", [2, 21, 257])
+def test_sorted_launch_plan_fits_any_node_count(n_bins1):
+    wpb, extra = cs.launch_plan(2_000_000, 28, n_bins1)
+    assert wpb == 8 and cs._smem_bytes(n_bins1, wpb) <= 48 * 1024
+    assert extra == 2_000_000 // cs.TILE_ROWS
+    assert cs.launch_plan(1000, 3, n_bins1) == (3, 1000 // cs.TILE_ROWS)
+
+
+def test_sorted_tile_bound_holds_for_skewed_nodes():
+    # one node holds most rows, many are empty: the tiles used never
+    # exceed the tiles launched (n_nodes + n_rows // tile_rows)
+    rng = np.random.default_rng(5)
+    for k in (1, 128, 1024, 2048):
+        nodes = np.where(rng.random(50_000) < 0.7, 0,
+                         rng.integers(-1, k, 50_000)).astype(np.int32)
+        layout = cs.sorted_prep(torch.from_numpy(nodes), k, tile_rows=512)
+        _, extra = cs.launch_plan(50_000, 4, 21, tile_rows=512)
+        assert int(layout.tile_off[-1]) <= k + extra
+        assert torch.all(layout.tile_off[1:] > layout.tile_off[:-1])
+
+
+def test_every_kernel_has_a_source_and_a_count():
+    for name in cuda_build.KERNELS:
+        assert cuda_build.source(name).exists(), name
+        assert cuda_build.library_path(name).name.startswith(f"lib{name}_")
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.KERNELS)
+    assert ch.LAUNCHES is cuda_build.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for n, f, k, b1, weighted in [(100_000, 28, 1024, 21, False),
+                                  (70_001, 11, 300, 257, True),
+                                  (50_000, 5, 64, 21, False)]:
+        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k, frac_inactive=0.3,
+                                    empty_node=1, weighted=weighted)
+        nodes[(nodes >= k // 3) & (nodes < k // 3 + 5)] = -1  # empty run mid-range
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
+        rwt = None if rw is None else t(rw)
+        a = cs.hist_sorted(*args, rw=rwt)
+        b = cs.hist_sorted(*args, rw=rwt)
+        ref = cs.hist_sorted_reference(*args, rw=rwt)
+        assert torch.equal(a, b)
+        assert torch.equal(a[..., 2], ref[..., 2])
+        assert torch.all(a[1] == 0) and torch.all(a[k // 3:k // 3 + 5] == 0)
+        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
+        if k <= 64:  # the node-matmul kernel serves this level too
+            nm = ch.hist_nodematmul(*args, rw=rwt)
+            assert torch.equal(a[..., 2], nm[..., 2])
+            torch.testing.assert_close(a, nm, rtol=RTOL, atol=ATOL)

@@ -1,6 +1,15 @@
-"""End-to-end parity of the PyTorch port's slice: XGBoost and GBM
+"""End-to-end parity of the PyTorch port's slices: XGBoost, GBM and DRF
 ``train`` -> ``predict`` -> ``model_performance`` in both packages on the
 same Frame data, on the CPU.
+
+DRF always samples rows (``sample_rate`` 0.632) and features per node
+(``mtries``), and XGBoost/GBM sample with ``sample_rate`` and
+``col_sample_rate_per_tree``: the port draws from the JAX random streams
+(``util/jrandom.py``), so the sampled fits must give the same trees. The
+DRF cases are deep enough that some levels are wider than 64 padded nodes
+(depth 9 with subtraction, 8 without), the levels the sorted per-node
+kernel serves on the card; one of them takes the kernels' plain versions
+through the kernel dispatch (``hist_impl="kernel"`` on the CPU).
 
 Both packages run the same level flow: histogram subtraction is pinned on
 the port side (``tree_subtract``) and on the JAX side
@@ -19,7 +28,7 @@ import torch
 
 from h2o3_tpu import Frame as JFrame
 from h2o3_tpu.keyed import DKV as JDKV
-from h2o3_tpu.models.tree import GBM as JGBM, XGBoost as JXGBoost
+from h2o3_tpu.models.tree import DRF as JDRF, GBM as JGBM, XGBoost as JXGBoost
 from h2o3_tpu.models.tree import booster as jb
 from h2o3_tpu.models.tree.common import init_margin as j_init_margin
 import h2o3_tpu_torch as ht
@@ -27,7 +36,8 @@ from h2o3_tpu_torch.convert import ensemble_from_numpy
 
 torch.set_num_threads(1)
 
-BUILDERS = {"xgboost": (ht.XGBoost, JXGBoost), "gbm": (ht.GBM, JGBM)}
+BUILDERS = {"xgboost": (ht.XGBoost, JXGBoost), "gbm": (ht.GBM, JGBM),
+            "drf": (ht.DRF, JDRF)}
 
 
 def _data(dist, n, seed):
@@ -81,6 +91,14 @@ CASES = [
 ] + [
     ("xgboost", "bernoulli", True, "weights"),
     ("gbm", "gaussian", False, "offset"),
+    # DRF at its defaults but for depth and trees: sample_rate 0.632, mtries
+    ("drf", "gaussian", False, None),
+    ("drf", "bernoulli", True, None),
+    ("drf", "multinomial", True, None),
+    ("drf", "bernoulli", False, "weights"),
+    # GBM and XGBoost with row and per-tree column sampling
+    ("gbm", "bernoulli", True, "sampled"),
+    ("xgboost", "gaussian", False, "sampled"),
 ]
 
 
@@ -97,6 +115,15 @@ def test_fit_predict_score_match_jax(algo, dist, subtract, aux, monkeypatch):
         kw["weights_column"] = "w"
     if aux == "offset":
         kw["offset_column"] = "off"
+    if aux == "sampled":
+        kw.update(sample_rate=0.7, col_sample_rate_per_tree=0.6)
+    port_kw = {}
+    if algo == "drf":
+        # levels wider than 64 padded nodes: depth 9 with subtraction (the
+        # level-8 half build has 128 nodes), 8 without (level 7 has 128)
+        kw.update(ntrees=2, max_depth=9 if subtract else 8)
+        if dist == "bernoulli" and subtract:
+            port_kw["hist_impl"] = "kernel"
     pcls, jcls = BUILDERS[algo]
 
     jfr, jho = JFrame.from_dict(d), JFrame.from_dict(holdout)
@@ -109,7 +136,7 @@ def test_fit_predict_score_match_jax(algo, dist, subtract, aux, monkeypatch):
 
     pfr, pho = ht.Frame.from_dict(d), ht.Frame.from_dict(holdout)
     with ht.use_device("cpu"):
-        pmodel = pcls(tree_subtract=subtract, **kw).train(pfr)
+        pmodel = pcls(tree_subtract=subtract, **kw, **port_kw).train(pfr)
         ppred = pmodel.predict(pho)
         pperf = pmodel.model_performance(pho)
 
@@ -150,6 +177,42 @@ def test_ensemble_carried_across_scores_like_jax():
     Xh[rng.random((500, F)) < 0.05] = np.nan
     np.testing.assert_allclose(pens.predict_margin(Xh), jens.predict_margin(Xh),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_drf_ensemble_carried_across_scores_like_jax():
+    # a JAX-trained forest (averaged, fixed indicator targets, sampled)
+    # through ensemble_from_numpy(average=True)
+    rng = np.random.default_rng(23)
+    n, F, C = 1500, 6, 3
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    X[rng.random((n, F)) < 0.05] = np.nan
+    cls = (np.nan_to_num(X[:, 0]) > 0).astype(np.int64) + (np.nan_to_num(X[:, 1]) > 0.5)
+    targets = np.eye(C)[cls]
+    p = jb.TreeParams(ntrees=3, max_depth=6, nbins=20, learn_rate=1.0,
+                      reg_lambda=0.0, sample_rate=0.632, mtries=2, seed=9)
+    jens = jb.train_boosted(X, "fixed", targets, C, np.zeros(C), p, average=True)
+    d = {
+        "edges": jens.trees_per_class[0].edges,
+        "init_margin": jens.init_margin,
+        "max_depth": p.max_depth,
+        "n_bins1": p.nbins + 1,
+        "average": jens.average,
+    }
+    for field in ("feat", "split_bin", "default_left", "is_split", "leaf"):
+        d[field] = [np.stack(getattr(t, field)) for t in jens.trees_per_class]
+    pens = ensemble_from_numpy(d, device="cpu")
+    assert pens.average
+    Xh = rng.normal(size=(400, F)).astype(np.float32)
+    Xh[rng.random((400, F)) < 0.05] = np.nan
+    np.testing.assert_allclose(pens.predict_margin(Xh), jens.predict_margin(Xh),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_drf_checkpoint_raises():
+    d = _data("gaussian", 200, seed=3)
+    with ht.use_device("cpu"), pytest.raises(NotImplementedError, match="A4"):
+        ht.DRF(response_column="y", ntrees=1, checkpoint="drf_0").train(
+            ht.Frame.from_dict(d))
 
 
 def test_ensemble_from_numpy_rejects_bad_shapes():

@@ -6,8 +6,8 @@
 Run from the root of a checkout. Phases, each of which must pass:
 
 1. a CUDA card is present (else exit 2); print its name and power limit;
-2. build both histogram kernels from ``h2o3_tpu_torch/csrc`` with nvcc, one
-   nvcc per source, started together;
+2. build the three histogram kernels from ``h2o3_tpu_torch/csrc`` with
+   nvcc, one nvcc per source, started together;
 3. hold the node-matmul kernel (``hist_nodematmul``) against its plain
    PyTorch version on the card at the shapes the fits give it (N rows x 28
    features, 257 and 21 bins, 1 to 64 nodes, 11 features, 30% inactive
@@ -20,25 +20,43 @@ Run from the root of a checkout. Phases, each of which must pass:
    nodes; 11 features at 300 nodes with a count weight; 30% inactive rows,
    empty nodes in the middle of the range), and against the node-matmul
    kernel at 64 nodes;
-5. the port's ``jax.random`` streams (``util/jrandom.py``) give on the card
+5. the same for the factorized kernel (``hist_factorized``) at the levels
+   the monotone XGBoost path below sends it (N x 28, 257 bins, 1 node with
+   a count weight, 8 and 16 nodes; 21 bins at 8 nodes; 11 features at 5
+   nodes with a count weight), timing the node-matmul kernel at each shape
+   too, and against the node-matmul kernel on one level;
+6. the port's ``jax.random`` streams (``util/jrandom.py``) give on the card
    the bits they give on the CPU;
-6. train XGBoost (``--trees`` trees, defaults: depth 6, 256 bins) on a
+7. train XGBoost (``--base-trees`` trees, defaults: depth 6, 256 bins) on a
    HIGGS-shaped frame (N x 28 numeric, binary response), predict, score;
    check that each kernel ran exactly once per level it serves, that AUC
    is finite and above 0.5, that the same fit with the plain histogram on
    the card gives the same trees (or AUC within 1e-4), and that a small
    fit on the card gives the same trees as on the CPU;
-7. the same for GBM (``--trees`` trees, defaults: depth 5, 20 bins);
-8. the same for DRF at its defaults (``--drf-trees`` 50 trees, depth 12,
-   20 bins, sample_rate 0.632, mtries sqrt(F)): 8 node-matmul and 4 sorted
-   launches per tree;
-9. with ``--profile``, one more XGBoost fit and one more DRF fit under
-   ``torch.profiler``: device time by kernel, and the device's idle share
-   of the fit.
+8. the same for GBM (``--base-trees`` trees, defaults: depth 5, 20 bins);
+9. the same for DRF at its defaults but for its trees (``--drf-trees``;
+   depth 12, 20 bins, sample_rate 0.632, mtries sqrt(F)): 8 node-matmul
+   and 4 sorted launches per tree;
+10. the same for XGBoost at its defaults (``--trees`` trees) with
+   ``monotone_constraints`` on x2 and x3, each in the direction of the
+   column's correlation with the response (the direction a user who knows
+   the data would set; against it, no split on the column is allowed and
+   the sweep below would check nothing), and ``hist_fact_max_kc=32``: its
+   built levels hold 1, 1, 2, 4, 8 and 16 nodes (subtraction), padded 8, 8,
+   8, 8, 8 and 64, so 5 factorized and 1 node-matmul launches per tree;
+   then continue it from its checkpoint to twice the trees: the same
+   launches per new tree, the same trees as one fit of twice the trees (or
+   AUC within 1e-4), and every one of 1,000 rows' margins exactly monotone,
+   in the constraint's direction, as x2 or x3 is swept over 20 values, and
+   some rows' margins moving;
+11. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+   each under ``torch.profiler``: device time by kernel, and the device's
+   idle share of the fit.
 
-It prints one ``{"kernels": [...]}`` line, then the card's name and power
-limit, then as the last line ``{"ok": true, "device": {...}}``. Any failure
-exits nonzero before those lines. Imports nothing of JAX.
+It prints the whole run's seconds, one ``{"kernels": [...]}`` line, then
+the card's name and power limit, then as the last line ``{"ok": true,
+"device": {...}}``. Any failure exits nonzero before those lines. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -102,12 +120,14 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def kernel_fns(kernel: str):
     """(wrapper, plain version) of one of the port's histogram kernels."""
+    from h2o3_tpu_torch.ops import cuda_factorized_histogram as cf
     from h2o3_tpu_torch.ops import cuda_histogram as ch
     from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 
     return {
         "hist_nodematmul": (ch.hist_nodematmul, ch.hist_nodematmul_reference),
         "hist_sorted": (cs.hist_sorted, cs.hist_sorted_reference),
+        "hist_factorized": (cf.hist_factorized, cf.hist_factorized_reference),
     }[kernel]
 
 
@@ -156,7 +176,7 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: two kernel calls differ")
     k_pad = pad_nodes(k)
-    if kernel == "hist_nodematmul" and not torch.equal(
+    if kernel != "hist_sorted" and not torch.equal(
             wrapper(bins_fm, nodes, g, h, k_pad, n_bins1, rw=rw)[:k], a):
         raise AssertionError(f"{name}: the build for {k_pad} padded nodes differs")
     if not torch.equal(a[..., 2], ref[..., 2]):
@@ -184,6 +204,9 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
     lib_out = torch.zeros(k * n_feat * n_bins1, 3, device=dev)
     library_ms = time_ms(lambda: lib_out.zero_().index_add_(0, flat, src), reps=3)
     del flat, src, lib_out
+    # the node-matmul kernel on the same level, to compare the contractions
+    b1_ms = (time_ms(lambda: kernel_fns("hist_nodematmul")[0](*args, rw=rw), reps=10)
+             if kernel == "hist_factorized" else None)
 
     n_active = int(valid.sum().item())
     in_bytes = 4 * n + n_active * (4 * n_feat + 8 + (4 if weighted else 0))
@@ -196,28 +219,30 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
         "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+    if b1_ms is not None:
+        rec["hist_nodematmul_ms"] = b1_ms
     print(f"kernel check ok: {json.dumps(rec)}", flush=True)
     return rec
 
 
-def cross_check(n, n_feat, n_bins1, k, seed, dev):
-    """The sorted kernel against the node-matmul kernel on one level both
-    serve: counts exact, sums within the tolerance."""
+def cross_check(kernel, n, n_feat, n_bins1, k, seed, dev):
+    """``kernel`` against the node-matmul kernel on one level both serve:
+    counts exact, sums within the tolerance."""
     import torch
 
-    from h2o3_tpu_torch.ops import cuda_histogram as ch
-    from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
-
+    wrapper = kernel_fns(kernel)[0]
+    nodematmul = kernel_fns("hist_nodematmul")[0]
     args, rw, _ = kernel_inputs(n, n_feat, n_bins1, k, True, seed, dev, empty_run=True)
-    a = cs.hist_sorted(*args, rw=rw)
-    b = ch.hist_nodematmul(*args, rw=rw)
+    a = wrapper(*args, rw=rw)
+    b = nodematmul(*args, rw=rw)
     torch.cuda.synchronize()
-    name = f"hist_sorted vs hist_nodematmul N={n} F={n_feat} B1={n_bins1} K={k} rw"
+    name = f"{kernel} vs hist_nodematmul N={n} F={n_feat} B1={n_bins1} K={k} rw"
     if not torch.equal(a[..., 2], b[..., 2]):
         raise AssertionError(f"{name}: counts differ")
     if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
         raise AssertionError(f"{name}: max diff {(a - b).abs().max().item()}")
-    rec = {"case": name, "max_abs_diff": (a - b).abs().max().item()}
+    rec = {"case": name, "max_abs_diff": (a - b).abs().max().item(),
+           "bit_identical": bool(torch.equal(a, b))}
     print(f"cross check ok: {json.dumps(rec)}", flush=True)
     return rec
 
@@ -320,6 +345,70 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
         "small_auc_card_cpu": [card.training_metrics.auc, cpu.training_metrics.auc],
     }
     print(f"fit ok: {json.dumps(rec)}", flush=True)
+    return rec, model
+
+
+def continue_fit(builder_cls, frame, X, prior, n_trees, expect_launches, label,
+                 monotone, **kw):
+    """Continue ``prior`` from its checkpoint to ``n_trees`` trees on the
+    card; check the launches of the new trees, the trees against one fit of
+    ``n_trees``, and, for each constrained column, that 1,000 rows' margins
+    move exactly in its direction as the column is swept over 20 values."""
+    import torch
+
+    from h2o3_tpu_torch.ops import cuda_build
+
+    cuda_build.reset_launch_counts()
+    t0 = time.time()
+    model = builder_cls(response_column="y", ntrees=n_trees, checkpoint=prior.key,
+                        monotone_constraints=monotone, **kw).train(frame)
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    launches = dict(cuda_build.LAUNCHES)
+    if launches != expect_launches:
+        raise AssertionError(
+            f"{label}: kernel launches of the continued trees {launches}, "
+            f"expected {expect_launches}")
+    if model.ntrees_built != n_trees:
+        raise AssertionError(f"{label}: {model.ntrees_built} trees, expected {n_trees}")
+    auc = model.training_metrics.auc
+    if not (np.isfinite(auc) and auc > 0.5):
+        raise AssertionError(f"{label}: AUC {auc} is not finite and above 0.5")
+
+    single = builder_cls(response_column="y", ntrees=n_trees,
+                         monotone_constraints=monotone, **kw).train(frame)
+    same_single = trees_equal(model, single)
+    single_auc = single.training_metrics.auc
+    if not same_single and abs(single_auc - auc) > 1e-4:
+        raise AssertionError(
+            f"{label}: one {n_trees}-tree fit differs (AUC {single_auc} vs {auc})")
+
+    rows = X[:1000]
+    sweeps = {}
+    for col, direction in monotone.items():
+        j = int(col[1:])
+        margins = []
+        for v in np.linspace(-3.0, 3.0, 20, dtype=np.float32):
+            Xs = rows.copy()
+            Xs[:, j] = v
+            margins.append(model.booster.predict_margin(Xs)[:, 0])
+        steps = direction * np.diff(np.stack(margins), axis=0)
+        if not np.all(steps >= 0):
+            raise AssertionError(
+                f"{label}: margins move against {col}'s constraint {direction} "
+                f"(worst step {steps.min()})")
+        moving = int(np.sum(np.any(steps > 0, axis=0)))
+        if moving == 0:
+            raise AssertionError(
+                f"{label}: no row's margin moves with {col}: the sweep checks nothing")
+        sweeps[col] = {"direction": direction, "rows_that_move": moving}
+    rec = {
+        "fit": label, "trees": n_trees, "train_s": train_s, "auc": auc,
+        "launches": launches, "prep_s": model.timings["prep_s"],
+        "boost_s": model.timings["train_s"], "single_fit_trees_equal": same_single,
+        "single_fit_auc": single_auc, "monotone_sweeps": sweeps,
+    }
+    print(f"continued fit ok: {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -373,14 +462,18 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=2_000_000)
     ap.add_argument("--trees", type=int, default=10,
-                    help="trees of the XGBoost and GBM fits")
-    ap.add_argument("--drf-trees", type=int, default=50,
-                    help="trees of the DRF fit (its default: 50)")
+                    help="trees of the monotone XGBoost fit (twice as many "
+                         "after its continuation)")
+    ap.add_argument("--base-trees", type=int, default=4,
+                    help="trees of the unconstrained XGBoost and GBM fits")
+    ap.add_argument("--drf-trees", type=int, default=20,
+                    help="trees of the DRF fit (DRF's own default: 50)")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one more XGBoost and DRF fit "
-                         "(device time by kernel)")
+                    help="also profile one more XGBoost, DRF and monotone "
+                         "XGBoost fit (device time by kernel)")
     args = ap.parse_args()
+    t_start = time.time()
 
     import torch
 
@@ -399,7 +492,8 @@ def main() -> int:
     t0 = time.time()
     cuda_build.build()
     build_s = time.time() - t0
-    print(f"kernel build (both, in parallel): {build_s:.1f} s", flush=True)
+    print(f"kernel build ({len(cuda_build.KERNELS)}, in parallel): {build_s:.1f} s",
+          flush=True)
     for name, log in cuda_build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -418,29 +512,55 @@ def main() -> int:
         ("hist_sorted", n, 28, 21, 2048, True),  # level 11 without subtraction
         ("hist_sorted", n, 28, 257, 512, False),  # XGBoost's 256 bins, 512 nodes
         ("hist_sorted", n, 11, 21, 300, True),  # K not a power of 2, F not of 8
+        ("hist_factorized", n, 28, 257, 8, False),  # its widest level built
+        ("hist_factorized", n, 28, 257, 1, True),  # the root
+        ("hist_factorized", n, 28, 257, 16, False),
+        ("hist_factorized", n, 28, 21, 8, False),
+        ("hist_factorized", n, 11, 257, 5, True),  # K not a power of 2, F not of 8
     ]
     checks = [kernel_case(*c, seed=seed + i, dev=dev) for i, c in enumerate(cases)]
-    cross = cross_check(n, 28, 21, 64, seed + len(cases), dev)
+    cross = [cross_check("hist_sorted", n, 28, 21, 64, seed + len(cases), dev),
+             cross_check("hist_factorized", n, 28, 257, 8, seed + len(cases) + 1, dev)]
     torch.cuda.empty_cache()
     rand = jrandom_check(dev)
 
     X, y = synth_higgs(n, 28, seed)
     frame = make_frame(X, y)
     small_frame = make_frame(*synth_higgs(20_000, 28, seed + 1))
+
+    def expect(nodematmul=0, sorted_=0, factorized=0):
+        return {"hist_nodematmul": nodematmul, "hist_sorted": sorted_,
+                "hist_factorized": factorized}
+
     fits = [
-        run_fit(XGBoost, frame, n, {"hist_nodematmul": args.trees * 6, "hist_sorted": 0},
-                "xgboost", small_frame, ntrees=args.trees, seed=seed),
-        run_fit(GBM, frame, n, {"hist_nodematmul": args.trees * 5, "hist_sorted": 0},
-                "gbm", small_frame, ntrees=args.trees, seed=seed),
+        run_fit(XGBoost, frame, n, expect(args.base_trees * 6), "xgboost",
+                small_frame, ntrees=args.base_trees, seed=seed)[0],
+        run_fit(GBM, frame, n, expect(args.base_trees * 5), "gbm", small_frame,
+                ntrees=args.base_trees, seed=seed)[0],
         # DRF at depth 12 with subtraction: levels 0-7 build <= 64 nodes
         # (node-matmul), levels 8-11 build 128-1024 (sorted); 12 is terminal
-        run_fit(DRF, frame, n, {"hist_nodematmul": args.drf_trees * 8,
-                                "hist_sorted": args.drf_trees * 4},
-                "drf", small_frame, ntrees=args.drf_trees, seed=seed),
+        run_fit(DRF, frame, n, expect(args.drf_trees * 8, args.drf_trees * 4),
+                "drf", small_frame, ntrees=args.drf_trees, seed=seed)[0],
     ]
+    # the monotone XGBoost path: levels padded to 8 nodes (K·4 <= 32) on the
+    # factorized kernel, the 16-node level on the node-matmul kernel
+    monotone = {f"x{j}": int(np.sign(np.corrcoef(X[:, j], y)[0, 1])) for j in (2, 3)}
+    mono_rec, mono_model = run_fit(
+        XGBoost, frame, n, expect(args.trees, 0, args.trees * 5), "xgboost_monotone",
+        small_frame, ntrees=args.trees, seed=seed, monotone_constraints=monotone,
+        hist_fact_max_kc=32)
+    mono_rec["monotone_constraints"] = monotone
+    fits.append(mono_rec)
+    fits.append(continue_fit(
+        XGBoost, frame, X, mono_model, 2 * args.trees,
+        expect(args.trees, 0, args.trees * 5), "xgboost_monotone_continued",
+        monotone, seed=seed, hist_fact_max_kc=32))
 
-    prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.trees, seed=seed),
-             profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed)]
+    prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
+             profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
+             profile_fit(XGBoost, frame, "xgboost_monotone", ntrees=args.trees,
+                         seed=seed, monotone_constraints=monotone,
+                         hist_fact_max_kc=32)]
             if args.profile else None)
 
     total = {k: sum(f["launches"][k] for f in fits) for k in cuda_build.KERNELS}
@@ -451,6 +571,9 @@ def main() -> int:
         kernel_record("hist_sorted", "h2o3_tpu_torch/csrc/hist_sorted.cu",
                       "h2o3_tpu/ops/pallas_histogram.py:353", checks, checks[6],
                       total["hist_sorted"]),
+        kernel_record("hist_factorized", "h2o3_tpu_torch/csrc/hist_factorized.cu",
+                      "h2o3_tpu/ops/pallas_histogram.py:243", checks, checks[11],
+                      total["hist_factorized"]),
     ]
     if args.out:
         with open(args.out, "w") as fh:
@@ -458,6 +581,7 @@ def main() -> int:
                        "build_s": build_s, "kernel_checks": checks,
                        "cross_check": cross, "jrandom": rand, "fits": fits,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
+    print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

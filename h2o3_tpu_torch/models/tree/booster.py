@@ -10,7 +10,8 @@ eager PyTorch on one device:
 * a tree grows level by level with a fixed node capacity 2^d per level;
   each level builds one histogram for all its nodes (on the card: a
   hand-written kernel, node-matmul up to 64 padded nodes, sorted per-node
-  beyond), searches the best split per node and routes rows.
+  beyond, and factorized for the levels ``hist_fact_max_kc`` sends to it),
+  searches the best split per node and routes rows.
   g/h, the row -> node assignment and the margin stay on the device and no
   level waits for the host; the tree arrays of a block of rounds come back
   to the host once, at the end of the block;
@@ -21,11 +22,13 @@ eager PyTorch on one device:
   (``col_sample_rate_per_tree``) and per-node feature sampling (``mtries``)
   draw from the JAX package's random streams (``util/jrandom.py``), keyed
   by the absolute tree index, so a seeded fit samples what the JAX
-  package samples, on any device.
+  package samples, on any device, and a fit continued from a checkpoint
+  draws what one longer fit draws;
+* monotone constraints carry per-node leaf-value bounds down the levels.
 
-Not part of this package yet, each raising ``NotImplementedError``:
-monotone constraints and checkpoint-continue (ROADMAP A4), the custom
-objective (ROADMAP A11) and chunk-homed distributed training (ROADMAP A10).
+Not part of this package yet, each raising ``NotImplementedError``: the
+custom objective (ROADMAP A11) and chunk-homed distributed training
+(ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -172,16 +175,23 @@ def grad_hess_device(objective: str, y: torch.Tensor, margin: torch.Tensor):
 def _split_search(
     hist: torch.Tensor, lam: float, alpha: float, gamma: float, lr: float,
     feat_mask: torch.Tensor, min_rows: float, n_bins1: int,
-    child_stats: bool = False,
+    child_stats: bool = False, constraints: Optional[torch.Tensor] = None,
+    node_lo: Optional[torch.Tensor] = None,
+    node_hi: Optional[torch.Tensor] = None,
 ):
     """Per-node best split over (feature, bin, NA direction).
 
     hist: [K, F, B+1, 3] (Σg, Σh, count); feat_mask: [F] for every node or
     [K, F] per node (mtries). Returns per-node tensors feat,
     bin, default_left, gain, leaf_value (lr-scaled); with child_stats=True
-    also the winning split's unscaled child values (wl, wr) and whether
-    the left child holds no more rows than the right — what the
-    subtraction level flow needs."""
+    or constraints set, also the winning split's unscaled child values
+    (wl, wr) and whether the left child holds no more rows than the right —
+    what the subtraction level flow and the monotone bounds need.
+
+    Monotone mode (constraints: [F] in {-1, 0, +1}; node_lo, node_hi: [K]
+    leaf-value bounds per node): a candidate whose child values go against
+    its feature's direction is masked out, and the node's own leaf value is
+    clipped into its bounds."""
     B = n_bins1 - 1
     total = hist.sum(dim=2)  # [K, F, 3] — identical across F
     G = total[:, 0, 0]
@@ -211,7 +221,12 @@ def _split_search(
         gain = 0.5 * (side_score(gl, hl) + side_score(gr, hr)
                       - parent[:, None, None]) - gamma
         ok = (cl >= min_rows) & (cr >= min_rows)
-        return torch.where(ok, gain, -torch.inf)
+        gain = torch.where(ok, gain, -torch.inf)
+        if constraints is not None:
+            c = constraints[None, :, None].to(gl.dtype)
+            bad = (c != 0) & (c * (opt_w(gr, hr) - opt_w(gl, hl)) < 0)
+            gain = torch.where(bad, -torch.inf, gain)
+        return gain
 
     # NA right (default_left=False): left stats = cum; NA left: += NA bucket
     gain_r = dir_gain(cum[..., 0], cum[..., 1], cum[..., 2])
@@ -235,8 +250,10 @@ def _split_search(
     dl = torch.gather(go_left_better.reshape(K, -1), 1, best[:, None])[:, 0]
 
     raw_leaf = opt_w(G, H)
+    if constraints is not None:
+        raw_leaf = torch.clamp(raw_leaf, node_lo, node_hi)
     best_f32, best_b32 = best_f.int(), best_b.int()
-    if child_stats:
+    if child_stats or constraints is not None:
         kk = torch.arange(K, device=hist.device)
         stats_l = cum[kk, best_f, best_b] + dl[:, None].to(cum.dtype) * na[kk, best_f]
         gl_b, hl_b, cl_b = stats_l[:, 0], stats_l[:, 1], stats_l[:, 2]
@@ -281,6 +298,7 @@ def _build_one_tree(
     sample: Optional[torch.Tensor], feat_mask: torch.Tensor,
     key: jrandom.Key, p: TreeParams,
     rw: Optional[torch.Tensor], subtract: bool, hist_impl: str,
+    constraints: Optional[torch.Tensor] = None, fact_max_kc: int = 0,
 ):
     """Grow one tree to max_depth with per-level node capacity 2^d.
 
@@ -290,6 +308,11 @@ def _build_one_tree(
     ``p.mtries > 0`` each built level splits ``key`` and draws a [K, F]
     uniform, keeping per node the features at or below its mtries-th
     smallest draw (ties kept), within ``feat_mask``.
+    ``constraints`` ([F] monotone directions, or None): per-node leaf-value
+    bounds start at ±inf and are carried down the levels (the children of
+    a split on a constrained feature share the split's midpoint as a
+    bound); every leaf value is clipped into its node's bounds.
+    ``fact_max_kc`` is ``build_histogram``'s factorized-kernel limit.
     Returns (heap arrays [M] x5, per-row leaf value [N])."""
     D = p.max_depth
     n_bins1 = p.nbins + 1
@@ -297,6 +320,10 @@ def _build_one_tree(
     dev = bins_fm.device
     pos = torch.zeros(n, dtype=torch.long, device=dev)  # absolute heap position
     lr, lam, alpha = p.learn_rate, p.reg_lambda, p.reg_alpha
+    mono = constraints is not None
+    if mono:
+        b_lo = torch.full((1,), -torch.inf, dtype=torch.float32, device=dev)
+        b_hi = torch.full((1,), torch.inf, dtype=torch.float32, device=dev)
 
     tf_l, tb_l, tdl_l, tsp_l, tlf_l = [], [], [], [], []
     prev_hist = prev_can = prev_left_small = prev_wl = prev_wr = None
@@ -317,6 +344,8 @@ def _build_one_tree(
                 G, H = tot[:, 0], tot[:, 1]
                 t = torch.sign(G) * torch.clamp(torch.abs(G) - alpha, min=0.0)
                 raw_leaf = -t / torch.clamp(H + lam, min=1e-12)
+            if mono:
+                raw_leaf = torch.clamp(raw_leaf, b_lo, b_hi)
             tf_l.append(torch.zeros(K, dtype=torch.int32, device=dev))
             tb_l.append(torch.zeros(K, dtype=torch.int32, device=dev))
             tdl_l.append(torch.zeros(K, dtype=torch.bool, device=dev))
@@ -335,7 +364,8 @@ def _build_one_tree(
             half_nodes = torch.where(
                 in_hist & (parity == small_parity[par]), par, -1).int()
             hist_small = build_histogram(
-                bins_fm, half_nodes, g, h, Kp, n_bins1, rw=rw, impl=hist_impl)
+                bins_fm, half_nodes, g, h, Kp, n_bins1, rw=rw, impl=hist_impl,
+                fact_max_kc=fact_max_kc)
             can_m = prev_can[:, None, None, None]
             hist_big = torch.where(can_m, prev_hist - hist_small, 0.0)
             ls_m = prev_left_small[:, None, None, None]
@@ -344,7 +374,8 @@ def _build_one_tree(
             hist = torch.stack([left, right], dim=1).reshape(K, *hist_small.shape[1:])
         else:
             hist = build_histogram(
-                bins_fm, hist_nodes, g, h, K, n_bins1, rw=rw, impl=hist_impl)
+                bins_fm, hist_nodes, g, h, K, n_bins1, rw=rw, impl=hist_impl,
+                fact_max_kc=fact_max_kc)
         node_feat_mask = feat_mask
         if p.mtries > 0:
             key, sub = jrandom.split(key)
@@ -356,8 +387,10 @@ def _build_one_tree(
         out = _split_search(
             hist, lam, alpha, p.gamma, lr, node_feat_mask,
             min_rows=float(p.min_rows), n_bins1=n_bins1, child_stats=subtract,
+            constraints=constraints, node_lo=b_lo if mono else None,
+            node_hi=b_hi if mono else None,
         )
-        if subtract:
+        if subtract or mono:
             bf, bb, dl, gain, leaf, bwl, bwr, left_small = out
         else:
             bf, bb, dl, gain, leaf = out
@@ -375,6 +408,16 @@ def _build_one_tree(
         go_left = torch.where(b >= n_bins1 - 1, dl[k], b <= bb[k])
         child = 2 * (lo + k) + torch.where(go_left, 1, 2)
         pos = torch.where(in_lvl & can[k], child, pos)
+        if mono:
+            # the split's midpoint caps the constrained side of each child
+            c_best = constraints[bf.long()].float()
+            mid = torch.clamp(0.5 * (bwl + bwr), b_lo, b_hi)
+            lo_left = torch.where(c_best < 0, torch.maximum(b_lo, mid), b_lo)
+            hi_left = torch.where(c_best > 0, torch.minimum(b_hi, mid), b_hi)
+            lo_right = torch.where(c_best > 0, torch.maximum(b_lo, mid), b_lo)
+            hi_right = torch.where(c_best < 0, torch.minimum(b_hi, mid), b_hi)
+            b_lo = torch.stack([lo_left, lo_right], dim=1).reshape(2 * K)
+            b_hi = torch.stack([hi_left, hi_right], dim=1).reshape(2 * K)
 
     # per-level concatenation IS the heap layout: node (d, i) -> 2^d - 1 + i
     tree = tuple(torch.cat(v) for v in (tf_l, tb_l, tdl_l, tsp_l, tlf_l))
@@ -401,6 +444,10 @@ class BoostedTrees:
         self.params = params
         self.average = average
         self.device = resolve_device(device)
+
+    @property
+    def nclasses_trees(self) -> int:
+        return len(self.trees_per_class)
 
     def predict_margin(self, X: np.ndarray) -> np.ndarray:
         """Raw margins [N, C] float64 from raw features (re-binned with the
@@ -445,6 +492,7 @@ def train_boosted(
     monotone: Optional[np.ndarray] = None,
     hist_impl: Optional[str] = None,
     subtract: Optional[bool] = None,
+    hist_fact_max_kc: int = 0,
 ) -> BoostedTrees:
     """Device-resident booster loop.
 
@@ -453,19 +501,23 @@ def train_boosted(
     'huber:<delta>', 'quantile:<alpha>') or 'fixed' with y = targets [N, C].
     monitor(tree_idx, margin[N, C]) -> True stops early; it is called every
     ``score_interval`` trees, which is also the block size then.
+    resume_from: checkpoint-continue: start from an existing ensemble's
+    binning, init margin, trees and margin and build ``params.ntrees`` MORE
+    trees. Tree keys fold in the absolute tree index, so k trees and then k
+    more draw what one 2k-tree fit draws.
     weights: [N] observation weights folded into (g, h) and the count
     channel. offset: [N] margin offset (single-margin objectives).
+    monotone: [F] per-feature direction in {-1, 0, +1}.
     device: where the fit runs (see ``device.resolve_device``).
     hist_impl: "kernel" or "plain" (default: kernel on cuda, plain on cpu).
-    subtract: histogram subtraction (default: on for cuda, off for cpu)."""
+    subtract: histogram subtraction (default: on for cuda, off for cpu).
+    hist_fact_max_kc: levels whose padded node count K satisfies K·4 <= this
+    take the factorized kernel (``ops/histogram.build_histogram``; 0, the
+    JAX package's default, sends none)."""
     if getattr(X, "is_dist_hist", False):
         raise _not_ported("chunk-homed distributed training",
                           "ROADMAP A10: cluster-side compute")
     p = params
-    if monotone is not None and np.any(np.asarray(monotone) != 0):
-        raise _not_ported("monotone_constraints", "ROADMAP A4: booster")
-    if resume_from is not None:
-        raise _not_ported("checkpoint-continue", "ROADMAP A4: booster")
     dev = resolve_device(device)
     hist_impl = hist_impl or default_hist_impl(dev)
     if hist_impl not in HIST_IMPLS:
@@ -474,14 +526,24 @@ def train_boosted(
 
     _t0 = time.time()
     n, F = X.shape
-    edges = make_bins(X, p.nbins, seed=p.seed)
+    if resume_from is not None:
+        # continue training: reuse the checkpoint's binning and f0 exactly
+        init_margin = resume_from.init_margin
+        edges = resume_from.trees_per_class[0].edges
+        if resume_from.trees_per_class[0].n_bins1 != p.nbins + 1:
+            raise ValueError("checkpoint nbins mismatch")
+    else:
+        edges = make_bins(X, p.nbins, seed=p.seed)
     n_bins1 = p.nbins + 1
     bins_fm = torch.from_numpy(np.ascontiguousarray(apply_bins(X, edges).T)).to(dev)
 
     C = n_class_trees
     y_d = torch.from_numpy(np.ascontiguousarray(y, dtype=np.float32)).to(dev)
 
-    margin_host = np.tile(np.asarray(init_margin, dtype=np.float32), (n, 1))
+    if resume_from is not None and objective != "fixed":
+        margin_host = resume_from.predict_margin(X).astype(np.float32)  # [n, C]
+    else:
+        margin_host = np.tile(np.asarray(init_margin, dtype=np.float32), (n, 1))
     if offset is not None:
         if C != 1:
             raise ValueError("offset_column requires a single-margin objective")
@@ -491,12 +553,21 @@ def train_boosted(
     w_d = None
     if weights is not None:
         w_d = torch.from_numpy(np.asarray(weights, dtype=np.float32)).to(dev)
+    mono_d = None
+    if monotone is not None and np.any(np.asarray(monotone) != 0):
+        mono_d = torch.from_numpy(np.asarray(monotone, dtype=np.int32)).to(dev)
     all_feats = torch.ones(F, dtype=torch.bool, device=dev)
     key = jrandom.PRNGKey(p.seed)
     # sampling draws compare float32 uniforms with the rate as float32
     sample_rate = float(np.float32(p.sample_rate))
 
     trees_per_class = [Trees(p.max_depth, n_bins1, edges) for _ in range(C)]
+    tree_offset = 0
+    if resume_from is not None:
+        tree_offset = resume_from.trees_per_class[0].ntrees
+        for src, dst in zip(resume_from.trees_per_class, trees_per_class):
+            for field in ("feat", "split_bin", "default_left", "is_split", "leaf"):
+                setattr(dst, field, list(getattr(src, field)))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     _t_prep = time.time()
@@ -513,7 +584,7 @@ def train_boosted(
                 g_all = g_all * w_d[:, None]
                 h_all = h_all * w_d[:, None]
             # one key per absolute tree index, split as the JAX block does
-            kr, kc, kt = jrandom.split(jrandom.fold_in(key, t), 3)
+            kr, kc, kt = jrandom.split(jrandom.fold_in(key, tree_offset + t), 3)
             sample = None
             if p.sample_rate < 1.0:
                 sample = jrandom.uniform(kr, (n,), dev) < sample_rate
@@ -529,6 +600,7 @@ def train_boosted(
                     h_all[:, c].float().contiguous(), sample, feat_mask,
                     jrandom.fold_in(kt, c), p,
                     rw=w_d, subtract=subtract_on, hist_impl=hist_impl,
+                    constraints=mono_d, fact_max_kc=hist_fact_max_kc,
                 )
                 margin[:, c] += pred
                 outs.append(tree)

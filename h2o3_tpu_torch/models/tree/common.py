@@ -7,8 +7,7 @@ label-encoded ordinals by default or one-hot indicators with
 
 Not part of this package yet: the device frame cache (``tree_cache_token``:
 the bins are re-binned every fit), SHAP contributions, variable
-importances, chunk-homed frames, checkpoint-continue and the custom
-distribution.
+importances, chunk-homed frames and the custom distribution.
 """
 
 from __future__ import annotations
@@ -19,6 +18,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.keyed import DKV
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.data_info import (
     DataInfo,
@@ -287,10 +287,6 @@ def tree_fit_setup(frame: Frame, p, model_cls, use_offset: bool,
     Returns (model, X, y, weights, offset, objective, f0, n_class_trees,
     mono) with the keep mask (NA response / zero-weight / NA-offset rows)
     already applied to X/y/weights/offset."""
-    if p.checkpoint:
-        raise NotImplementedError(
-            "checkpoint-continue is not ported to h2o3_tpu_torch yet "
-            "(ROADMAP A4: booster)")
     ignored = list(p.ignored_columns)
     aux_cols = [p.weights_column] + ([p.offset_column] if use_offset else [])
     for aux in aux_cols:
@@ -353,6 +349,68 @@ def make_tree_monitor(model, p, objective, y, weights, history):
     if deadline is not None:
         return monitor, max(p.score_tree_interval, DEFAULT_TREE_BLOCK)
     return None, p.score_tree_interval
+
+
+def checkpoint_booster(
+    p, n_class_trees: int, algo_name: str = None,
+    n_features: int = None, encoding: str = None,
+):
+    """Resolve the ``checkpoint`` param to the prior model's booster
+    (checkpoint-continue, ``hex/tree/SharedTree.java:131-136``). The
+    reference validates that non-modifiable params match the checkpoint
+    (CheckpointUtils); here: same algo, class count, depth, binning, and
+    feature layout (count + categorical encoding) — trees from two
+    different layouts index features incompatibly."""
+    if not p.checkpoint:
+        return None
+    prior = DKV.get(p.checkpoint)
+    if prior is None:
+        raise ValueError(f"checkpoint model {p.checkpoint!r} not found")
+    b = getattr(prior, "booster", None)
+    if b is None:
+        raise ValueError(f"checkpoint model {p.checkpoint!r} is not a tree model")
+    if algo_name is not None and getattr(prior, "algo_name", None) != algo_name:
+        raise ValueError(
+            f"checkpoint model is {getattr(prior, 'algo_name', '?')!r}, "
+            f"cannot continue it as {algo_name!r}"
+        )
+    if b.nclasses_trees != n_class_trees:
+        raise ValueError("checkpoint class count differs from this training frame")
+    t0 = b.trees_per_class[0]
+    if t0.max_depth != p.max_depth:
+        raise ValueError(
+            f"checkpoint max_depth={t0.max_depth} differs from requested {p.max_depth}"
+        )
+    if t0.n_bins1 != p.nbins + 1:
+        raise ValueError(
+            f"checkpoint nbins={t0.n_bins1 - 1} differs from requested {p.nbins}"
+        )
+    if n_features is not None and t0.edges.shape[0] != n_features:
+        raise ValueError(
+            f"checkpoint was trained on {t0.edges.shape[0]} tree features, "
+            f"this frame/encoding produces {n_features}"
+        )
+    prior_enc = getattr(prior, "tree_encoding", None)
+    if encoding is not None and prior_enc is not None and prior_enc != encoding:
+        raise ValueError(
+            f"checkpoint categorical_encoding={prior_enc!r} differs from "
+            f"requested {encoding!r}"
+        )
+    return b
+
+
+def extra_trees(p, n_class_trees: int) -> int:
+    """Trees still to build on top of the checkpoint; ``ntrees`` is the TOTAL
+    (reference: restart validation requires ntrees > checkpoint's)."""
+    b = checkpoint_booster(p, n_class_trees)
+    if b is None:
+        return p.ntrees
+    built = b.trees_per_class[0].ntrees
+    if p.ntrees <= built:
+        raise ValueError(
+            f"checkpoint already has {built} trees; ntrees={p.ntrees} must exceed it"
+        )
+    return p.ntrees - built
 
 
 def monotone_array(

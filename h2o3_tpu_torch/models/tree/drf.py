@@ -9,8 +9,7 @@ tree set per class (one set of P(class 1) for a binomial response); the
 averaged leaves are class fractions, normalised to probabilities.
 
 Not part of this package yet: the chunk-homed distributed fit and the
-device frame cache (``tree_cache_token``); ``checkpoint`` raises
-``NotImplementedError`` (ROADMAP A4).
+device frame cache (``tree_cache_token``).
 """
 
 from __future__ import annotations
@@ -27,6 +26,8 @@ from h2o3_tpu_torch.models.framework import ModelBuilder, ModelParameters
 from h2o3_tpu_torch.models.tree.booster import TreeParams, train_boosted
 from h2o3_tpu_torch.models.tree.common import (
     TreeModelBase,
+    checkpoint_booster,
+    extra_trees,
     extract_weights,
     tree_data_info,
     tree_matrix,
@@ -46,6 +47,9 @@ class DRFParameters(ModelParameters):
     hist_impl: Optional[str] = None
     #: histogram subtraction; None: on for cuda, off for cpu
     tree_subtract: Optional[bool] = None
+    #: levels whose padded node count K has K·4 <= this take the
+    #: factorized histogram kernel (0: none, the JAX package's default)
+    hist_fact_max_kc: int = 0
 
 
 class DRFModel(TreeModelBase):
@@ -75,10 +79,6 @@ class DRF(ModelBuilder):
     def _fit(self, frame: Frame, valid: Optional[Frame],
              device: torch.device) -> DRFModel:
         p: DRFParameters = self.params
-        if p.checkpoint:
-            raise NotImplementedError(
-                "checkpoint-continue is not ported to h2o3_tpu_torch yet "
-                "(ROADMAP A4: booster)")
         ignored = list(p.ignored_columns)
         if p.weights_column and p.weights_column not in ignored:
             ignored.append(p.weights_column)
@@ -108,7 +108,7 @@ class DRF(ModelBuilder):
             n_class_trees = 1
 
         tp = TreeParams(
-            ntrees=p.ntrees,
+            ntrees=extra_trees(p, n_class_trees),
             max_depth=p.max_depth,
             learn_rate=1.0,  # no shrinkage: each tree predicts the target itself
             nbins=p.nbins,
@@ -132,9 +132,14 @@ class DRF(ModelBuilder):
             average=True,
             device=device,
             timings=model.timings,
+            resume_from=checkpoint_booster(
+                p, n_class_trees, self.algo_name,
+                n_features=F, encoding=model.tree_encoding,
+            ),
             weights=weights,
             hist_impl=p.hist_impl,
             subtract=p.tree_subtract,
+            hist_fact_max_kc=p.hist_fact_max_kc,
         )
         model.ntrees_built = model.booster.trees_per_class[0].ntrees
         model.training_metrics = model.model_performance(frame)

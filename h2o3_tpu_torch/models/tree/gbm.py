@@ -17,6 +17,8 @@ from h2o3_tpu_torch.models.framework import ModelBuilder, ModelParameters
 from h2o3_tpu_torch.models.tree.booster import TreeParams, train_boosted
 from h2o3_tpu_torch.models.tree.common import (
     TreeModelBase,
+    checkpoint_booster,
+    extra_trees,
     make_tree_monitor,
     tree_fit_setup,
 )
@@ -42,6 +44,9 @@ class GBMParameters(ModelParameters):
     hist_impl: Optional[str] = None
     #: histogram subtraction; None: on for cuda, off for cpu
     tree_subtract: Optional[bool] = None
+    #: levels whose padded node count K has K·4 <= this take the
+    #: factorized histogram kernel (0: none, the JAX package's default)
+    hist_fact_max_kc: int = 0
 
 
 class GBMModel(TreeModelBase):
@@ -72,7 +77,7 @@ class GBM(ModelBuilder):
             tree_fit_setup(frame, p, GBMModel, use_offset=True, device=device)
         )
         tp = TreeParams(
-            ntrees=p.ntrees,
+            ntrees=extra_trees(p, n_class_trees),
             max_depth=p.max_depth,
             learn_rate=p.learn_rate,
             nbins=p.nbins,
@@ -99,11 +104,16 @@ class GBM(ModelBuilder):
             score_interval=score_interval,
             device=device,
             timings=model.timings,
+            resume_from=checkpoint_booster(
+                p, n_class_trees, self.algo_name,
+                n_features=X.shape[1], encoding=model.tree_encoding,
+            ),
             weights=weights,
             offset=offset,
             monotone=mono,
             hist_impl=p.hist_impl,
             subtract=p.tree_subtract,
+            hist_fact_max_kc=p.hist_fact_max_kc,
         )
         model.ntrees_built = model.booster.trees_per_class[0].ntrees
         model.training_metrics = model.model_performance(frame)

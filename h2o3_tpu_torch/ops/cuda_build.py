@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 )
 
 #: the kernels of the port, by source name under csrc/
-KERNELS = ("hist_nodematmul", "hist_sorted")
+KERNELS = ("hist_nodematmul", "hist_sorted", "hist_factorized")
 
 #: launches of each kernel, counted by its wrapper where it launches
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

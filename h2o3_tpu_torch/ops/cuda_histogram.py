@@ -21,7 +21,7 @@ deterministic.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -33,6 +33,7 @@ from h2o3_tpu_torch.ops.cuda_build import (
 )
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "load_library", "launch_plan",
+           "row_chunks", "load_chunked_library", "launch_chunked",
            "hist_nodematmul", "hist_nodematmul_reference"]
 
 #: most warps (one per feature) in one block
@@ -68,25 +69,40 @@ def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
             f"hist_nodematmul: {n_nodes} nodes x {n_bins1} bins do not fit "
             f"one block's shared memory ({_SMEM_LIMIT} bytes)")
     wpb = max(1, min(n_feat, _MAX_WARPS_PER_BLOCK, _SMEM_LIMIT // per_warp))
+    return (wpb, *row_chunks(n_rows, n_feat))
+
+
+def row_chunks(n_rows: int, n_feat: int) -> Tuple[int, int]:
+    """(chunk rows, chunks): the row chunks one warp each sums in float
+    before the float64 reduce, a function of (rows, features) alone. The
+    factorized kernel cuts rows the same way."""
     n_chunks = max(-(-n_rows // _MAX_CHUNK_ROWS),
                    min(-(-n_rows // _MIN_CHUNK_ROWS), -(-_TARGET_WARPS // n_feat)))
     n_chunks = max(1, n_chunks)
     chunk_rows = -(-n_rows // n_chunks)
     chunk_rows = -(-chunk_rows // 32) * 32
-    return wpb, chunk_rows, -(-n_rows // chunk_rows)
+    return chunk_rows, -(-n_rows // chunk_rows)
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hist_nodematmul_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.hist_nodematmul_launch.restype = i
-    lib.hist_nodematmul_error_string.argtypes = [i]
-    lib.hist_nodematmul_error_string.restype = ctypes.c_char_p
+def load_chunked_library(kernel: str) -> ctypes.CDLL:
+    """Build (at first use) and load the library of a row-chunked histogram
+    kernel: ``<kernel>_launch`` and ``<kernel>_error_string``, the C
+    interface the node-matmul and factorized kernels share."""
+    def bind(lib: ctypes.CDLL) -> None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        launch = getattr(lib, f"{kernel}_launch")
+        launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        launch.restype = i
+        errs = getattr(lib, f"{kernel}_error_string")
+        errs.argtypes = [i]
+        errs.restype = ctypes.c_char_p
+
+    return _load(kernel, bind)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return _load("hist_nodematmul", _bind)
+    return load_chunked_library("hist_nodematmul")
 
 
 def hist_nodematmul_reference(
@@ -117,8 +133,51 @@ def hist_nodematmul_reference(
         .float().contiguous()
 
 
-def _check(name, t, dtype, shape, device) -> None:
-    check_tensor("hist_nodematmul", name, t, dtype, shape, device)
+def launch_chunked(
+    kernel: str, plan: Callable[[int, int, int, int], Tuple[int, int, int]],
+    slab_cells: int, bins_fm: torch.Tensor, nodes: torch.Tensor,
+    g: torch.Tensor, h: torch.Tensor, n_nodes: int, n_bins1: int,
+    rw: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Launch a row-chunked histogram kernel on CUDA tensors: check the
+    level's inputs (bins_fm [F, N] int32, nodes [N] int32, g/h/rw [N]
+    float32, all contiguous on one card), allocate the [K, F, B1, 3] output
+    and the [chunks, F, slab_cells] float32 partials, launch on the current
+    stream, raise on a launch error, and count the launch.
+    ``plan(rows, features, nodes, bins)`` gives (warps per block, chunk
+    rows, chunks)."""
+    if bins_fm.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {bins_fm.device}")
+    dev = bins_fm.device
+    if bins_fm.dim() != 2:
+        raise ValueError(f"{kernel}: bins_fm must be [F, N]")
+    n_feat, n = bins_fm.shape
+    check_tensor(kernel, "bins_fm", bins_fm, torch.int32, (n_feat, n), dev)
+    for name, t, dtype in (("nodes", nodes, torch.int32), ("g", g, torch.float32),
+                           ("h", h, torch.float32), ("rw", rw, torch.float32)):
+        if t is not None:
+            check_tensor(kernel, name, t, dtype, (n,), dev)
+    if n_nodes < 1 or n_bins1 < 1:
+        raise ValueError(f"{kernel}: n_nodes and n_bins1 must be >= 1")
+    out = torch.empty((n_nodes, n_feat, n_bins1, 3), dtype=torch.float32, device=dev)
+    if n == 0 or n_feat == 0:
+        return out.zero_()
+    wpb, chunk_rows, n_chunks = plan(n, n_feat, n_nodes, n_bins1)
+    partial = torch.empty((n_chunks, n_feat, slab_cells), dtype=torch.float32, device=dev)
+    lib = load_chunked_library(kernel)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, f"{kernel}_launch")(
+            bins_fm.data_ptr(), nodes.data_ptr(), g.data_ptr(), h.data_ptr(),
+            None if rw is None else rw.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n, n_feat, n_nodes, n_bins1, wpb, chunk_rows,
+            n_chunks, stream,
+        )
+    if err != 0:
+        msg = getattr(lib, f"{kernel}_error_string")(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: {msg} (cuda error {err})")
+    LAUNCHES[kernel] += 1
+    return out
 
 
 def hist_nodematmul(
@@ -136,37 +195,6 @@ def hist_nodematmul(
     tensor: the plain version, ``hist_nodematmul_reference``."""
     if bins_fm.device.type == "cpu":
         return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
-    if bins_fm.device.type != "cuda":
-        raise ValueError(f"hist_nodematmul: unsupported device {bins_fm.device}")
-    dev = bins_fm.device
-    if bins_fm.dim() != 2:
-        raise ValueError("hist_nodematmul: bins_fm must be [F, N]")
-    n_feat, n = bins_fm.shape
-    _check("bins_fm", bins_fm, torch.int32, (n_feat, n), dev)
-    _check("nodes", nodes, torch.int32, (n,), dev)
-    _check("g", g, torch.float32, (n,), dev)
-    _check("h", h, torch.float32, (n,), dev)
-    if rw is not None:
-        _check("rw", rw, torch.float32, (n,), dev)
-    if n_nodes < 1 or n_bins1 < 1:
-        raise ValueError("hist_nodematmul: n_nodes and n_bins1 must be >= 1")
-    out = torch.empty((n_nodes, n_feat, n_bins1, 3), dtype=torch.float32, device=dev)
-    if n == 0 or n_feat == 0:
-        return out.zero_()
-    wpb, chunk_rows, n_chunks = launch_plan(n, n_feat, n_nodes, n_bins1)
-    partial = torch.empty(
-        (n_chunks, n_feat, n_nodes, 3, n_bins1), dtype=torch.float32, device=dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hist_nodematmul_launch(
-            bins_fm.data_ptr(), nodes.data_ptr(), g.data_ptr(), h.data_ptr(),
-            None if rw is None else rw.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, n_feat, n_nodes, n_bins1, wpb, chunk_rows,
-            n_chunks, stream,
-        )
-    if err != 0:
-        msg = lib.hist_nodematmul_error_string(err).decode()
-        raise RuntimeError(f"hist_nodematmul launch failed: {msg} (cuda error {err})")
-    LAUNCHES["hist_nodematmul"] += 1
-    return out
+    # partials [chunks, F, K, 3, B1]
+    return launch_chunked("hist_nodematmul", launch_plan, n_nodes * 3 * n_bins1,
+                          bins_fm, nodes, g, h, n_nodes, n_bins1, rw)

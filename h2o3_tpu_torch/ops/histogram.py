@@ -4,13 +4,17 @@
   on the host in numpy, so bin codes are bit-identical to the JAX package.
   The NA code is ``nbins`` (256 at XGBoost's default), so codes are int32.
 - ``pad_nodes`` (:70-89): the node-count ladder 8/64/512.
-- ``build_histogram`` is the dispatch, as ``pallas_histogram.py:501-512``
-  keys it off the padded node count (``histogram.py:398-402``): on ``cuda``
-  a level whose padded node count K satisfies K·4 <= 512 goes to the
-  node-matmul kernel (``ops/cuda_histogram.hist_nodematmul``), a wider one
-  to the sorted per-node kernel (``ops/cuda_sorted_histogram.hist_sorted``);
-  on ``cpu`` the plain version (``hist_nodematmul_reference``, the
-  ``index_add_`` twin of ``_shard_histogram`` :254) builds every level.
+- ``build_histogram`` is the dispatch, as ``pallas_histogram.py:475-476,
+  494-512`` keys it off the padded node count (``histogram.py:398-402``):
+  with the kernels, a level whose padded node count K satisfies K·4 <=
+  ``fact_max_kc`` goes to the factorized kernel
+  (``ops/cuda_factorized_histogram.hist_factorized``; ``fact_max_kc`` is 0
+  by default, as the JAX package's ``H2O3_TPU_HIST_FACT_MAX_KC``), else one
+  with K·4 <= 512 to the node-matmul kernel
+  (``ops/cuda_histogram.hist_nodematmul``), a wider one to the sorted
+  per-node kernel (``ops/cuda_sorted_histogram.hist_sorted``); the plain
+  version (``hist_nodematmul_reference``, the ``index_add_`` twin of
+  ``_shard_histogram`` :254) builds every level when asked for.
 - ``node_totals`` (:280): the terminal level's per-node totals, a scatter
   (``index_add_``) as in the JAX package.
 """
@@ -22,6 +26,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.ops.cuda_factorized_histogram import hist_factorized
 from h2o3_tpu_torch.ops.cuda_histogram import (
     hist_nodematmul,
     hist_nodematmul_reference,
@@ -160,6 +165,7 @@ def build_histogram(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
     rw: Optional[torch.Tensor] = None, impl: Optional[str] = None,
+    fact_max_kc: int = 0,
 ) -> torch.Tensor:
     """Histogram [n_nodes, F, n_bins1, 3] float32 of (Σg, Σh, Σw).
 
@@ -167,7 +173,9 @@ def build_histogram(
     inactive row); g, h: [N] float32; rw: optional [N] count weight
     (weights_column: the count channel reports Σw). impl: "kernel" (the
     default on cuda) or "plain" (the default on cpu); a CPU tensor always
-    takes the plain version.
+    takes the plain version. fact_max_kc: with the kernels, levels whose
+    padded node count K satisfies K·4 <= fact_max_kc take the factorized
+    kernel (0, the default, sends none).
 
     The JAX package pads the node count up the ladder so one compiled plan
     serves a bucket; here nothing is compiled per shape, so every version
@@ -179,7 +187,10 @@ def build_histogram(
         raise ValueError(f"hist impl must be one of {HIST_IMPLS}, got {impl!r}")
     if impl == "plain":
         return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
-    if pad_nodes(n_nodes) * _C > _NODE_MATMUL_MAX_KC:
+    kc = pad_nodes(n_nodes) * _C
+    if kc <= fact_max_kc:
+        return hist_factorized(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+    if kc > _NODE_MATMUL_MAX_KC:
         return hist_sorted(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
     return hist_nodematmul(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
 

@@ -2,10 +2,12 @@
 
 ``grad_hess_device`` for every objective family, ``_split_search`` (with
 and without the subtraction flow's child stats, with a per-feature and a
-per-node feature mask), the ensemble scorer ``_predict_stacked``, the
-booster loop with row/column sampling and mtries (the JAX random streams,
-reproduced by ``util/jrandom.py``), and the parameters that are not ported
-yet, which must raise ``NotImplementedError`` rather than fall back.
+per-node feature mask, and in monotone mode), the ensemble scorer
+``_predict_stacked``, the booster loop with row/column sampling and mtries
+(the JAX random streams, reproduced by ``util/jrandom.py``), with monotone
+constraints, and continued from a checkpoint (``resume_from``), and the
+parameters that are not ported yet, which must raise
+``NotImplementedError`` rather than fall back.
 
 Tolerances: float32 elementwise math in two frameworks (rtol 1e-6 for
 g/h); split decisions are compared exactly on inputs whose best gains are
@@ -109,6 +111,42 @@ def test_split_search_matches_jax(child_stats, lam, alpha, gamma, min_rows):
         np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("child_stats", [False, True])
+def test_split_search_monotone_matches_jax(child_stats):
+    # feature 0 carries the signal (g rises with the bin, so the unconstrained
+    # best split has wl > wr): +1 on it masks those candidates, -1 on feature
+    # 1 masks the other direction; node bounds clip the leaf values
+    rng = np.random.default_rng(12)
+    k, f, b1 = 4, 5, 17
+    hist = _random_hist(rng, k, f, b1)
+    cons = np.array([1, -1, 0, 1, 0], np.int32)
+    lo = np.array([-np.inf, -0.05, -np.inf, 0.01], np.float32)
+    hi = np.array([np.inf, 0.02, 0.0, np.inf], np.float32)
+    mask = np.ones(f, bool)
+    want = jb._split_search(
+        jnp.asarray(hist), jnp.float32(1.0), jnp.float32(0.0), jnp.float32(0.0),
+        jnp.float32(0.3), jnp.asarray(mask), min_rows=1.0, n_bins1=b1,
+        constraints=jnp.asarray(cons), node_lo=jnp.asarray(lo),
+        node_hi=jnp.asarray(hi), child_stats=child_stats)
+    got = tb._split_search(
+        torch.from_numpy(hist), 1.0, 0.0, 0.0, 0.3, torch.from_numpy(mask),
+        min_rows=1.0, n_bins1=b1, child_stats=child_stats,
+        constraints=torch.from_numpy(cons), node_lo=torch.from_numpy(lo),
+        node_hi=torch.from_numpy(hi))
+    assert len(got) == len(want) == 8
+    for name, g_, w_ in zip(("feat", "bin", "dl"), got[:3], want[:3]):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_), err_msg=name)
+    for g_, w_ in zip(got[3:], want[3:]):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
+    leaf = got[4].numpy() / 0.3
+    assert np.all(leaf >= lo - 1e-7) and np.all(leaf <= hi + 1e-7)
+    # a chosen split on a constrained feature respects its direction
+    for j in range(k):
+        c = cons[got[0][j].item()]
+        if np.isfinite(got[3][j].item()) and c:
+            assert c * (got[6][j].item() - got[5][j].item()) >= 0
+
+
 def test_split_search_per_node_mask_matches_jax():
     # DRF's mtries: a [K, F] mask, one feature subset per node
     rng = np.random.default_rng(4)
@@ -196,8 +234,6 @@ class _DistX(np.ndarray):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(monotone=np.array([1, 0])), "A4"),
-    (dict(resume_from=object()), "A4"),
     (dict(dist=True), "A10"),
 ])
 def test_unported_parameters_raise(change, item):
@@ -208,3 +244,80 @@ def test_unported_parameters_raise(change, item):
     p = tb.TreeParams(ntrees=1, max_depth=2, nbins=8, **change.get("params", {}))
     with use_device("cpu"), pytest.raises(NotImplementedError, match=item):
         tb.train_boosted(X, "gaussian", X[:, 0], 1, np.zeros(1), p, **kw)
+
+
+def _regression(n, F, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, F)).astype(np.float32)
+    X[rng.random(n) < 0.05, 3] = np.nan
+    y = 2 * X[:, 0] - X[:, 1] + np.sin(3 * X[:, 2]) + 0.2 * rng.normal(size=n)
+    return X, y
+
+
+def _assert_ensembles_equal(jens, pens):
+    for jt, pt in zip(jens.trees_per_class, pens.trees_per_class):
+        assert jt.ntrees == pt.ntrees
+        for f in ("feat", "split_bin", "default_left", "is_split"):
+            np.testing.assert_array_equal(np.stack(getattr(jt, f)),
+                                          np.stack(getattr(pt, f)), err_msg=f)
+        np.testing.assert_allclose(np.stack(jt.leaf), np.stack(pt.leaf),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("subtract", [False, True])
+def test_monotone_booster_matches_jax(subtract, monkeypatch):
+    # the constrained features carry signal against their direction, so
+    # the constraints mask splits and clip leaves; the port runs the
+    # kernel dispatch (plain versions on the CPU) with the factorized limit
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "1" if subtract else "0")
+    X, y = _regression(1200, 5, seed=3)
+    mono = np.array([-1, 1, 1, 0, 0], np.int32)
+    f0 = np.array([float(y.mean())])
+    p = jb.TreeParams(ntrees=3, max_depth=3, nbins=16, learn_rate=0.5, seed=4)
+    jens = jb.train_boosted(X, "gaussian", y, 1, f0, p, monotone=mono)
+    with use_device("cpu"):
+        pens = tb.train_boosted(X, "gaussian", y, 1, f0, tb.TreeParams(**vars(p)),
+                                monotone=mono, subtract=subtract,
+                                hist_impl="kernel", hist_fact_max_kc=32)
+    _assert_ensembles_equal(jens, pens)
+    # the margin does not rise with x0 nor fall with x1 or x2, on any row
+    rows = X[:100]
+    for j, c in ((0, -1), (1, 1), (2, 1)):
+        sweep = np.linspace(-2.5, 2.5, 15, dtype=np.float32)
+        margins = []
+        for v in sweep:
+            Xs = rows.copy()
+            Xs[:, j] = v
+            margins.append(pens.predict_margin(Xs)[:, 0])
+        steps = c * np.diff(np.stack(margins), axis=0)
+        assert np.all(steps >= 0), (j, steps.min())
+
+
+@pytest.mark.parametrize("objective,C,sampling", [
+    ("gaussian", 1, dict(sample_rate=0.7, col_sample_rate_per_tree=0.6)),
+    ("multinomial", 3, dict()),
+])
+def test_resume_matches_jax(objective, C, sampling):
+    # 2 trees, then 2 more from the checkpoint, in both packages: the
+    # continued trees and the random streams keyed by absolute tree index
+    X, y = _regression(1000, 5, seed=8)
+    if objective == "multinomial":
+        y = (X[:, 0] > 0).astype(np.float64) + (X[:, 1] > 0.3)
+        f0 = np.zeros(C)
+    else:
+        f0 = np.array([float(y.mean())])
+    p = jb.TreeParams(ntrees=2, max_depth=3, nbins=16, seed=11, **sampling)
+    j1 = jb.train_boosted(X, objective, y, C, f0, p)
+    j2 = jb.train_boosted(X, objective, y, C, f0, p, resume_from=j1)
+    with use_device("cpu"):
+        tp = tb.TreeParams(**vars(p))
+        p1 = tb.train_boosted(X, objective, y, C, f0, tp, subtract=False)
+        p2 = tb.train_boosted(X, objective, y, C, f0, tp, resume_from=p1,
+                              subtract=False)
+    assert p2.nclasses_trees == C and p2.trees_per_class[0].ntrees == 4
+    _assert_ensembles_equal(j2, p2)
+    np.testing.assert_array_equal(p2.trees_per_class[0].edges,
+                                  p1.trees_per_class[0].edges)
+    with use_device("cpu"), pytest.raises(ValueError, match="nbins"):
+        tb.train_boosted(X, objective, y, C, f0, tb.TreeParams(**{**vars(p), "nbins": 8}),
+                         resume_from=p1)

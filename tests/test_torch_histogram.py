@@ -13,6 +13,11 @@ held to ``_prep_padded``'s ``jnp.argsort(nd, stable=True)`` and
 atol 1e-4) — the packages add the same float32 values in different orders;
 counts are exact.
 
+The factorized kernel's plain version (``hist_factorized_reference``, an
+``index_add_`` into the kernel's [F, HI, K, 3, 16] slab, permuted back and
+cut to B1 bins) is held to the scatter oracle and to the factorized Pallas
+kernel in interpret mode, at 257 bins too, where HI·16 = 272 exceeds B1.
+
 The kernels themselves run only on the card: see ``tests/test_torch_kernels.py``.
 """
 
@@ -29,6 +34,7 @@ from h2o3_tpu.ops.histogram import (
     pad_nodes as jax_pad_nodes,
 )
 from h2o3_tpu.ops.pallas_histogram import build_histogram_pallas
+from h2o3_tpu_torch.ops import cuda_factorized_histogram as cf
 from h2o3_tpu_torch.ops import cuda_histogram as ch
 from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 from h2o3_tpu_torch.ops.histogram import (
@@ -279,3 +285,96 @@ def test_dispatch_takes_the_sorted_kernel_beyond_64_padded_nodes(monkeypatch):
     assert calls == [("nodematmul", 1), ("nodematmul", 8), ("nodematmul", 64),
                      ("sorted", 65), ("sorted", 128), ("sorted", 512),
                      ("sorted", 1024)]
+
+
+# ---------------------------------------------------------------------------
+# the factorized kernel's plain version (B3)
+
+FACT_SHAPES = [
+    (1000, 5, 4, 17, 128),
+    (513, 3, 1, 9, 256),      # single node, non-divisible rows
+    (2048, 7, 8, 33, 512),
+    (900, 11, 4, 17, 128),    # features not a multiple of the 8-wide block
+    (2000, 5, 2, 257, 512),   # 257 bins: HI = 17, slab cells 257..271 cut
+]
+
+
+def _fact_port(bins, nodes, g, h, k, b1, rw=None):
+    t = torch.from_numpy
+    return cf.hist_factorized_reference(
+        t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1,
+        rw=None if rw is None else t(rw)).numpy()
+
+
+def _jax_fact(bins, nodes, g, h, k, b1, row_tile, rw=None):
+    scatter = np.asarray(_shard_histogram(bins, nodes, g, h, k, b1, rw=rw))
+    pallas = np.asarray(build_histogram_pallas(
+        bins, nodes, g, h, k, b1, row_tile=row_tile, interpret=True,
+        kernel="factorized", rw=rw, dtype="f32"))
+    return scatter, pallas
+
+
+@pytest.mark.parametrize("n,f,k,b1,row_tile", FACT_SHAPES)
+def test_factorized_plain_matches_jax(n, f, k, b1, row_tile):
+    bins, nodes, g, h, _ = _mk(n, f, k, b1, seed=n + b1)
+    got = _fact_port(bins, nodes, g, h, k, b1)
+    scatter, pallas = _jax_fact(bins, nodes, g, h, k, b1, row_tile)
+    assert got.shape == (k, f, b1, 3)
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+    if b1 == 257:  # the NA code 256 is slab cell (hi 16, lo 0)
+        assert got[..., 256, 2].sum() == np.sum(bins == 256)
+
+
+@pytest.mark.parametrize("weighted,b1", [(False, 13), (True, 13), (True, 257)])
+def test_factorized_inactive_rows_empty_nodes_and_count_weight(weighted, b1):
+    bins, nodes, g, h, rw = _mk(
+        1500, 4, 6, b1, seed=19, frac_inactive=0.3, empty_node=2, weighted=weighted)
+    got = _fact_port(bins, nodes, g, h, 6, b1, rw=rw)
+    scatter, pallas = _jax_fact(bins, nodes, g, h, 6, b1, 128, rw=rw)
+    assert np.all(got[2] == 0)  # the empty node is exactly zero
+    np.testing.assert_array_equal(got[..., 2], np.round(got[..., 2]))
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+
+
+def test_factorized_wrapper_on_cpu_tensors_is_the_plain_version():
+    bins, nodes, g, h, rw = _mk(800, 6, 5, 257, seed=13, frac_inactive=0.2,
+                                weighted=True)
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 5, 257)
+    before = dict(ch.LAUNCHES)
+    a = cf.hist_factorized(*args, rw=t(rw))
+    assert torch.equal(a, cf.hist_factorized_reference(*args, rw=t(rw)))
+    assert ch.LAUNCHES == before  # the plain version launches nothing
+    # the factorized and the direct plain versions compute the same function
+    b = ch.hist_nodematmul_reference(*args, rw=t(rw))
+    assert torch.equal(a[..., 2], b[..., 2])
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("fact_max_kc,want", [
+    (0, ["nodematmul"] * 4 + ["sorted"] * 2),
+    (32, ["factorized"] * 2 + ["nodematmul"] * 2 + ["sorted"] * 2),
+    (256, ["factorized"] * 4 + ["sorted"] * 2),
+])
+def test_dispatch_takes_the_factorized_kernel_up_to_fact_max_kc(
+        monkeypatch, fact_max_kc, want):
+    from h2o3_tpu_torch.ops import histogram as hmod
+
+    calls = []
+    for name in ("hist_factorized", "hist_nodematmul", "hist_sorted"):
+        monkeypatch.setattr(
+            hmod, name,
+            lambda *a, _n=name[5:], **kw: calls.append((_n, a[4])) or _n)
+    z = torch.zeros(1, 4, dtype=torch.int32)
+    ks = (1, 8, 9, 64, 65, 512)
+    for k in ks:
+        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 3,
+                             impl="kernel", fact_max_kc=fact_max_kc)
+    assert calls == list(zip(want, ks))
+    # the plain version builds every level whatever the limit
+    calls.clear()
+    hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), 1, 3,
+                         impl="plain", fact_max_kc=fact_max_kc)
+    assert calls == []

@@ -1,16 +1,17 @@
 """The PyTorch port's CUDA histogram kernels against their plain versions.
 
-The node-matmul kernel (``hist_nodematmul``) and the sorted per-node kernel
-(``hist_sorted``) have no CPU mode: the ``cuda``-marked tests skip without
-a card.
+The node-matmul kernel (``hist_nodematmul``), the sorted per-node kernel
+(``hist_sorted``) and the factorized kernel (``hist_factorized``) have no
+CPU mode: the ``cuda``-marked tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 The launch-plan arithmetic around the kernels (shared-memory fit, row
-chunks that ignore the node count, the sorted kernel's tile bound) and the
-sorted kernel's prep are plain Python and run everywhere.
+chunks that ignore the node count, the sorted kernel's tile bound, the
+factorized kernel's node limit) and the sorted kernel's prep are plain
+Python and run everywhere.
 Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh (the plain version
 sums in float64, the kernel in float32 per chunk); counts exact.
 """
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from h2o3_tpu_torch.ops import cuda_build
+from h2o3_tpu_torch.ops import cuda_factorized_histogram as cf
 from h2o3_tpu_torch.ops import cuda_histogram as ch
 from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 
@@ -104,7 +106,9 @@ def test_every_kernel_has_a_source_and_a_count():
         assert cuda_build.source(name).exists(), name
         assert cuda_build.library_path(name).name.startswith(f"lib{name}_")
     assert set(cuda_build.LAUNCHES) == set(cuda_build.KERNELS)
-    assert ch.LAUNCHES is cuda_build.LAUNCHES
+    assert {"hist_nodematmul", "hist_sorted", "hist_factorized"} <= set(
+        cuda_build.KERNELS)
+    assert ch.LAUNCHES is cuda_build.LAUNCHES is cs.LAUNCHES is cf.LAUNCHES
 
 
 @pytest.mark.cuda
@@ -132,3 +136,47 @@ def test_sorted_kernel_matches_plain_on_card():
             nm = ch.hist_nodematmul(*args, rw=rwt)
             assert torch.equal(a[..., 2], nm[..., 2])
             torch.testing.assert_close(a, nm, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_bins1", [257, 21])
+@pytest.mark.parametrize("k", range(1, 17))
+def test_factorized_launch_plan_fits_and_shares_the_row_chunks(k, n_bins1):
+    wpb, chunk_rows, n_chunks = cf.launch_plan(2_000_000, 28, k, n_bins1)
+    assert 1 <= wpb <= 8 and cf._smem_bytes(k, n_bins1, wpb) <= cf._SMEM_LIMIT
+    # the node-matmul kernel's chunks: the same rows summed in the same order
+    assert (chunk_rows, n_chunks) == ch.launch_plan(2_000_000, 28, k, n_bins1)[1:]
+    assert cf.n_hi(n_bins1) * cf.FACT_LO >= n_bins1 > (cf.n_hi(n_bins1) - 1) * cf.FACT_LO
+
+
+@pytest.mark.parametrize("n_bins1,k_max", [(257, 71), (21, 604)])
+def test_factorized_launch_plan_raises_beyond_shared_memory(n_bins1, k_max):
+    assert cf.launch_plan(1000, 4, k_max, n_bins1)[0] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        cf.launch_plan(1000, 4, k_max + 1, n_bins1)
+
+
+@pytest.mark.cuda
+def test_factorized_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for n, f, k, b1, weighted in [(100_000, 28, 8, 257, False),
+                                  (70_001, 11, 5, 257, True),
+                                  (50_000, 5, 16, 21, False),
+                                  (30_000, 3, 1, 9, True)]:
+        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k, frac_inactive=0.3,
+                                    empty_node=1 if k > 2 else None,
+                                    weighted=weighted)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
+        rwt = None if rw is None else t(rw)
+        a = cf.hist_factorized(*args, rw=rwt)
+        b = cf.hist_factorized(*args, rw=rwt)
+        ref = cf.hist_factorized_reference(*args, rw=rwt)
+        assert torch.equal(a, b)
+        assert torch.equal(a[..., 2], ref[..., 2])
+        if k > 2:
+            assert torch.all(a[1] == 0)
+        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
+        # same row chunks, same order in a cell: the node-matmul kernel's bits
+        assert torch.equal(a, ch.hist_nodematmul(*args, rw=rwt))

@@ -20,7 +20,15 @@ packages add float32 histograms in different orders) and metrics within
 1e-6. Also: an ensemble trained by the JAX package, carried across as
 numpy arrays (``h2o3_tpu_torch.convert.ensemble_from_numpy``), scores
 held-out rows as the JAX package does.
+
+GBM and XGBoost with ``monotone_constraints``, and GBM, XGBoost and DRF
+continued from a checkpoint (k trees, then k more), give the JAX package's
+trees, and the checkpoint's validation errors are the JAX package's. One
+case is the path ``chip_smoke.py`` drives on the card: XGBoost with monotone
+constraints, subtraction and the factorized limit, then continued.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -32,6 +40,7 @@ from h2o3_tpu.models.tree import DRF as JDRF, GBM as JGBM, XGBoost as JXGBoost
 from h2o3_tpu.models.tree import booster as jb
 from h2o3_tpu.models.tree.common import init_margin as j_init_margin
 import h2o3_tpu_torch as ht
+from h2o3_tpu_torch.keyed import DKV as PDKV
 from h2o3_tpu_torch.convert import ensemble_from_numpy
 
 torch.set_num_threads(1)
@@ -209,10 +218,175 @@ def test_drf_ensemble_carried_across_scores_like_jax():
 
 
 def test_drf_checkpoint_raises():
+    # a checkpoint key that names no model: the JAX package's error
     d = _data("gaussian", 200, seed=3)
-    with ht.use_device("cpu"), pytest.raises(NotImplementedError, match="A4"):
-        ht.DRF(response_column="y", ntrees=1, checkpoint="drf_0").train(
-            ht.Frame.from_dict(d))
+    kw = dict(response_column="y", ntrees=2, checkpoint="drf_0",
+              ignored_columns=["w", "off"])
+    with pytest.raises(ValueError) as jerr:
+        JDRF(**kw).train(JFrame.from_dict(d))
+    with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
+        ht.DRF(**kw).train(ht.Frame.from_dict(d))
+    assert str(perr.value) == str(jerr.value) == "checkpoint model 'drf_0' not found"
+
+
+MONO_CASES = [
+    (algo, dist, subtract)
+    for algo in ("xgboost", "gbm")
+    for dist in ("gaussian", "bernoulli")
+    for subtract in (False, True)
+]
+
+
+def _mono_data(dist, n, seed):
+    # x0 and x1 move y against the constraints of the test, so they bind
+    d = _data(dist, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    x = np.nan_to_num(np.stack([d[f"x{j}"] for j in range(4)], 1))
+    signal = 2 * x[:, 0] + 2 * np.sin(3 * x[:, 1]) - x[:, 2]
+    if dist == "gaussian":
+        d["y"] = signal + 0.3 * rng.normal(size=n)
+    else:
+        d["y"] = np.where(rng.random(n) < 1 / (1 + np.exp(-signal)), "yes", "no")
+    return d
+
+
+@pytest.mark.parametrize("algo,dist,subtract", MONO_CASES)
+def test_monotone_fit_matches_jax(algo, dist, subtract, monkeypatch):
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "1" if subtract else "0")
+    d = _mono_data(dist, 2500, seed=len(dist) + subtract)
+    holdout = _mono_data(dist, 700, seed=98)
+    kw = dict(response_column="y", ntrees=3, max_depth=3, seed=6,
+              ignored_columns=["w", "off"],
+              monotone_constraints={"x0": -1, "x1": 1, "x2": -1})
+    pcls, jcls = BUILDERS[algo]
+    jmodel = jcls(**kw).train(JFrame.from_dict(d))
+    try:
+        jpred = jmodel.predict(JFrame.from_dict(holdout))
+        jperf = jmodel.model_performance(JFrame.from_dict(holdout))
+    finally:
+        JDKV.remove(jmodel.key)
+    pho = ht.Frame.from_dict(holdout)
+    with ht.use_device("cpu"):
+        pmodel = pcls(tree_subtract=subtract, **kw).train(ht.Frame.from_dict(d))
+        ppred = pmodel.predict(pho)
+        pperf = pmodel.model_performance(pho)
+    _assert_trees_equal(jmodel, pmodel)
+    for name in jpred.names:
+        a, b = jpred.col(name).data, ppred.col(name).data
+        if jpred.col(name).domain is not None:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+    _assert_metrics_close(jmodel.training_metrics, pmodel.training_metrics)
+    _assert_metrics_close(jperf, pperf)
+    # exact monotonicity: x0 swept up never raises a row's margin, x1 never
+    # lowers it
+    X = np.stack([holdout[f"x{j}"] for j in range(4)], 1)[:200].astype(np.float32)
+    for j, c in ((0, -1), (1, 1)):
+        margins = []
+        for v in np.linspace(-3, 3, 20):
+            Xs = X.copy()
+            Xs[:, j] = v
+            margins.append(pmodel.booster.predict_margin(Xs)[:, 0])
+        assert np.all(c * np.diff(np.stack(margins), axis=0) >= 0), j
+
+
+CHECKPOINT_CASES = [
+    ("gbm", "gaussian", False, {}),
+    ("xgboost", "bernoulli", False, dict(sample_rate=0.7)),
+    ("drf", "bernoulli", True, {}),
+    ("drf", "multinomial", False, {}),
+    # the card's new path: monotone, subtraction, the factorized limit
+    ("xgboost", "bernoulli", True, dict(
+        monotone_constraints={"x2": 1, "x3": -1}, hist_fact_max_kc=32)),
+]
+
+
+@pytest.mark.parametrize("algo,dist,subtract,extra", CHECKPOINT_CASES)
+def test_checkpoint_continue_matches_jax(algo, dist, subtract, extra, monkeypatch):
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "1" if subtract else "0")
+    d = _data(dist, 2500, seed=40 + len(algo))
+    extra = dict(extra)
+    port_kw = {"tree_subtract": subtract}
+    if "hist_fact_max_kc" in extra:
+        port_kw.update(hist_impl="kernel", hist_fact_max_kc=extra.pop("hist_fact_max_kc"))
+    kw = dict(response_column="y", ntrees=2, max_depth=3, seed=7,
+              ignored_columns=["w", "off"], **extra)
+    pcls, jcls = BUILDERS[algo]
+    jfr = JFrame.from_dict(d)
+    j1 = jcls(**kw).train(jfr)
+    try:
+        j2 = jcls(**{**kw, "ntrees": 4, "checkpoint": j1.key}).train(jfr)
+        JDKV.remove(j2.key)
+    finally:
+        JDKV.remove(j1.key)
+    pfr = ht.Frame.from_dict(d)
+    with ht.use_device("cpu"):
+        p1 = pcls(**kw, **port_kw).train(pfr)
+        p2 = pcls(**{**kw, "ntrees": 4, "checkpoint": p1.key}, **port_kw).train(pfr)
+    assert p1.ntrees_built == 2 and p2.ntrees_built == 4
+    _assert_trees_equal(j2, p2)
+    _assert_metrics_close(j2.training_metrics, p2.training_metrics)
+    if algo == "drf":
+        # a forest's trees do not see the margin: continued = one 4-tree fit
+        with ht.use_device("cpu"):
+            single = pcls(**{**kw, "ntrees": 4}, **port_kw).train(pfr)
+        _assert_trees_equal(single, p2)
+
+
+def _continue_error(pkg, prior_kw, prior_data, algo, kw, data, key=None):
+    """The ValueError message of continuing a GBM (fit with ``prior_kw`` on
+    ``prior_data``; or the model under ``key``) as ``algo`` with ``kw`` on
+    ``data``, in the JAX package (pkg 0) or the port (pkg 1); the checkpoint
+    key reads KEY."""
+    frame = (JFrame, ht.Frame)[pkg].from_dict
+    ctx = ht.use_device("cpu") if pkg else contextlib.nullcontext()
+    side = 1 - pkg  # BUILDERS holds (port, JAX) pairs
+    with ctx:
+        if prior_kw is not None:
+            key = BUILDERS["gbm"][side](**prior_kw).train(frame(prior_data)).key
+        with pytest.raises(ValueError) as err:
+            BUILDERS[algo][side](checkpoint=key, **kw).train(frame(data))
+    if prior_kw is not None and pkg == 0:
+        JDKV.remove(key)
+    return str(err.value).replace(key, "KEY")
+
+
+_BASE = dict(response_column="y", ntrees=2, max_depth=2, seed=3,
+             ignored_columns=["w", "off"])
+CHECKPOINT_ERRORS = {
+    "ntrees_not_above": ("gbm", dict(_BASE), "bernoulli"),
+    "max_depth": ("gbm", dict(_BASE, ntrees=3, max_depth=3), "bernoulli"),
+    "nbins": ("gbm", dict(_BASE, ntrees=3, nbins=16), "bernoulli"),
+    "algo": ("xgboost", dict(_BASE, ntrees=3, nbins=20), "bernoulli"),
+    "features": ("gbm", dict(_BASE, ntrees=3, ignored_columns=["w", "off", "x3"]),
+                 "bernoulli"),
+    "classes": ("gbm", dict(_BASE, ntrees=3), "multinomial"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHECKPOINT_ERRORS) + ["not_a_tree_model"])
+def test_checkpoint_errors_match_jax(case):
+    prior_data = _data("bernoulli", 300, seed=5)
+    if case == "not_a_tree_model":
+        JDKV.put("not_a_tree", object())
+        PDKV.put("not_a_tree", object())
+        try:
+            msgs = [_continue_error(pkg, None, None, "gbm", dict(_BASE, ntrees=3),
+                                    prior_data, key="not_a_tree") for pkg in (0, 1)]
+        finally:
+            JDKV.remove("not_a_tree")
+            PDKV.remove("not_a_tree")
+        assert msgs[0] == msgs[1] == "checkpoint model 'KEY' is not a tree model"
+        return
+    algo, kw, dist = CHECKPOINT_ERRORS[case]
+    data = _data(dist, 300, seed=5)
+    msgs = [_continue_error(pkg, _BASE, prior_data, algo, kw, data) for pkg in (0, 1)]
+    assert msgs[0] == msgs[1], msgs
+    want = {"ntrees_not_above": "must exceed", "max_depth": "max_depth=2",
+            "nbins": "nbins=20", "algo": "cannot continue it as 'xgboost'",
+            "features": "4 tree features", "classes": "class count"}[case]
+    assert want in msgs[1]
 
 
 def test_ensemble_from_numpy_rejects_bad_shapes():

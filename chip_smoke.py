@@ -11,10 +11,14 @@ Run from the root of a checkout. Phases, each of which must pass:
 3. hold the node-matmul kernel (``hist_nodematmul``) against its plain
    PyTorch version on the card at the shapes the fits give it (N rows x 28
    features, 257 and 21 bins, 1 to 64 nodes, 11 features, 30% inactive
-   rows with one empty node, with and without a count weight): rtol 1e-5 /
-   atol 1e-4 on Σg/Σh, counts exact, empty node exactly zero, two calls
-   bit-identical and so the build for the padded node count; time the
-   kernel, the plain version and one ``index_add_`` call;
+   rows with one empty node, with and without a count weight), and at the
+   wide levels whose per-warp histogram did not fit shared memory before
+   the kernel tiled each level's cells across warps (64 nodes x 303 bins,
+   16 x 1,209, 64 x 513): rtol 1e-5 / atol 1e-4 on Σg/Σh, counts exact,
+   empty node exactly zero, two calls bit-identical and so the build for
+   the padded node count; time the kernel, the plain version and one
+   ``index_add_`` call; and at 16 and 64 nodes x 257 bins, where it tiles
+   each level's cells across warps, bit-identical to the factorized kernel;
 4. the same for the sorted per-node kernel (``hist_sorted``) at DRF's wide
    levels (N x 28, 21 bins, 128 / 1024 / 2048 nodes; 257 bins at 512
    nodes; 11 features at 300 nodes with a count weight; 30% inactive rows,
@@ -49,7 +53,11 @@ Run from the root of a checkout. Phases, each of which must pass:
    AUC within 1e-4), and every one of 1,000 rows' margins exactly monotone,
    in the constraint's direction, as x2 or x3 is swept over 20 values, and
    some rows' margins moving;
-11. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+11. XGBoost at ``nbins=512`` and ``max_depth=8`` (``--wide-trees`` trees)
+   on the first ``--wide-rows`` rows of the frame: its built levels hold 1
+   to 64 nodes at 513 bins, all on the node-matmul kernel (8 launches per
+   tree), checked as in 7 but for the small fit on the CPU;
+12. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
@@ -286,8 +294,9 @@ def trees_equal(ma, mb) -> bool:
 
 def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **kw):
     """Train + predict + score one builder on the card through the kernels,
-    then check it against the plain histogram and against the CPU.
-    expect_launches: {kernel: launches} the fit must make, exactly."""
+    then check it against the plain histogram and, on ``small_frame`` (None:
+    not), against the CPU. expect_launches: {kernel: launches} the fit must
+    make, exactly."""
     import torch
 
     from h2o3_tpu_torch import use_device
@@ -323,16 +332,6 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
         raise AssertionError(
             f"{label}: plain-histogram fit differs (AUC {plain_auc} vs {auc})")
 
-    card = builder_cls(response_column="y", **kw).train(small_frame)
-    card_plain = builder_cls(response_column="y", hist_impl="plain",
-                             **kw).train(small_frame)
-    with use_device("cpu"):
-        cpu = builder_cls(response_column="y", tree_subtract=True,
-                          **kw).train(small_frame)
-    same_cpu = trees_equal(card, cpu)
-    if not same_cpu and abs(card.training_metrics.auc - cpu.training_metrics.auc) > 1e-4:
-        raise AssertionError(f"{label}: small fit on the card differs from the CPU")
-
     rec = {
         "fit": label, "rows": n_rows, "train_s": train_s,
         "train_rows_per_s": n_rows / train_s, "predict_s": predict_s,
@@ -340,10 +339,22 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
         "auc": auc, "logloss": perf.logloss, "launches": launches,
         "prep_s": model.timings["prep_s"], "boost_s": model.timings["train_s"],
         "plain_trees_equal": same_plain, "plain_auc": plain_auc,
-        "small_card_vs_cpu_trees_equal": same_cpu,
-        "small_card_vs_card_plain_trees_equal": trees_equal(card, card_plain),
-        "small_auc_card_cpu": [card.training_metrics.auc, cpu.training_metrics.auc],
     }
+    if small_frame is not None:
+        card = builder_cls(response_column="y", **kw).train(small_frame)
+        card_plain = builder_cls(response_column="y", hist_impl="plain",
+                                 **kw).train(small_frame)
+        with use_device("cpu"):
+            cpu = builder_cls(response_column="y", tree_subtract=True,
+                              **kw).train(small_frame)
+        same_cpu = trees_equal(card, cpu)
+        if not same_cpu and abs(card.training_metrics.auc - cpu.training_metrics.auc) > 1e-4:
+            raise AssertionError(f"{label}: small fit on the card differs from the CPU")
+        rec.update({
+            "small_card_vs_cpu_trees_equal": same_cpu,
+            "small_card_vs_card_plain_trees_equal": trees_equal(card, card_plain),
+            "small_auc_card_cpu": [card.training_metrics.auc, cpu.training_metrics.auc],
+        })
     print(f"fit ok: {json.dumps(rec)}", flush=True)
     return rec, model
 
@@ -468,6 +479,10 @@ def main() -> int:
                     help="trees of the unconstrained XGBoost and GBM fits")
     ap.add_argument("--drf-trees", type=int, default=20,
                     help="trees of the DRF fit (DRF's own default: 50)")
+    ap.add_argument("--wide-rows", type=int, default=300_000,
+                    help="rows of the XGBoost fit at 512 bins and depth 8")
+    ap.add_argument("--wide-trees", type=int, default=4,
+                    help="trees of the XGBoost fit at 512 bins and depth 8")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more XGBoost, DRF and monotone "
@@ -521,6 +536,23 @@ def main() -> int:
     checks = [kernel_case(*c, seed=seed + i, dev=dev) for i, c in enumerate(cases)]
     cross = [cross_check("hist_sorted", n, 28, 21, 64, seed + len(cases), dev),
              cross_check("hist_factorized", n, 28, 257, 8, seed + len(cases) + 1, dev)]
+    # levels whose per-warp [K, 3, B1] histogram did not fit shared memory
+    # before the node-matmul kernel tiled each level's cells across warps
+    wide_cases = [
+        ("hist_nodematmul", n, 28, 303, 64, False),
+        ("hist_nodematmul", n, 28, 1209, 16, True),  # depth 6 at 1,208 bins
+        ("hist_nodematmul", n, 28, 513, 64, False),  # the 512-bin fit below
+    ]
+    checks += [kernel_case(*c, seed=seed + len(cases) + 2 + i, dev=dev)
+               for i, c in enumerate(wide_cases)]
+    # B1 tiles these levels' cells across warps (6 tiles at 16 nodes, 8 at
+    # 64); each cell still adds its rows in B3's order: the same bits
+    for i, k in enumerate((16, 64)):
+        rec = cross_check("hist_factorized", n, 28, 257, k,
+                          seed + len(cases) + 2 + len(wide_cases) + i, dev)
+        if not rec["bit_identical"]:
+            raise AssertionError(f"{rec['case']}: B1's tiled level is not B3's bits")
+        cross.append(rec)
     torch.cuda.empty_cache()
     rand = jrandom_check(dev)
 
@@ -555,6 +587,17 @@ def main() -> int:
         XGBoost, frame, X, mono_model, 2 * args.trees,
         expect(args.trees, 0, args.trees * 5), "xgboost_monotone_continued",
         monotone, seed=seed, hist_fact_max_kc=32))
+    # 512 bins at depth 8: built levels of 1, 1, 2, ..., 64 nodes at 513
+    # bins, each on the node-matmul kernel. Held to the plain histogram on
+    # the card only: a 20,000-row fit this deep parts from the CPU's at near
+    # ties with the plain histogram on the card too (the card and the CPU
+    # round their float sums differently), so that comparison would not test
+    # the kernel; the CPU tests hold this configuration to the JAX package.
+    wide_n = min(args.wide_rows, n)
+    fits.append(run_fit(
+        XGBoost, make_frame(X[:wide_n], y[:wide_n]), wide_n,
+        expect(args.wide_trees * 8), "xgboost_512_bins_depth_8", None,
+        ntrees=args.wide_trees, seed=seed, nbins=512, max_depth=8)[0])
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),

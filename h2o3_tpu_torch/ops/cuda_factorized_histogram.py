@@ -23,7 +23,8 @@ deterministic.
 - ``launch_plan`` raises ``ValueError`` for a level whose slab does not fit
   one block's shared memory; it never falls back to another kernel. The
   largest node count it takes is 71 at 257 bins (a 3,264-byte slab per
-  node) and 604 at 21 bins.
+  node) and 604 at 21 bins; ``fits`` says which levels it takes, and the
+  dispatch sends a level it cannot hold to the node-matmul kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from h2o3_tpu_torch.ops.cuda_histogram import (
     row_chunks,
 )
 
-__all__ = ["LAUNCHES", "FACT_LO", "n_hi", "launch_plan", "load_library",
+__all__ = ["LAUNCHES", "FACT_LO", "n_hi", "fits", "launch_plan", "load_library",
            "hist_factorized", "hist_factorized_reference"]
 
 #: the low part of a bin code (``_FACT_LO``): bin = hi * FACT_LO + lo
@@ -62,6 +63,12 @@ def _smem_bytes(n_nodes: int, n_bins1: int, warps_per_block: int) -> int:
     return 4 * warps_per_block * (n_hi(n_bins1) * n_nodes * 3 * FACT_LO + 3 * 32)
 
 
+def fits(n_nodes: int, n_bins1: int) -> bool:
+    """Whether one warp's [HI, K, 3, 16] slab fits a block's shared memory:
+    the levels ``launch_plan`` takes."""
+    return _smem_bytes(n_nodes, n_bins1, 1) <= _SMEM_LIMIT
+
+
 def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
                 n_bins1: int) -> Tuple[int, int, int]:
     """(warps per block, chunk rows, chunks) for one call.
@@ -72,7 +79,7 @@ def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
     order as in ``hist_nodematmul``. Raises ValueError when one warp's
     slab does not fit in shared memory."""
     per_warp = _smem_bytes(n_nodes, n_bins1, 1)
-    if per_warp > _SMEM_LIMIT:
+    if not fits(n_nodes, n_bins1):
         raise ValueError(
             f"hist_factorized: {n_nodes} nodes x {n_bins1} bins "
             f"({per_warp} bytes of [HI, K, 3, {FACT_LO}] slab) do not fit one "

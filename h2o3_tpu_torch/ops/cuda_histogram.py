@@ -32,11 +32,12 @@ from h2o3_tpu_torch.ops.cuda_build import (
     reset_launch_counts,
 )
 
-__all__ = ["LAUNCHES", "reset_launch_counts", "load_library", "launch_plan",
-           "row_chunks", "load_chunked_library", "launch_chunked",
+__all__ = ["LAUNCHES", "MAX_NODES", "reset_launch_counts", "load_library",
+           "launch_plan", "cell_tiles", "warp_tile", "row_chunks",
+           "load_chunked_library", "launch_chunked",
            "hist_nodematmul", "hist_nodematmul_reference"]
 
-#: most warps (one per feature) in one block
+#: most warps in one block
 _MAX_WARPS_PER_BLOCK = 8
 #: shared memory a block may use on Hopper (227 KB opt-in limit)
 _SMEM_LIMIT = 232_448
@@ -46,12 +47,128 @@ _MAX_CHUNK_ROWS = 32_768
 _MIN_CHUNK_ROWS = 1_024
 #: (feature, chunk) warps wanted per call: 16 for each of the card's 132 SMs
 _TARGET_WARPS = 132 * 16
+#: rows a block of the tile kernel stages per step (kGroupRows in the source)
+_GROUP_ROWS = 512
+#: 32-bit words of one warp's pack in the tile kernel: 32 rows of (cell
+#: and batch, g, h, w)
+_PACK_WORDS = 4 * 32
+#: shared memory of one SM, and what the card keeps of it for each block:
+#: two blocks share an SM when each takes at most _HALF_SM bytes
+_SM_SMEM = 233_472
+_HALF_SM = _SM_SMEM // 2 - 1_024
+#: most (node, bin) cells of a level served one tile per feature by the
+#: warp kernel: eight warps' [K, 3, B1] histograms and [3, 32] scratch fill
+#: a block's shared memory (2,389 cells), or half an SM's (1,173)
+_WHOLE_CELLS = (_SMEM_LIMIT // (4 * _MAX_WARPS_PER_BLOCK) - 3 * 32) // 3
+_WHOLE_CELLS_HALF = (_HALF_SM // (4 * _MAX_WARPS_PER_BLOCK) - 3 * 32) // 3
+#: most nodes one call builds: every level the dispatch sends (at most 64,
+#: the JAX package's K·4 <= 512 on its 8/64/512 ladder) and a build padded
+#: past one by hand; levels of 128 nodes and more are the sorted kernel's
+MAX_NODES = 127
+
+
+def _staged_features(warps_per_block: int, tiles: int) -> int:
+    """Features whose bin codes one block of the tile kernel stages
+    (staged_features in the CUDA source): the slots of ``warps_per_block``
+    consecutive warps span at most this many features when each feature
+    has ``tiles`` tiles."""
+    return min(warps_per_block, (warps_per_block - 1) // tiles + 2)
+
+
+def _stage_words(n_staged: int) -> int:
+    """32-bit words of one staging buffer (stage_words in the CUDA source):
+    node, g, h, rw, then the bin codes of each staged feature."""
+    return _GROUP_ROWS * (4 + n_staged)
+
+
+def _block_bytes(node_tile: int, bin_tile: int, tiles: int,
+                 warps_per_block: int) -> int:
+    """Dynamic shared memory of one block (smem_bytes in the CUDA source).
+    One tile per feature: each warp's [K, 3, B1] histogram and [3, 32] lane
+    scratch. More: each warp's pack and [node_tile, 3, bin_tile] tile, and
+    two staging buffers."""
+    tile = node_tile * 3 * bin_tile
+    if tiles == 1:
+        return 4 * warps_per_block * (tile + 3 * 32)
+    return 4 * (warps_per_block * (_PACK_WORDS + tile)
+                + 2 * _stage_words(_staged_features(warps_per_block, tiles)))
+
+
+def _tile_count(n_nodes: int, n_bins1: int, node_tile: int, bin_tile: int) -> int:
+    """Tiles of one feature's histogram."""
+    return -(-n_nodes // node_tile) * -(-n_bins1 // bin_tile)
+
+
+def _fewest_tiles(n_nodes: int, n_bins1: int, budget: int) -> Tuple[int, int]:
+    """(node_tile, bin_tile) of the fewest tiles (at least 2) whose block of
+    eight warps takes at most ``budget`` bytes: equal node ranges, or where
+    one node's bins do not fit, one node's equal bin ranges."""
+    w = _MAX_WARPS_PER_BLOCK
+    for parts in range(2, n_nodes + 1):
+        kt = -(-n_nodes // parts)
+        if _block_bytes(kt, n_bins1, _tile_count(n_nodes, n_bins1, kt, n_bins1),
+                        w) <= budget:
+            return kt, n_bins1
+    parts = 2
+    while True:
+        bt = -(-n_bins1 // parts)
+        if _block_bytes(1, bt, _tile_count(n_nodes, n_bins1, 1, bt), w) <= budget:
+            return 1, bt
+        parts += 1
+
+
+def cell_tiles(n_nodes: int, n_bins1: int) -> Tuple[int, int]:
+    """(node_tile, bin_tile): the nodes and bins of one warp's tile of a
+    feature's [K, 3, B1] histogram, a function of (K, B1) alone.
+
+    Every tile's warp walks all of its feature's rows, so fewer tiles mean
+    less work; but the walks are latency-bound, and two blocks on an SM
+    (16 warps) run more than twice as fast as one. So a level whose whole
+    histogram lets two blocks of the warp kernel share an SM (at most 1,173
+    cells: the root, 4 nodes at 257 bins, 32 at 21) is one tile per
+    feature; a wider one takes the fewest tiles that let two blocks of the
+    tile kernel share an SM, unless that is more than twice the tiles of
+    one block an SM (one tile per feature up to 2,389 cells). Raises
+    ValueError outside the kernel's domain: 1 to ``MAX_NODES`` nodes, any
+    bin count."""
+    if not 1 <= n_nodes <= MAX_NODES or n_bins1 < 1:
+        raise ValueError(
+            f"hist_nodematmul: serves 1 to {MAX_NODES} nodes and >= 1 bins, "
+            f"got {n_nodes} nodes x {n_bins1} bins (wider levels are the "
+            f"sorted kernel's)")
+    if n_nodes * n_bins1 <= _WHOLE_CELLS_HALF:
+        return n_nodes, n_bins1
+    one = ((n_nodes, n_bins1) if n_nodes * n_bins1 <= _WHOLE_CELLS
+           else _fewest_tiles(n_nodes, n_bins1, _SMEM_LIMIT))
+    two = _fewest_tiles(n_nodes, n_bins1, _HALF_SM)
+    if _tile_count(n_nodes, n_bins1, *two) <= 2 * _tile_count(n_nodes, n_bins1, *one):
+        return two
+    return one
+
+
+def _tiles(n_nodes: int, n_bins1: int) -> Tuple[int, int, int]:
+    """(node_tile, bin_tile, tiles per feature)."""
+    kt, bt = cell_tiles(n_nodes, n_bins1)
+    return kt, bt, _tile_count(n_nodes, n_bins1, kt, bt)
+
+
+def warp_tile(slot: int, n_nodes: int,
+              n_bins1: int) -> Tuple[int, range, range]:
+    """(feature, nodes, bins) of the cells that slot ``slot`` owns
+    (warp_tile in the CUDA source): warp w of block x takes slot x ·
+    warps per block + w, a slot is (feature, tile) with the tiles of one
+    feature consecutive, and a tile's bin ranges vary fastest."""
+    kt, bt, tiles = _tiles(n_nodes, n_bins1)
+    f, i = divmod(slot, tiles)
+    bin_tiles = -(-n_bins1 // bt)
+    k0, b0 = i // bin_tiles * kt, i % bin_tiles * bt
+    return f, range(k0, min(n_nodes, k0 + kt)), range(b0, min(n_bins1, b0 + bt))
 
 
 def _smem_bytes(n_nodes: int, n_bins1: int, warps_per_block: int) -> int:
-    """Dynamic shared memory of one block (smem_bytes in the CUDA source):
-    per warp a [K, 3, B1] histogram and a [3, 32] lane scratch."""
-    return 4 * warps_per_block * (n_nodes * 3 * n_bins1 + 3 * 32)
+    """Dynamic shared memory of one block of ``warps_per_block`` warps for
+    a level of (K, B1) (smem_bytes in the CUDA source)."""
+    return _block_bytes(*_tiles(n_nodes, n_bins1), warps_per_block)
 
 
 def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
@@ -60,16 +177,15 @@ def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
 
     The row chunks are a function of (rows, features) alone, so the float
     summation order — and the result — is the same on every run and every
-    card, and does not change with the node count: a level padded to more
-    nodes gives bit-identical cells. Raises ValueError when one warp's
-    [K, 3, B1] histogram does not fit in shared memory."""
-    per_warp = _smem_bytes(n_nodes, n_bins1, 1)
-    if per_warp > _SMEM_LIMIT:
-        raise ValueError(
-            f"hist_nodematmul: {n_nodes} nodes x {n_bins1} bins do not fit "
-            f"one block's shared memory ({_SMEM_LIMIT} bytes)")
-    wpb = max(1, min(n_feat, _MAX_WARPS_PER_BLOCK, _SMEM_LIMIT // per_warp))
-    return (wpb, *row_chunks(n_rows, n_feat))
+    card, and does not change with the node count or the tiling: a level
+    padded to more nodes gives bit-identical cells. A block has up to 8
+    warps, one per (feature, tile) slot (``warp_tile``), and its shared
+    memory fits by construction. Raises ValueError outside the kernel's
+    domain (``cell_tiles``): every level of at most 64 nodes that the
+    dispatch sends fits, at any bin count."""
+    tiles = _tiles(n_nodes, n_bins1)[2]
+    return (min(_MAX_WARPS_PER_BLOCK, max(1, n_feat * tiles)),
+            *row_chunks(n_rows, n_feat))
 
 
 def row_chunks(n_rows: int, n_feat: int) -> Tuple[int, int]:
@@ -84,14 +200,16 @@ def row_chunks(n_rows: int, n_feat: int) -> Tuple[int, int]:
     return chunk_rows, -(-n_rows // chunk_rows)
 
 
-def load_chunked_library(kernel: str) -> ctypes.CDLL:
+def load_chunked_library(kernel: str, n_ints: int = 7) -> ctypes.CDLL:
     """Build (at first use) and load the library of a row-chunked histogram
     kernel: ``<kernel>_launch`` and ``<kernel>_error_string``, the C
-    interface the node-matmul and factorized kernels share."""
+    interface the node-matmul and factorized kernels share: seven pointers,
+    ``n_ints`` ints (the factorized kernel's seven, and the node-matmul
+    kernel's tile after them), the stream."""
     def bind(lib: ctypes.CDLL) -> None:
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{kernel}_launch")
-        launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        launch.argtypes = [p] * 7 + [i] * n_ints + [p]
         launch.restype = i
         errs = getattr(lib, f"{kernel}_error_string")
         errs.argtypes = [i]
@@ -102,7 +220,7 @@ def load_chunked_library(kernel: str) -> ctypes.CDLL:
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return load_chunked_library("hist_nodematmul")
+    return load_chunked_library("hist_nodematmul", 9)
 
 
 def hist_nodematmul_reference(
@@ -137,7 +255,7 @@ def launch_chunked(
     kernel: str, plan: Callable[[int, int, int, int], Tuple[int, int, int]],
     slab_cells: int, bins_fm: torch.Tensor, nodes: torch.Tensor,
     g: torch.Tensor, h: torch.Tensor, n_nodes: int, n_bins1: int,
-    rw: Optional[torch.Tensor],
+    rw: Optional[torch.Tensor], extra: Tuple[int, ...] = (),
 ) -> torch.Tensor:
     """Launch a row-chunked histogram kernel on CUDA tensors: check the
     level's inputs (bins_fm [F, N] int32, nodes [N] int32, g/h/rw [N]
@@ -145,7 +263,7 @@ def launch_chunked(
     and the [chunks, F, slab_cells] float32 partials, launch on the current
     stream, raise on a launch error, and count the launch.
     ``plan(rows, features, nodes, bins)`` gives (warps per block, chunk
-    rows, chunks)."""
+    rows, chunks); ``extra`` ints follow the chunks in the launch."""
     if bins_fm.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {bins_fm.device}")
     dev = bins_fm.device
@@ -164,14 +282,14 @@ def launch_chunked(
         return out.zero_()
     wpb, chunk_rows, n_chunks = plan(n, n_feat, n_nodes, n_bins1)
     partial = torch.empty((n_chunks, n_feat, slab_cells), dtype=torch.float32, device=dev)
-    lib = load_chunked_library(kernel)
+    lib = load_chunked_library(kernel, 7 + len(extra))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{kernel}_launch")(
             bins_fm.data_ptr(), nodes.data_ptr(), g.data_ptr(), h.data_ptr(),
             None if rw is None else rw.data_ptr(), partial.data_ptr(),
             out.data_ptr(), n, n_feat, n_nodes, n_bins1, wpb, chunk_rows,
-            n_chunks, stream,
+            n_chunks, *extra, stream,
         )
     if err != 0:
         msg = getattr(lib, f"{kernel}_error_string")(err).decode()
@@ -191,10 +309,12 @@ def hist_nodematmul(
 
     On a CUDA tensor: launches the kernel on the current stream (bins_fm
     [F, N] int32, nodes [N] int32, g/h/rw [N] float32, all contiguous on one
-    card) and raises on anything else or on a launch error. On a CPU
-    tensor: the plain version, ``hist_nodematmul_reference``."""
+    card) and raises on anything else, on more than ``MAX_NODES`` nodes, or
+    on a launch error. On a CPU tensor: the plain version,
+    ``hist_nodematmul_reference``."""
     if bins_fm.device.type == "cpu":
         return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
-    # partials [chunks, F, K, 3, B1]
+    # partials [chunks, F, K, 3, B1]; each warp writes its tile's cells
     return launch_chunked("hist_nodematmul", launch_plan, n_nodes * 3 * n_bins1,
-                          bins_fm, nodes, g, h, n_nodes, n_bins1, rw)
+                          bins_fm, nodes, g, h, n_nodes, n_bins1, rw,
+                          extra=cell_tiles(n_nodes, n_bins1))

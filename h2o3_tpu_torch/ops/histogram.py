@@ -9,8 +9,8 @@
   with the kernels, a level whose padded node count K satisfies K·4 <=
   ``fact_max_kc`` goes to the factorized kernel
   (``ops/cuda_factorized_histogram.hist_factorized``; ``fact_max_kc`` is 0
-  by default, as the JAX package's ``H2O3_TPU_HIST_FACT_MAX_KC``), else one
-  with K·4 <= 512 to the node-matmul kernel
+  by default, as the JAX package's ``H2O3_TPU_HIST_FACT_MAX_KC``) where its
+  slab fits, else one with K·4 <= 512 to the node-matmul kernel
   (``ops/cuda_histogram.hist_nodematmul``), a wider one to the sorted
   per-node kernel (``ops/cuda_sorted_histogram.hist_sorted``); the plain
   version (``hist_nodematmul_reference``, the ``index_add_`` twin of
@@ -26,7 +26,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from h2o3_tpu_torch.ops.cuda_factorized_histogram import hist_factorized
+from h2o3_tpu_torch.ops.cuda_factorized_histogram import (
+    fits as factorized_fits,
+    hist_factorized,
+)
 from h2o3_tpu_torch.ops.cuda_histogram import (
     hist_nodematmul,
     hist_nodematmul_reference,
@@ -175,7 +178,9 @@ def build_histogram(
     default on cuda) or "plain" (the default on cpu); a CPU tensor always
     takes the plain version. fact_max_kc: with the kernels, levels whose
     padded node count K satisfies K·4 <= fact_max_kc take the factorized
-    kernel (0, the default, sends none).
+    kernel (0, the default, sends none) when its slab fits shared memory,
+    else the node-matmul kernel, which sums each cell in the same order and
+    so gives the same bits.
 
     The JAX package pads the node count up the ladder so one compiled plan
     serves a bucket; here nothing is compiled per shape, so every version
@@ -188,7 +193,7 @@ def build_histogram(
     if impl == "plain":
         return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
     kc = pad_nodes(n_nodes) * _C
-    if kc <= fact_max_kc:
+    if kc <= fact_max_kc and factorized_fits(n_nodes, n_bins1):
         return hist_factorized(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
     if kc > _NODE_MATMUL_MAX_KC:
         return hist_sorted(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)

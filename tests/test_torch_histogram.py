@@ -378,3 +378,29 @@ def test_dispatch_takes_the_factorized_kernel_up_to_fact_max_kc(
     hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), 1, 3,
                          impl="plain", fact_max_kc=fact_max_kc)
     assert calls == []
+
+
+def test_dispatch_sends_what_the_factorized_kernel_cannot_hold_to_nodematmul(
+        monkeypatch):
+    # at 2,417 bins one node's [HI, 1, 3, 16] slab is 29,184 bytes: the
+    # factorized kernel holds 7 nodes, not 8, so fact_max_kc=32 sends the
+    # 8-node level to the node-matmul kernel (the same sum order, the same
+    # bits) instead of a launch plan that raises
+    from h2o3_tpu_torch.ops import histogram as hmod
+
+    calls = []
+    for name in ("hist_factorized", "hist_nodematmul", "hist_sorted"):
+        monkeypatch.setattr(
+            hmod, name,
+            lambda *a, _n=name[5:], **kw: calls.append((_n, a[4])) or _n)
+    z = torch.zeros(1, 4, dtype=torch.int32)
+    ks = (1, 7, 8, 9, 64, 65)
+    for k in ks:
+        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 2417,
+                             impl="kernel", fact_max_kc=32)
+    assert calls == list(zip(["factorized", "factorized", "nodematmul",
+                              "nodematmul", "nodematmul", "sorted"], ks))
+    assert cf.fits(7, 2417) and not cf.fits(8, 2417)
+    with pytest.raises(ValueError, match="shared memory"):
+        cf.launch_plan(1000, 4, 8, 2417)
+    ch.launch_plan(1000, 4, 8, 2417)  # the node-matmul kernel takes it

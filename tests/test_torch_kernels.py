@@ -9,9 +9,10 @@ machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 The launch-plan arithmetic around the kernels (shared-memory fit, row
-chunks that ignore the node count, the sorted kernel's tile bound, the
-factorized kernel's node limit) and the sorted kernel's prep are plain
-Python and run everywhere.
+chunks that ignore the node count, the node-matmul kernel's tiles, each
+cell owned by one warp, the sorted kernel's tile bound, the factorized
+kernel's node limit) and the sorted kernel's prep are plain Python and run
+everywhere.
 Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh (the plain version
 sums in float64, the kernel in float32 per chunk); counts exact.
 """
@@ -78,6 +79,77 @@ def test_kernel_matches_plain_on_card():
         assert torch.equal(a[..., 2], ref[..., 2])
         assert torch.all(a[1] == 0)
         torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("n_bins1", [2, 21, 257, 303, 513, 605, 1025, 1209, 4097])
+def test_launch_plan_tiles_every_level_up_to_64_nodes(n_bins1):
+    # every level the dispatch sends (1 to 64 nodes) at any bin count: the
+    # plan returns, a block's shared memory fits, and each (node, bin) cell
+    # of a feature (its 3 channels together) belongs to exactly one warp
+    n_feat = 3
+    for k in range(1, 65):
+        wpb, chunk_rows, n_chunks = ch.launch_plan(2_000_000, n_feat, k, n_bins1)
+        assert 1 <= wpb <= 8
+        assert ch._smem_bytes(k, n_bins1, wpb) <= ch._SMEM_LIMIT
+        assert (chunk_rows, n_chunks) == ch.row_chunks(2_000_000, n_feat)
+        node_tile, bin_tile = ch.cell_tiles(k, n_bins1)
+        tiles = -(-k // node_tile) * -(-n_bins1 // bin_tile)
+        owners = np.zeros((n_feat, k, n_bins1), dtype=np.int64)
+        for block in range(-(-n_feat * tiles // wpb)):
+            for warp in range(wpb):
+                slot = block * wpb + warp
+                if slot >= n_feat * tiles:  # an idle warp of the last block
+                    continue
+                f, nodes, bins = ch.warp_tile(slot, k, n_bins1)
+                assert len(nodes) and len(bins)
+                owners[f, nodes.start:nodes.stop, bins.start:bins.stop] += 1
+        assert np.all(owners == 1), (k, n_bins1)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card_at_wide_bins():
+    # the levels one warp's [K, 3, B1] histogram could not hold before the
+    # cells were tiled across warps: 64 nodes x 303 bins, 16 x 1209
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for n, f, k, b1, weighted in [(60_000, 5, 64, 303, False),
+                                  (50_001, 4, 16, 1209, True)]:
+        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + b1, frac_inactive=0.3,
+                                    empty_node=1, weighted=weighted)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
+        rwt = None if rw is None else t(rw)
+        a = ch.hist_nodematmul(*args, rw=rwt)
+        b = ch.hist_nodematmul(*args, rw=rwt)
+        ref = ch.hist_nodematmul_reference(*args, rw=rwt)
+        wide = ch.hist_nodematmul(*args[:4], k + 3, b1, rw=rwt)
+        assert torch.equal(a, b)
+        assert torch.equal(a, wide[:k])
+        assert torch.equal(a[..., 2], ref[..., 2])
+        assert torch.all(a[1] == 0)
+        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_tiled_levels_give_the_factorized_kernels_bits():
+    # B1 tiles these levels' cells across warps; each cell still adds its
+    # rows in the factorized kernel's order (and in B1's own one warp per
+    # feature order), so the outputs are equal bit for bit
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    for n, f, k, b1, weighted in [(60_000, 5, 16, 257, False),
+                                  (50_001, 3, 64, 257, True),
+                                  (40_000, 9, 40, 257, False)]:
+        assert ch.cell_tiles(k, b1) != (k, b1)  # tiled across warps
+        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k, frac_inactive=0.3,
+                                    empty_node=1, weighted=weighted)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
+        rwt = None if rw is None else t(rw)
+        assert torch.equal(ch.hist_nodematmul(*args, rw=rwt),
+                           cf.hist_factorized(*args, rw=rwt))
 
 
 @pytest.mark.parametrize("n_bins1", [2, 21, 257])

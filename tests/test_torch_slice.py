@@ -39,7 +39,10 @@ from h2o3_tpu.keyed import DKV as JDKV
 from h2o3_tpu.models.tree import DRF as JDRF, GBM as JGBM, XGBoost as JXGBoost
 from h2o3_tpu.models.tree import booster as jb
 from h2o3_tpu.models.tree.common import init_margin as j_init_margin
+from h2o3_tpu.models.tree.common import tree_matrix as j_tree_matrix
+from h2o3_tpu.ops.histogram import apply_bins as j_apply_bins
 import h2o3_tpu_torch as ht
+from h2o3_tpu_torch.models.tree.common import tree_matrix as p_tree_matrix
 from h2o3_tpu_torch.keyed import DKV as PDKV
 from h2o3_tpu_torch.convert import ensemble_from_numpy
 
@@ -414,3 +417,97 @@ def test_early_stopping_matches_jax():
     np.testing.assert_allclose(
         [h["score"] for h in pmodel.scoring_history],
         [h["score"] for h in jmodel.scoring_history], rtol=1e-5)
+
+
+def _row_leaves(model, frame, tree_matrix):
+    """Each row's leaf value in each tree [trees, N], by walking the tree
+    arrays over the frame's bin codes in numpy."""
+    X = tree_matrix(model.data_info, frame, encoding=model.tree_encoding)
+    rows = np.arange(len(X))
+    out = []
+    for trees in model.booster.trees_per_class:
+        bins = j_apply_bins(X, trees.edges)
+        for t in range(trees.ntrees):
+            feat, split_bin, default_left, is_split, leaf = (
+                np.asarray(getattr(trees, f)[t]) for f in
+                ("feat", "split_bin", "default_left", "is_split", "leaf"))
+            idx = np.zeros(len(X), dtype=np.int64)
+            for _ in range(trees.max_depth):
+                b = bins[rows, feat[idx]]
+                left = np.where(b >= trees.n_bins1 - 1, default_left[idx],
+                                b <= split_bin[idx])
+                idx = np.where(is_split[idx], 2 * idx + np.where(left, 1, 2), idx)
+            out.append(leaf[idx])
+    return np.stack(out)
+
+
+def test_mirror_image_ties_give_the_same_leaves_and_predictions(monkeypatch):
+    # ROADMAP C2: DRF on three N(0,1) features and a 4-level categorical
+    # with 5% NA. Two splits of one node are mirror images (the same
+    # partition, children swapped, NA on the other side); their gains are
+    # equal in exact arithmetic, and the packages round them differently
+    # (the JAX package sums 8 shards, the port once in float64), so they
+    # pick different ones and the tree arrays differ. Every row still lands
+    # on the same leaf value in every tree, and scores the same.
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "0")
+    d = _data("gaussian", 1500, seed=0)
+    del d["w"], d["off"]
+    x3 = d["x3"]  # N(0,1) with 5% NaN: its quartiles become the levels
+    levels = np.array(["a", "b", "c", "d"], dtype=object)[
+        np.digitize(np.nan_to_num(x3), [-0.67, 0.0, 0.67])]
+    levels[np.isnan(x3)] = None
+    d["x3"] = levels
+    kw = dict(response_column="y", ntrees=3, max_depth=3, seed=5)
+    splits = ("feat", "split_bin", "default_left")
+    jfr = JFrame.from_dict(d)
+    jmodel = JDRF(**kw).train(jfr)
+    try:
+        jtrees = [np.stack(getattr(jmodel.booster.trees_per_class[0], f))
+                  for f in splits]
+        jleaves = _row_leaves(jmodel, jfr, j_tree_matrix)
+        jpred = jmodel.predict(jfr).col("predict").data
+    finally:
+        JDKV.remove(jmodel.key)
+    pfr = ht.Frame.from_dict(d)
+    with ht.use_device("cpu"):
+        pmodel = ht.DRF(tree_subtract=False, **kw).train(pfr)
+        pleaves = _row_leaves(pmodel, pfr, p_tree_matrix)
+        ppred = pmodel.predict(pfr).col("predict").data
+    ptrees = [np.stack(getattr(pmodel.booster.trees_per_class[0], f)) for f in splits]
+    # the fixture shows the tie (tree 1, node 5, which holds codes 2, 3 and
+    # NA: bin 3 with NA right in the JAX package, bin 0 with NA left in the
+    # port) ...
+    assert any(not np.array_equal(a, b) for a, b in zip(jtrees, ptrees))
+    # ... and no row's leaf value or prediction does
+    np.testing.assert_allclose(pleaves, jleaves, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(ppred, jpred, rtol=1e-4, atol=1e-5)
+
+
+def test_wide_levels_at_512_bins_and_depth_8_match_jax(monkeypatch):
+    # ROADMAP C1: XGBoost at nbins=512 and depth 8 builds levels of up to 64
+    # nodes at 513 bins, more than one warp's [K, 3, B1] histogram held in
+    # shared memory before the node-matmul kernel tiled its cells. Through
+    # the kernel dispatch on CPU tensors (the kernels' plain versions); the
+    # launch plan tests in test_torch_kernels.py cover the card.
+    # At this depth a node holds a few rows, and splits that cut its rows
+    # the same way (thresholds on either side of an empty bin, or on other
+    # features) tie exactly; the packages round the equal gains differently
+    # and may keep different thresholds (ROADMAP C2). That moves held-out
+    # rows that fall between them, never a training row: the predictions
+    # are compared on the training frame.
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "1")
+    d = _data("gaussian", 1500, seed=17)
+    kw = dict(response_column="y", ntrees=3, max_depth=8, nbins=512, seed=3,
+              ignored_columns=["w", "off"])
+    jfr = JFrame.from_dict(d)
+    jmodel = JXGBoost(**kw).train(jfr)
+    try:
+        jpred = jmodel.predict(jfr).col("predict").data
+    finally:
+        JDKV.remove(jmodel.key)
+    pfr = ht.Frame.from_dict(d)
+    with ht.use_device("cpu"):
+        pmodel = ht.XGBoost(tree_subtract=True, hist_impl="kernel", **kw).train(pfr)
+        ppred = pmodel.predict(pfr).col("predict").data
+    assert pmodel.booster.trees_per_class[0].n_bins1 == 513
+    np.testing.assert_allclose(ppred, jpred, rtol=1e-4, atol=1e-5)

@@ -22,8 +22,12 @@ Run from the root of a checkout. Phases, each of which must pass:
 4. the same for the sorted per-node kernel (``hist_sorted``) at DRF's wide
    levels (N x 28, 21 bins, 128 / 1024 / 2048 nodes; 257 bins at 512
    nodes; 11 features at 300 nodes with a count weight; 30% inactive rows,
-   empty nodes in the middle of the range), and against the node-matmul
-   kernel at 64 nodes;
+   empty nodes in the middle of the range), given the row-major copy of
+   the codes a fit makes once (its time apart); there also bit-identical
+   to its plain version that keeps the kernel's float order
+   (``ordered_bits``), its prep and gather kernels equal to their plain
+   twins, and its time split into the prep (the sort), the gather, pass 1
+   and pass 2; and against the node-matmul kernel at 64 nodes;
 5. the same for the factorized kernel (``hist_factorized``) at the levels
    the monotone XGBoost path below sends it (N x 28, 257 bins, 1 node with
    a count weight, 8 and 16 nodes; 21 bins at 8 nodes; 11 features at 5
@@ -175,9 +179,14 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
     args, rw, empty = kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev,
                                     empty_run=kernel == "hist_sorted")
     bins_fm, nodes, g, h, _, _ = args
+    kw = {}
+    if kernel == "hist_sorted":
+        # a fit makes the row-major copy of its codes once, for every level
+        from h2o3_tpu_torch.ops.cuda_sorted_histogram import row_major_codes
+        kw["codes_rm"] = row_major_codes(bins_fm, n_bins1)
 
-    a = wrapper(*args, rw=rw)
-    b = wrapper(*args, rw=rw)
+    a = wrapper(*args, rw=rw, **kw)
+    b = wrapper(*args, rw=rw, **kw)
     ref = reference(*args, rw=rw)
     torch.cuda.synchronize()
     name = f"{kernel} N={n} F={n_feat} B1={n_bins1} K={k}{' rw' if weighted else ''}"
@@ -196,8 +205,11 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
             f"{name}: max |kernel - plain| {(a - ref).abs().max().item()} "
             f"outside rtol {RTOL} / atol {ATOL}")
     max_err = (a - ref).abs().max().item()
+    extra = {}
+    if kernel == "hist_sorted":
+        extra = sorted_checks(name, args, rw, kw["codes_rm"], a)
 
-    ms = time_ms(lambda: wrapper(*args, rw=rw), reps=10)
+    ms = time_ms(lambda: wrapper(*args, rw=rw, **kw), reps=10)
     plain_ms = time_ms(lambda: reference(*args, rw=rw), reps=3)
     # the one PyTorch call computing the same function: index_add_ of the
     # [N*F, 3] masked (g, h, w) rows at the flat (node, feature, bin) index
@@ -217,20 +229,113 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
              if kernel == "hist_factorized" else None)
 
     n_active = int(valid.sum().item())
-    in_bytes = 4 * n + n_active * (4 * n_feat + 8 + (4 if weighted else 0))
     out_bytes = 4 * k * n_feat * n_bins1 * 3
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = 3 * n_active * n_feat / FP32_OPS_PER_S * 1e3
+
+    def bound(code_bytes):
+        # each row's node id; an active row's codes, g, h (and rw); the output
+        in_bytes = 4 * n + n_active * (code_bytes * n_feat + 8 + (4 if weighted else 0))
+        return (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+
+    # the sorted kernel's timed call reads the narrow codes of codes_rm
+    bytes_ms = bound(kw["codes_rm"].element_size() if kernel == "hist_sorted" else 4)
     rec = {
         "kernel": kernel, "case": name, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+    if kernel == "hist_sorted":  # with the TPU kernel's int32 codes
+        rec["bound_ms_int32"] = max(bound(4), ops_ms)
     if b1_ms is not None:
         rec["hist_nodematmul_ms"] = b1_ms
+    rec.update(extra)
     print(f"kernel check ok: {json.dumps(rec)}", flush=True)
     return rec
+
+
+#: the sorted kernel's launches, by the name of their CUDA kernel
+SORTED_KERNELS = {"sorted_gather_kernel": "gather_ms",
+                  "sorted_partial_kernel": "pass1_ms",
+                  "sorted_reduce_kernel": "pass2_ms"}
+
+
+def sorted_checks(name, args, rw, codes_rm, out):
+    """The sorted kernel's own checks on one level: its output is the bits
+    of the plain version that keeps its float order; a call that makes its
+    own ``codes_rm`` gives the same bits; the prep kernels lay the rows out
+    as the plain prep does, and the gather kernel writes the active rows'
+    codes and values of its plain twin. Also the time split."""
+    import torch
+
+    from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
+
+    bins_fm, nodes, g, h, k, n_bins1 = args
+    if not torch.equal(out, cs.hist_sorted_ordered_reference(*args, rw=rw)):
+        raise AssertionError(f"{name}: not the bits of the ordered plain version")
+    if not torch.equal(out, cs.hist_sorted(*args, rw=rw)):
+        raise AssertionError(f"{name}: a call without codes_rm differs")
+    layout = cs.sorted_prep(nodes, k)
+    plain = cs.sorted_prep_reference(nodes, k)
+    for a, b, part in zip(layout, plain, layout._fields):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: the prep's {part} differs from its plain twin")
+    got = cs.gather_rows(codes_rm, layout, g, h, rw, bins_fm.shape[0])
+    want = cs.gather_rows_reference(codes_rm, layout, g, h, rw, bins_fm.shape[0])
+    m = int(layout.seg_off[-1])
+    for part, a, b in zip(got._fields, got, want):
+        if a is not None and b is not None:  # the active positions only
+            a, b = a[..., :m], b[..., :m]
+            if part == "codes":  # uint16 has no CUDA comparison
+                a, b = a.int(), b.int()
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"{name}: the gather's {part} differ from its plain twin")
+    return {"ordered_bits": True, "prep_equal": True, "gather_equal": True,
+            "codes_rm_ms": time_ms(lambda: cs.row_major_codes(bins_fm, n_bins1), 10),
+            "split": sorted_split(args, rw, codes_rm)}
+
+
+def sorted_split(args, rw, codes_rm, reps=10):
+    """The sorted kernel's time per call in parts, ms: the prep (the sort
+    and the offsets: CUDA events around ``sorted_prep``, and the device
+    time of its kernels, the sort's radix passes among them), the
+    allocation of the tile partials (events), the gather and each pass
+    (device time by kernel name, from torch.profiler over ``reps`` calls),
+    and the whole call (events), given the fit's ``codes_rm``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
+
+    bins_fm, nodes, _, _, k, n_bins1 = args
+    n_feat, n = bins_fm.shape
+    shape = (k + n // cs.TILE_ROWS, n_feat, 3, n_bins1)
+    split = {
+        "prep_ms": time_ms(lambda: cs.sorted_prep(nodes, k), reps),
+        "partial_alloc_ms": time_ms(
+            lambda: torch.empty(shape, device=nodes.device), reps),
+        "call_ms": time_ms(lambda: cs.hist_sorted(*args, rw=rw, codes_rm=codes_rm),
+                           reps),
+    }
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cs.hist_sorted(*args, rw=rw, codes_rm=codes_rm)
+        torch.cuda.synchronize()
+    split["prep_device_ms"] = split["sort_device_ms"] = 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        part = [v for key, v in SORTED_KERNELS.items() if key in e.key]
+        ms = e.self_device_time_total / 1e3 / reps
+        if part:
+            split[part[0]] = split.get(part[0], 0.0) + ms
+            continue
+        split["prep_device_ms"] += ms  # the sort and the offsets
+        if "Radix" in e.key:
+            split["sort_device_ms"] += ms
+    return split
 
 
 def cross_check(kernel, n, n_feat, n_bins1, k, seed, dev):

@@ -43,6 +43,7 @@ import torch
 from h2o3_tpu_torch.device import resolve_device
 from h2o3_tpu_torch.ops.histogram import (
     HIST_IMPLS,
+    FitCache,
     apply_bins,
     build_histogram,
     default_hist_impl,
@@ -299,6 +300,7 @@ def _build_one_tree(
     key: jrandom.Key, p: TreeParams,
     rw: Optional[torch.Tensor], subtract: bool, hist_impl: str,
     constraints: Optional[torch.Tensor] = None, fact_max_kc: int = 0,
+    cache: Optional[FitCache] = None,
 ):
     """Grow one tree to max_depth with per-level node capacity 2^d.
 
@@ -312,7 +314,8 @@ def _build_one_tree(
     bounds start at ±inf and are carried down the levels (the children of
     a split on a constrained feature share the split's midpoint as a
     bound); every leaf value is clipped into its node's bounds.
-    ``fact_max_kc`` is ``build_histogram``'s factorized-kernel limit.
+    ``fact_max_kc`` is ``build_histogram``'s factorized-kernel limit, and
+    ``cache`` the fit's ``FitCache``, which it hands every level.
     Returns (heap arrays [M] x5, per-row leaf value [N])."""
     D = p.max_depth
     n_bins1 = p.nbins + 1
@@ -365,7 +368,7 @@ def _build_one_tree(
                 in_hist & (parity == small_parity[par]), par, -1).int()
             hist_small = build_histogram(
                 bins_fm, half_nodes, g, h, Kp, n_bins1, rw=rw, impl=hist_impl,
-                fact_max_kc=fact_max_kc)
+                fact_max_kc=fact_max_kc, cache=cache)
             can_m = prev_can[:, None, None, None]
             hist_big = torch.where(can_m, prev_hist - hist_small, 0.0)
             ls_m = prev_left_small[:, None, None, None]
@@ -375,7 +378,7 @@ def _build_one_tree(
         else:
             hist = build_histogram(
                 bins_fm, hist_nodes, g, h, K, n_bins1, rw=rw, impl=hist_impl,
-                fact_max_kc=fact_max_kc)
+                fact_max_kc=fact_max_kc, cache=cache)
         node_feat_mask = feat_mask
         if p.mtries > 0:
             key, sub = jrandom.split(key)
@@ -536,6 +539,7 @@ def train_boosted(
         edges = make_bins(X, p.nbins, seed=p.seed)
     n_bins1 = p.nbins + 1
     bins_fm = torch.from_numpy(np.ascontiguousarray(apply_bins(X, edges).T)).to(dev)
+    cache = FitCache(bins_fm, n_bins1)
 
     C = n_class_trees
     y_d = torch.from_numpy(np.ascontiguousarray(y, dtype=np.float32)).to(dev)
@@ -601,6 +605,7 @@ def train_boosted(
                     jrandom.fold_in(kt, c), p,
                     rw=w_d, subtract=subtract_on, hist_impl=hist_impl,
                     constraints=mono_d, fact_max_kc=hist_fact_max_kc,
+                    cache=cache,
                 )
                 margin[:, c] += pred
                 outs.append(tree)

@@ -15,6 +15,8 @@
   per-node kernel (``ops/cuda_sorted_histogram.hist_sorted``); the plain
   version (``hist_nodematmul_reference``, the ``index_add_`` twin of
   ``_shard_histogram`` :254) builds every level when asked for.
+- ``FitCache`` holds what a fit's levels share: the sorted kernel's
+  row-major copy of the codes, made at the first level that needs it.
 - ``node_totals`` (:280): the terminal level's per-node totals, a scatter
   (``index_add_``) as in the JAX package.
 """
@@ -34,7 +36,7 @@ from h2o3_tpu_torch.ops.cuda_histogram import (
     hist_nodematmul,
     hist_nodematmul_reference,
 )
-from h2o3_tpu_torch.ops.cuda_sorted_histogram import hist_sorted
+from h2o3_tpu_torch.ops.cuda_sorted_histogram import hist_sorted, row_major_codes
 
 #: the node-capacity ladder (``_DEFAULT_NODE_BUCKETS``)
 NODE_BUCKETS: Tuple[int, ...] = (8, 64, 512)
@@ -164,11 +166,32 @@ def default_hist_impl(device: torch.device) -> str:
     return "kernel" if device.type == "cuda" else "plain"
 
 
+class FitCache:
+    """What one fit's levels share, for ``build_histogram``: the row-major
+    copy of the fit's codes (``cuda_sorted_histogram.row_major_codes``)
+    that the sorted kernel's gather reads. It is made once, at the first
+    level that goes to the sorted kernel, and only on the card: on the CPU
+    that level takes the plain version, which reads ``bins_fm``."""
+
+    def __init__(self, bins_fm: torch.Tensor, n_bins1: int):
+        self._bins_fm = bins_fm
+        self._n_bins1 = n_bins1
+        self._codes_rm: Optional[torch.Tensor] = None
+
+    def codes_rm(self) -> Optional[torch.Tensor]:
+        """The copy (made at the first call), or None on the CPU."""
+        if self._bins_fm.device.type == "cpu":
+            return None
+        if self._codes_rm is None:
+            self._codes_rm = row_major_codes(self._bins_fm, self._n_bins1)
+        return self._codes_rm
+
+
 def build_histogram(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
     rw: Optional[torch.Tensor] = None, impl: Optional[str] = None,
-    fact_max_kc: int = 0,
+    fact_max_kc: int = 0, cache: Optional[FitCache] = None,
 ) -> torch.Tensor:
     """Histogram [n_nodes, F, n_bins1, 3] float32 of (Σg, Σh, Σw).
 
@@ -180,7 +203,9 @@ def build_histogram(
     padded node count K satisfies K·4 <= fact_max_kc take the factorized
     kernel (0, the default, sends none) when its slab fits shared memory,
     else the node-matmul kernel, which sums each cell in the same order and
-    so gives the same bits.
+    so gives the same bits. cache: the fit's ``FitCache`` (made for this
+    ``bins_fm``); only a level that goes to the sorted kernel reads it, and
+    without it that kernel makes its own copy of the codes.
 
     The JAX package pads the node count up the ladder so one compiled plan
     serves a bucket; here nothing is compiled per shape, so every version
@@ -196,7 +221,8 @@ def build_histogram(
     if kc <= fact_max_kc and factorized_fits(n_nodes, n_bins1):
         return hist_factorized(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
     if kc > _NODE_MATMUL_MAX_KC:
-        return hist_sorted(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+        return hist_sorted(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw,
+                           codes_rm=None if cache is None else cache.codes_rm())
     return hist_nodematmul(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
 
 

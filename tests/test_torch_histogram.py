@@ -18,6 +18,14 @@ The factorized kernel's plain version (``hist_factorized_reference``, an
 cut to B1 bins) is held to the scatter oracle and to the factorized Pallas
 kernel in interpret mode, at 257 bins too, where HI·16 = 272 exceeds B1.
 
+The sorted kernel's ordered plain version (``hist_sorted_ordered_reference``,
+the kernel's own float order: tiles, 32-row batches, lanes) is held bit for
+bit to a scalar-loop reading of the kernel's algorithm, and to the plain
+version and the JAX package at the tolerance above. Its row-major copy of
+the codes (``row_major_codes``), the gather's plain twin, the wrapper's
+checks of that copy and its path from the fit to the sorted kernel alone
+are held here too.
+
 The kernels themselves run only on the card: see ``tests/test_torch_kernels.py``.
 """
 
@@ -269,6 +277,237 @@ def test_sorted_wrapper_on_cpu_tensors_is_the_plain_version():
     b = ch.hist_nodematmul_reference(*args, rw=t(rw))
     assert torch.equal(a[..., 2], b[..., 2])
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+def _kernel_by_loops(bins_fm, nodes, g, h, k, b1, rw, tile_rows):
+    """The sorted kernel's algorithm read as scalar loops in float32: per
+    tile and feature, 32-row batches from the tile's first row; a batch's
+    lanes with one code sum from 0 in lane order at the lowest such lane,
+    which adds the sum into the tile's cell; tile partials in float64."""
+    lay = cs.sorted_prep(torch.from_numpy(nodes), k, tile_rows)
+    order, seg, toff = lay.order.numpy(), lay.seg_off.numpy(), lay.tile_off.numpy()
+    f32 = np.float32
+    part = np.zeros((toff[-1], bins_fm.shape[0], 3, b1), np.float32)
+    for node in range(k):
+        for t in range(toff[node], toff[node + 1]):
+            begin = seg[node] + (t - toff[node]) * tile_rows
+            end = min(seg[node + 1], begin + tile_rows)
+            for f in range(bins_fm.shape[0]):
+                for i0 in range(begin, end, 32):
+                    rows = [order[i] for i in range(i0, min(i0 + 32, end))]
+                    codes = [int(bins_fm[f, r]) for r in rows]
+                    for lane, c in enumerate(codes):
+                        if not 0 <= c < b1 or codes.index(c) != lane:
+                            continue  # no row, or not its code's first lane
+                        s = [f32(0)] * 3
+                        for r, c2 in zip(rows, codes):
+                            if c2 == c:
+                                v = (g[r], h[r], f32(1) if rw is None else rw[r])
+                                s = [f32(a + b) for a, b in zip(s, v)]
+                        for ch_ in range(3):
+                            part[t, f, ch_, c] = f32(part[t, f, ch_, c] + s[ch_])
+    out = np.zeros((k, bins_fm.shape[0], b1, 3), np.float32)
+    for node in range(k):
+        acc = np.zeros(part.shape[1:], np.float64)
+        for t in range(toff[node], toff[node + 1]):
+            acc = acc + part[t].astype(np.float64)
+        out[node] = acc.astype(np.float32).transpose(0, 2, 1)
+    return out
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_sorted_ordered_plain_is_the_kernel_read_as_loops(weighted):
+    # multi-tile nodes (tiles of 64 rows), an empty node, out-of-range nodes,
+    # an out-of-range code, and few codes so one batch repeats each many times
+    k, b1 = 6, 5
+    bins, nodes, g, h, rw = _mk(900, 3, k, b1, seed=23, frac_inactive=0.2,
+                                empty_node=3, weighted=weighted)
+    nodes[::37] = k + 2
+    bins_fm = np.ascontiguousarray(bins.T)
+    bins_fm[1, ::11] = b1 + 1
+    t = torch.from_numpy
+    got = cs.hist_sorted_ordered_reference(
+        t(bins_fm), t(nodes), t(g), t(h), k, b1,
+        rw=None if rw is None else t(rw), tile_rows=64).numpy()
+    want = _kernel_by_loops(bins_fm, nodes, g, h, k, b1, rw, 64)
+    assert np.all(np.bincount(nodes[(nodes >= 0) & (nodes < k)])[[0, 1, 2, 4, 5]] > 64)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.all(got[3] == 0)
+
+
+@pytest.mark.parametrize("n,f,k,b1,row_tile", SORTED_SHAPES)
+def test_sorted_ordered_plain_matches_plain_and_jax(n, f, k, b1, row_tile):
+    bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k + 1, frac_inactive=0.3,
+                                weighted=k % 2 == 0)
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
+    rwt = None if rw is None else t(rw)
+    got = cs.hist_sorted_ordered_reference(*args, rw=rwt, tile_rows=128).numpy()
+    _assert_hist_close(got, cs.hist_sorted_reference(*args, rw=rwt).numpy())
+    scatter, pallas = _jax_sorted(bins, nodes, g, h, k, b1, row_tile, rw=rw)
+    _assert_hist_close(got, scatter)
+    _assert_hist_close(got, pallas)
+
+
+@pytest.mark.parametrize("n_bins1,dtype,per_16_bytes", [
+    (256, torch.uint8, 16), (257, torch.uint16, 8),
+    (65_536, torch.uint16, 8), (65_537, None, None)])
+def test_row_major_codes_width_padding_and_values(n_bins1, dtype, per_16_bytes):
+    # the narrowest unsigned type that holds codes 0 .. n_bins1 - 1 (the NA
+    # code included), rows padded to whole 16 bytes, the values of bins_fm.T;
+    # past 2 bytes no level fits the kernel, and the copy raises
+    rng = np.random.default_rng(n_bins1)
+    if dtype is None:
+        with pytest.raises(ValueError, match="2 bytes"):
+            cs.code_dtype(n_bins1)
+        with pytest.raises(ValueError, match="2 bytes"):
+            cs.row_major_codes(torch.zeros(3, 5, dtype=torch.int32), n_bins1)
+        return
+    assert cs.code_dtype(n_bins1) == dtype
+    # a code outside [0, n_bins1) stays outside it (no row to the kernel)
+    # where the type has room, and raises where it has none
+    top = torch.iinfo(dtype).max
+    bad = torch.tensor([[3, -1, n_bins1, n_bins1 + 256, n_bins1 - 1]],
+                       dtype=torch.int32)
+    if top >= n_bins1:
+        assert cs.row_major_codes(bad, n_bins1)[:, 0].tolist() == \
+            [3, top, n_bins1, n_bins1, n_bins1 - 1]
+    else:
+        with pytest.raises(ValueError, match="outside"):
+            cs.row_major_codes(bad, n_bins1)
+        assert cs.row_major_codes(bad[:, ::4], n_bins1)[:, 0].tolist() == \
+            [3, n_bins1 - 1]
+    for f in (1, 3, 17, 28):
+        bins_fm = torch.from_numpy(
+            rng.integers(0, n_bins1, size=(f, 50)).astype(np.int32))
+        bins_fm[:, 0] = n_bins1 - 1
+        codes = cs.row_major_codes(bins_fm, n_bins1)
+        assert codes.dtype == dtype and codes.is_contiguous()
+        assert codes.shape == (50, -(-f // per_16_bytes) * per_16_bytes)
+        assert codes.shape[1] * codes.element_size() % 16 == 0
+        assert cs.row_elems(f, n_bins1) == codes.shape[1]
+        assert torch.equal(codes[:, :f].long(), bins_fm.T.long())
+        assert torch.all(codes[:, f:].long() == 0)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_twin_is_plain_indexing(weighted):
+    k = 9
+    bins, nodes, g, h, rw = _mk(700, 5, k, 257, seed=31, frac_inactive=0.3,
+                                weighted=weighted)
+    nodes[::13] = k + 1  # out of range: inactive
+    t = torch.from_numpy
+    bins_fm = t(np.ascontiguousarray(bins.T))
+    lay = cs.sorted_prep(t(nodes), k)
+    rows = cs.gather_rows(cs.row_major_codes(bins_fm, 257), lay, t(g), t(h),
+                          None if rw is None else t(rw), 5)
+    m = int(lay.seg_off[-1])
+    assert m == np.sum((nodes >= 0) & (nodes < k))
+    order = lay.order[:m].long()
+    assert rows.codes.dtype == torch.uint16 and rows.codes.shape == (5, 700)
+    assert torch.equal(rows.codes[:, :m].long(), bins_fm[:, order].long())
+    assert torch.equal(rows.g[:m], t(g)[order])
+    assert torch.equal(rows.h[:m], t(h)[order])
+    if rw is None:
+        assert rows.w is None
+    else:
+        assert torch.equal(rows.w[:m], t(rw)[order])
+
+
+def test_sorted_wrapper_rejects_a_wrong_codes_rm():
+    bins, nodes, g, h, _ = _mk(300, 5, 130, 21, seed=3, frac_inactive=0.2)
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 130, 21)
+    good = cs.row_major_codes(args[0], 21)
+    assert good.shape == (300, 16) and good.dtype == torch.uint8
+    assert torch.equal(cs.hist_sorted(*args, codes_rm=good), cs.hist_sorted(*args))
+    with pytest.raises(TypeError, match="codes_rm"):
+        cs.hist_sorted(*args, codes_rm=good.to(torch.int32))
+    with pytest.raises(TypeError, match="codes_rm"):
+        cs.hist_sorted(*args, codes_rm=cs.row_major_codes(args[0], 257))
+    with pytest.raises(ValueError, match="codes_rm has shape"):
+        cs.hist_sorted(*args, codes_rm=good[:-1])
+    with pytest.raises(ValueError, match="codes_rm has shape"):
+        cs.hist_sorted(*args, codes_rm=good[:, :8].contiguous())
+    with pytest.raises(ValueError, match="codes_rm must be contiguous"):
+        cs.hist_sorted(*args, codes_rm=torch.zeros(16, 300, dtype=torch.uint8).T)
+    with pytest.raises(ValueError, match="codes_rm is on meta"):
+        cs.hist_sorted(*args, codes_rm=good.to("meta"))
+
+
+def test_dispatch_hands_codes_rm_to_the_sorted_kernel_alone(monkeypatch):
+    # only a level that goes to the sorted kernel asks the fit's cache for
+    # its row-major codes, and hands them to that kernel alone
+    from h2o3_tpu_torch.ops import histogram as hmod
+
+    calls = []
+    for name in ("hist_factorized", "hist_nodematmul", "hist_sorted"):
+        monkeypatch.setattr(
+            hmod, name, lambda *a, _n=name[5:], **kw:
+            calls.append((_n, a[4], kw.get("codes_rm", "absent"))) or _n)
+    z = torch.zeros(1, 4, dtype=torch.int32)
+    codes_rm = cs.row_major_codes(z, 3)
+
+    class Cache:
+        asked = 0
+
+        def codes_rm(self):
+            self.asked += 1
+            return codes_rm
+
+    cache = Cache()
+    for k in (1, 8, 64, 65, 512):
+        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 3,
+                             impl="kernel", fact_max_kc=32, cache=cache)
+    assert calls == [("factorized", 1, "absent"), ("factorized", 8, "absent"),
+                     ("nodematmul", 64, "absent"), ("sorted", 65, codes_rm),
+                     ("sorted", 512, codes_rm)]
+    assert cache.asked == 2
+    calls.clear()
+    hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), 65, 3, impl="kernel")
+    assert calls == [("sorted", 65, None)]  # no cache: the kernel makes its own
+
+
+@pytest.mark.parametrize("max_depth,subtract,sorted_levels", [
+    (9, True, 1), (8, False, 1), (8, True, 0), (7, False, 0)])
+def test_fit_makes_codes_rm_once_for_its_sorted_levels(
+        monkeypatch, max_depth, subtract, sorted_levels):
+    # a fit makes one FitCache and hands it to every level; only sorted
+    # levels (D-1 here, half of it with subtraction) ask it for codes_rm,
+    # which it makes at the first ask and only off the CPU
+    from h2o3_tpu_torch.models.tree import booster as pb
+    from h2o3_tpu_torch.ops import histogram as hmod
+
+    made, caches, seen = [], [], []
+    make = hmod.row_major_codes
+    monkeypatch.setattr(hmod, "row_major_codes",
+                        lambda *a: made.append(make(*a)) or made[-1])
+    real_build = pb.build_histogram
+    monkeypatch.setattr(pb, "build_histogram",
+                        lambda *a, **kw: caches.append(kw["cache"]) or real_build(*a, **kw))
+    real = hmod.hist_sorted
+    monkeypatch.setattr(hmod, "hist_sorted",
+                        lambda *a, **kw: seen.append(kw["codes_rm"]) or real(*a, **kw))
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(3000, 4))
+    y = X[:, 0] + rng.normal(size=3000)
+    p = pb.TreeParams(ntrees=2, max_depth=max_depth, nbins=20, seed=1)
+    pb.train_boosted(X, "gaussian", y, 1, np.zeros(1), p, device="cpu",
+                     hist_impl="kernel", subtract=subtract)
+    assert caches and all(c is caches[0] for c in caches)
+    assert isinstance(caches[0], hmod.FitCache)
+    # on the CPU the sorted levels take the plain version: nothing is made
+    assert len(seen) == 2 * sorted_levels and seen.count(None) == len(seen)
+    assert made == []
+    # off the CPU the cache makes the copy at the first ask, once
+    cache = hmod.FitCache(torch.zeros(4, 3000, dtype=torch.int32, device="meta"), 21)
+    assert made == [] and cache.codes_rm() is cache.codes_rm() is made[0]
+    assert made[0].shape == (3000, 16) and made[0].dtype == torch.uint8
+    # the plain histogram asks for nothing
+    made.clear()
+    pb.train_boosted(X, "gaussian", y, 1, np.zeros(1), p, device="cpu",
+                     hist_impl="plain", subtract=subtract)
+    assert made == []
 
 
 def test_dispatch_takes_the_sorted_kernel_beyond_64_padded_nodes(monkeypatch):

@@ -11,8 +11,9 @@ machine that has only PyTorch:
 The launch-plan arithmetic around the kernels (shared-memory fit, row
 chunks that ignore the node count, the node-matmul kernel's tiles, each
 cell owned by one warp, the sorted kernel's tile bound, the factorized
-kernel's node limit) and the sorted kernel's prep are plain Python and run
-everywhere.
+kernel's node limit) and the sorted kernel's plain prep are plain Python
+and run everywhere; its prep and gather kernels are held to their plain
+twins on the card.
 Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh (the plain version
 sums in float64, the kernel in float32 per chunk); counts exact.
 """
@@ -160,6 +161,26 @@ def test_sorted_launch_plan_fits_any_node_count(n_bins1):
     assert cs.launch_plan(1000, 3, n_bins1) == (3, 1000 // cs.TILE_ROWS)
 
 
+def test_sorted_launch_plan_takes_fewer_warps_for_wide_bins():
+    # a block's warps each hold [3, B1] sums and [B1] lane masks: past what
+    # eight fit, the plan takes fewer warps a block, down to one; past what
+    # one warp's masks fit, the warp finds peers with __match_any_sync and
+    # holds [3, B1] sums alone (the layout before lane masks), up to 19,338
+    # bins at any feature count; then it raises
+    assert cs.launch_plan(2_000_000, 28, 1792)[0] == 8
+    for n_bins1 in (1793, 2389, 5000, 14_504, 14_505, 19_338):
+        assert cs.launch_plan(2_000_000, 1, n_bins1)[0] == 1
+        wpb, _ = cs.launch_plan(2_000_000, 28, n_bins1)
+        assert 1 <= wpb < 8 and cs._smem_bytes(n_bins1, wpb) <= cs._SMEM_LIMIT
+        assert cs._smem_bytes(n_bins1, wpb + 1) > cs._SMEM_LIMIT
+        assert cs.lane_masks(n_bins1) == (n_bins1 <= 14_504)
+        assert cs._smem_bytes(n_bins1, 1) == 4 * (
+            (4 if n_bins1 <= 14_504 else 3) * n_bins1 + 96)
+    for n_feat in (1, 28):
+        with pytest.raises(ValueError, match="shared memory"):
+            cs.launch_plan(2_000_000, n_feat, 19_339)
+
+
 def test_sorted_tile_bound_holds_for_skewed_nodes():
     # one node holds most rows, many are empty: the tiles used never
     # exceed the tiles launched (n_nodes + n_rows // tile_rows)
@@ -208,6 +229,72 @@ def test_sorted_kernel_matches_plain_on_card():
             nm = ch.hist_nodematmul(*args, rw=rwt)
             assert torch.equal(a[..., 2], nm[..., 2])
             torch.testing.assert_close(a, nm, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_gives_the_ordered_bits():
+    # the plain version that walks the kernel's tiles, batches and lanes
+    # gives its bits, at 21 and 257 bins, with and without row weights: at
+    # 1,024 nodes (one tile each) and at 5 nodes of ~14,000 rows (four
+    # tiles each, a float64 reduce over them); and past 14,504 bins, where
+    # pass 1 finds peers with __match_any_sync, up to the widest level
+    # (19,338 bins at one feature), and at 14,504 with lane masks
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    narrow = [(100_000, 28, 1024), (100_003, 9, 5)]
+    wide = [(100_000, 1, 1024), (100_003, 2, 5)]
+    for n_bins1, weighted, shapes in [
+            (21, False, narrow), (21, True, narrow), (257, False, narrow),
+            (257, True, narrow), (19_338, False, wide), (19_338, True, wide),
+            (14_505, False, wide), (14_504, True, wide)]:
+        for n, f, k in shapes:
+            bins, nodes, g, h, rw = _mk(n, f, k, n_bins1, seed=n + k + n_bins1,
+                                        frac_inactive=0.3, empty_node=1,
+                                        weighted=weighted)
+            if shapes is wide:  # peers in most batches, and the top bin
+                bins[::2] %= 7
+                bins[::5] = n_bins1 - 1
+            args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, n_bins1)
+            rwt = None if rw is None else t(rw)
+            assert torch.equal(cs.hist_sorted(*args, rw=rwt),
+                               cs.hist_sorted_ordered_reference(*args, rw=rwt)), \
+                (n_bins1, weighted, n, f, k)
+
+
+@pytest.mark.cuda
+def test_sorted_prep_and_gather_kernels_match_their_twins():
+    # uint8 and uint16 codes (21 and 257 bins); skewed and empty nodes,
+    # out-of-range ones, tiles of 512 and 4,096 rows; int16 sort keys below
+    # 32,768 nodes, int32 above
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    n, f = 60_001, 13
+    for n_bins1 in (21, 257):
+        rng = np.random.default_rng(n_bins1)
+        for k in (1, 7, 1024, 3000, 40_000):
+            nodes = np.where(rng.random(n) < 0.5, k // 2,
+                             rng.integers(-1, k + 3, n)).astype(np.int32)
+            bins = rng.integers(0, n_bins1, size=(f, n)).astype(np.int32)
+            for tile_rows in (512, cs.TILE_ROWS):
+                got = cs.sorted_prep(t(nodes), k, tile_rows)
+                want = cs.sorted_prep_reference(t(nodes), k, tile_rows)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (n_bins1, k, tile_rows)
+            codes_rm = cs.row_major_codes(t(bins), n_bins1)
+            assert torch.equal(codes_rm[:, :f].long(), t(bins).T.long())
+            g, h, rw = (t(rng.random(n).astype(np.float32)) for _ in range(3))
+            m = int(got.seg_off[-1])
+            for w in (None, rw):
+                a = cs.gather_rows(codes_rm, got, g, h, w, f)
+                b = cs.gather_rows_reference(codes_rm, got, g, h, w, f)
+                assert torch.equal(a.codes[:, :m].long(), b.codes[:, :m].long())
+                for x, y in ((a.g, b.g), (a.h, b.h), (a.w, b.w)):
+                    assert (x is None) == (y is None)
+                    assert x is None or torch.equal(x[:m], y[:m]), (n_bins1, k)
 
 
 @pytest.mark.parametrize("n_bins1", [257, 21])

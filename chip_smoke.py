@@ -61,11 +61,26 @@ Run from the root of a checkout. Phases, each of which must pass:
    on the first ``--wide-rows`` rows of the frame: its built levels hold 1
    to 64 nodes at 513 bins, all on the node-matmul kernel (8 launches per
    tree), checked as in 7 but for the small fit on the CPU;
-12. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+12. the bf16 operand mode (``dtype="bf16"``: g, h and the count weight
+   rounded to bf16, summed in float, counts exact; the JAX package's default
+   on its own chip) at one level of each kernel the bf16 fits build (N x 28:
+   B1 at 257 bins x 16 nodes, its tile kernel, and 21 x 8, its warp kernel;
+   B2 at 21 x 1,024; B3 at 257 x 8), on the f32 checks' inputs: held to the
+   plain version in bf16 as in 3-5 (B2 bit-identical to its ordered plain
+   version), different from the f32 output, timed in turn with the f32
+   call; and B3 in bf16 bit-identical to B1 in bf16;
+13. XGBoost (``--bf16-trees`` trees: 6 B1 launches each), DRF
+   (``--bf16-drf-trees``: 8 B1 and 4 B2 each) and phase 10's monotone
+   XGBoost (``--bf16-trees``: 1 B1 and 5 B3 each) with
+   ``hist_dtype="bf16"``, checked as in 7 but for the small fit on the CPU,
+   the monotone one also with phase 10's sweep; each prints its AUC beside
+   that of its twin in f32, trained after it;
+14. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
-It prints the whole run's seconds, one ``{"kernels": [...]}`` line, then
+It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
+kernel's f32 record and, under ``"bf16"``, its bf16 one), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX.
@@ -169,10 +184,14 @@ def kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev, empty_run=False):
     return (bins_fm, nodes, g, h, k, n_bins1), rw, empty
 
 
-def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
-    """One kernel-vs-plain check of ``kernel`` on k nodes; returns its record."""
+def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev, dtype="f32"):
+    """One kernel-vs-plain check of ``kernel`` on k nodes in operand mode
+    ``dtype``; returns its record. In bf16 it also checks that the output
+    differs from the f32 output on the same inputs (the mode reached the
+    kernel) and times the f32 call beside the bf16 one."""
     import torch
 
+    from h2o3_tpu_torch.ops.cuda_build import round_operand
     from h2o3_tpu_torch.ops.histogram import pad_nodes
 
     wrapper, reference = kernel_fns(kernel)
@@ -185,17 +204,22 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
         from h2o3_tpu_torch.ops.cuda_sorted_histogram import row_major_codes
         kw["codes_rm"] = row_major_codes(bins_fm, n_bins1)
 
+    kw["dtype"] = dtype
     a = wrapper(*args, rw=rw, **kw)
     b = wrapper(*args, rw=rw, **kw)
-    ref = reference(*args, rw=rw)
+    ref = reference(*args, rw=rw, dtype=dtype)
     torch.cuda.synchronize()
-    name = f"{kernel} N={n} F={n_feat} B1={n_bins1} K={k}{' rw' if weighted else ''}"
+    name = (f"{kernel} {dtype} N={n} F={n_feat} B1={n_bins1} K={k}"
+            f"{' rw' if weighted else ''}")
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: two kernel calls differ")
     k_pad = pad_nodes(k)
     if kernel != "hist_sorted" and not torch.equal(
-            wrapper(bins_fm, nodes, g, h, k_pad, n_bins1, rw=rw)[:k], a):
+            wrapper(bins_fm, nodes, g, h, k_pad, n_bins1, rw=rw, dtype=dtype)[:k], a):
         raise AssertionError(f"{name}: the build for {k_pad} padded nodes differs")
+    f32_kw = dict(kw, dtype="f32")
+    if dtype != "f32" and torch.equal(a, wrapper(*args, rw=rw, **f32_kw)):
+        raise AssertionError(f"{name}: the same output as in f32")
     if not torch.equal(a[..., 2], ref[..., 2]):
         raise AssertionError(f"{name}: counts differ from the plain version")
     if empty and not torch.all(a[empty] == 0):
@@ -207,25 +231,30 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
     max_err = (a - ref).abs().max().item()
     extra = {}
     if kernel == "hist_sorted":
-        extra = sorted_checks(name, args, rw, kw["codes_rm"], a)
+        extra = sorted_checks(name, args, rw, kw["codes_rm"], a, dtype)
 
     ms = time_ms(lambda: wrapper(*args, rw=rw, **kw), reps=10)
-    plain_ms = time_ms(lambda: reference(*args, rw=rw), reps=3)
+    if dtype != "f32":  # the f32 call at this shape, in turn with the bf16 one
+        extra["f32_ms"] = time_ms(lambda: wrapper(*args, rw=rw, **f32_kw), reps=10)
+        extra["ms_again"] = time_ms(lambda: wrapper(*args, rw=rw, **kw), reps=10)
+    plain_ms = time_ms(lambda: reference(*args, rw=rw, dtype=dtype), reps=3)
     # the one PyTorch call computing the same function: index_add_ of the
-    # [N*F, 3] masked (g, h, w) rows at the flat (node, feature, bin) index
+    # [N*F, 3] masked (g, h, w) rows (in bf16, the rounded values) at the
+    # flat (node, feature, bin) index
     valid = nodes >= 0
     node0 = torch.where(valid, nodes, 0).long()
     flat = ((node0[None, :] * n_feat + torch.arange(n_feat, device=dev)[:, None])
             * n_bins1 + bins_fm.long()).reshape(-1)
     wv = valid.float()
-    cw = wv if rw is None else wv * rw
-    src = torch.stack([g * wv, h * wv, cw], dim=1)[None].expand(n_feat, n, 3) \
-        .reshape(-1, 3)
+    cw = wv if rw is None else wv * round_operand(rw, dtype)
+    src = torch.stack([round_operand(g, dtype) * wv, round_operand(h, dtype) * wv, cw],
+                      dim=1)[None].expand(n_feat, n, 3).reshape(-1, 3)
     lib_out = torch.zeros(k * n_feat * n_bins1, 3, device=dev)
     library_ms = time_ms(lambda: lib_out.zero_().index_add_(0, flat, src), reps=3)
     del flat, src, lib_out
     # the node-matmul kernel on the same level, to compare the contractions
-    b1_ms = (time_ms(lambda: kernel_fns("hist_nodematmul")[0](*args, rw=rw), reps=10)
+    b1_ms = (time_ms(lambda: kernel_fns("hist_nodematmul")[0](*args, rw=rw, dtype=dtype),
+                     reps=10)
              if kernel == "hist_factorized" else None)
 
     n_active = int(valid.sum().item())
@@ -233,14 +262,15 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev):
     ops_ms = 3 * n_active * n_feat / FP32_OPS_PER_S * 1e3
 
     def bound(code_bytes):
-        # each row's node id; an active row's codes, g, h (and rw); the output
+        # each row's node id; an active row's codes, g, h (and rw), read as
+        # float32 in both modes; the output
         in_bytes = 4 * n + n_active * (code_bytes * n_feat + 8 + (4 if weighted else 0))
         return (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
 
     # the sorted kernel's timed call reads the narrow codes of codes_rm
     bytes_ms = bound(kw["codes_rm"].element_size() if kernel == "hist_sorted" else 4)
     rec = {
-        "kernel": kernel, "case": name, "max_abs_err": max_err, "ms": ms,
+        "kernel": kernel, "dtype": dtype, "case": name, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -260,28 +290,29 @@ SORTED_KERNELS = {"sorted_gather_kernel": "gather_ms",
                   "sorted_reduce_kernel": "pass2_ms"}
 
 
-def sorted_checks(name, args, rw, codes_rm, out):
-    """The sorted kernel's own checks on one level: its output is the bits
-    of the plain version that keeps its float order; a call that makes its
-    own ``codes_rm`` gives the same bits; the prep kernels lay the rows out
-    as the plain prep does, and the gather kernel writes the active rows'
-    codes and values of its plain twin. Also the time split."""
+def sorted_checks(name, args, rw, codes_rm, out, dtype):
+    """The sorted kernel's own checks on one level in operand mode
+    ``dtype``: its output is the bits of the plain version that keeps its
+    float order; a call that makes its own ``codes_rm`` gives the same
+    bits; the prep kernels lay the rows out as the plain prep does, and the
+    gather kernel writes the active rows' codes and values of its plain
+    twin. Also the time split."""
     import torch
 
     from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 
     bins_fm, nodes, g, h, k, n_bins1 = args
-    if not torch.equal(out, cs.hist_sorted_ordered_reference(*args, rw=rw)):
+    if not torch.equal(out, cs.hist_sorted_ordered_reference(*args, rw=rw, dtype=dtype)):
         raise AssertionError(f"{name}: not the bits of the ordered plain version")
-    if not torch.equal(out, cs.hist_sorted(*args, rw=rw)):
+    if not torch.equal(out, cs.hist_sorted(*args, rw=rw, dtype=dtype)):
         raise AssertionError(f"{name}: a call without codes_rm differs")
     layout = cs.sorted_prep(nodes, k)
     plain = cs.sorted_prep_reference(nodes, k)
     for a, b, part in zip(layout, plain, layout._fields):
         if not torch.equal(a, b):
             raise AssertionError(f"{name}: the prep's {part} differs from its plain twin")
-    got = cs.gather_rows(codes_rm, layout, g, h, rw, bins_fm.shape[0])
-    want = cs.gather_rows_reference(codes_rm, layout, g, h, rw, bins_fm.shape[0])
+    got = cs.gather_rows(codes_rm, layout, g, h, rw, bins_fm.shape[0], dtype)
+    want = cs.gather_rows_reference(codes_rm, layout, g, h, rw, bins_fm.shape[0], dtype)
     m = int(layout.seg_off[-1])
     for part, a, b in zip(got._fields, got, want):
         if a is not None and b is not None:  # the active positions only
@@ -292,10 +323,10 @@ def sorted_checks(name, args, rw, codes_rm, out):
             raise AssertionError(f"{name}: the gather's {part} differ from its plain twin")
     return {"ordered_bits": True, "prep_equal": True, "gather_equal": True,
             "codes_rm_ms": time_ms(lambda: cs.row_major_codes(bins_fm, n_bins1), 10),
-            "split": sorted_split(args, rw, codes_rm)}
+            "split": sorted_split(args, rw, codes_rm, dtype)}
 
 
-def sorted_split(args, rw, codes_rm, reps=10):
+def sorted_split(args, rw, codes_rm, dtype, reps=10):
     """The sorted kernel's time per call in parts, ms: the prep (the sort
     and the offsets: CUDA events around ``sorted_prep``, and the device
     time of its kernels, the sort's radix passes among them), the
@@ -314,13 +345,13 @@ def sorted_split(args, rw, codes_rm, reps=10):
         "prep_ms": time_ms(lambda: cs.sorted_prep(nodes, k), reps),
         "partial_alloc_ms": time_ms(
             lambda: torch.empty(shape, device=nodes.device), reps),
-        "call_ms": time_ms(lambda: cs.hist_sorted(*args, rw=rw, codes_rm=codes_rm),
-                           reps),
+        "call_ms": time_ms(lambda: cs.hist_sorted(*args, rw=rw, codes_rm=codes_rm,
+                                                  dtype=dtype), reps),
     }
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            cs.hist_sorted(*args, rw=rw, codes_rm=codes_rm)
+            cs.hist_sorted(*args, rw=rw, codes_rm=codes_rm, dtype=dtype)
         torch.cuda.synchronize()
     split["prep_device_ms"] = split["sort_device_ms"] = 0.0
     for e in prof.key_averages():
@@ -338,18 +369,18 @@ def sorted_split(args, rw, codes_rm, reps=10):
     return split
 
 
-def cross_check(kernel, n, n_feat, n_bins1, k, seed, dev):
-    """``kernel`` against the node-matmul kernel on one level both serve:
-    counts exact, sums within the tolerance."""
+def cross_check(kernel, n, n_feat, n_bins1, k, seed, dev, dtype="f32"):
+    """``kernel`` against the node-matmul kernel on one level both serve, in
+    operand mode ``dtype``: counts exact, sums within the tolerance."""
     import torch
 
     wrapper = kernel_fns(kernel)[0]
     nodematmul = kernel_fns("hist_nodematmul")[0]
     args, rw, _ = kernel_inputs(n, n_feat, n_bins1, k, True, seed, dev, empty_run=True)
-    a = wrapper(*args, rw=rw)
-    b = nodematmul(*args, rw=rw)
+    a = wrapper(*args, rw=rw, dtype=dtype)
+    b = nodematmul(*args, rw=rw, dtype=dtype)
     torch.cuda.synchronize()
-    name = f"{kernel} vs hist_nodematmul N={n} F={n_feat} B1={n_bins1} K={k} rw"
+    name = f"{kernel} vs hist_nodematmul {dtype} N={n} F={n_feat} B1={n_bins1} K={k} rw"
     if not torch.equal(a[..., 2], b[..., 2]):
         raise AssertionError(f"{name}: counts differ")
     if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
@@ -499,6 +530,20 @@ def continue_fit(builder_cls, frame, X, prior, n_trees, expect_launches, label,
         raise AssertionError(
             f"{label}: one {n_trees}-tree fit differs (AUC {single_auc} vs {auc})")
 
+    rec = {
+        "fit": label, "trees": n_trees, "train_s": train_s, "auc": auc,
+        "launches": launches, "prep_s": model.timings["prep_s"],
+        "boost_s": model.timings["train_s"], "single_fit_trees_equal": same_single,
+        "single_fit_auc": single_auc,
+        "monotone_sweeps": monotone_sweeps(label, model, X, monotone),
+    }
+    print(f"continued fit ok: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def monotone_sweeps(label, model, X, monotone):
+    """For each constrained column, 1,000 rows' margins move exactly in its
+    direction as the column is swept over 20 values, and some rows move."""
     rows = X[:1000]
     sweeps = {}
     for col, direction in monotone.items():
@@ -518,14 +563,12 @@ def continue_fit(builder_cls, frame, X, prior, n_trees, expect_launches, label,
             raise AssertionError(
                 f"{label}: no row's margin moves with {col}: the sweep checks nothing")
         sweeps[col] = {"direction": direction, "rows_that_move": moving}
-    rec = {
-        "fit": label, "trees": n_trees, "train_s": train_s, "auc": auc,
-        "launches": launches, "prep_s": model.timings["prep_s"],
-        "boost_s": model.timings["train_s"], "single_fit_trees_equal": same_single,
-        "single_fit_auc": single_auc, "monotone_sweeps": sweeps,
-    }
-    print(f"continued fit ok: {json.dumps(rec)}", flush=True)
-    return rec
+    return sweeps
+
+
+def f32_auc(builder_cls, frame, **kw):
+    """Training AUC of the f32 twin of a bf16 fit (its launches uncounted)."""
+    return builder_cls(response_column="y", **kw).train(frame).training_metrics.auc
 
 
 def profile_fit(builder_cls, frame, label, **kw):
@@ -557,7 +600,7 @@ def profile_fit(builder_cls, frame, label, **kw):
     return rec
 
 
-def kernel_record(name, source, replaces, checks, main_case, launches):
+def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
         "route": "cuda",
@@ -570,6 +613,10 @@ def kernel_record(name, source, replaces, checks, main_case, launches):
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        # the bf16 operand mode at one level the bf16 fits build
+        "bf16": {key: bf16_case[key] for key in (
+            "case", "max_abs_err", "ms", "f32_ms", "ms_again", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")},
     }
 
 
@@ -582,12 +629,16 @@ def main() -> int:
                          "after its continuation)")
     ap.add_argument("--base-trees", type=int, default=4,
                     help="trees of the unconstrained XGBoost and GBM fits")
-    ap.add_argument("--drf-trees", type=int, default=20,
+    ap.add_argument("--drf-trees", type=int, default=10,
                     help="trees of the DRF fit (DRF's own default: 50)")
     ap.add_argument("--wide-rows", type=int, default=300_000,
                     help="rows of the XGBoost fit at 512 bins and depth 8")
     ap.add_argument("--wide-trees", type=int, default=4,
                     help="trees of the XGBoost fit at 512 bins and depth 8")
+    ap.add_argument("--bf16-trees", type=int, default=4,
+                    help="trees of the bf16 XGBoost and monotone XGBoost fits")
+    ap.add_argument("--bf16-drf-trees", type=int, default=5,
+                    help="trees of the bf16 DRF fit")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more XGBoost, DRF and monotone "
@@ -658,6 +709,22 @@ def main() -> int:
         if not rec["bit_identical"]:
             raise AssertionError(f"{rec['case']}: B1's tiled level is not B3's bits")
         cross.append(rec)
+    # the bf16 operand mode at one level of each kernel that the bf16 fits
+    # build (B1's tile and warp kernels, B2, B3), on the f32 cases' inputs
+    bf16_cases = [(cases.index(c), c) for c in (
+        ("hist_nodematmul", n, 28, 257, 16, False),  # hist_tile_kernel
+        ("hist_nodematmul", n, 28, 21, 8, False),  # hist_warp_kernel
+        ("hist_sorted", n, 28, 21, 1024, False),
+        ("hist_factorized", n, 28, 257, 8, False))]
+    bf16_checks = [kernel_case(*c, seed=seed + i, dev=dev, dtype="bf16")
+                   for i, c in bf16_cases]
+    checks += bf16_checks
+    # B3 in bf16 gives the bits of B1 in bf16
+    rec = cross_check("hist_factorized", n, 28, 257, 8, seed + len(cases) + 1, dev,
+                      dtype="bf16")
+    if not rec["bit_identical"]:
+        raise AssertionError(f"{rec['case']}: B3 in bf16 is not B1's bits in bf16")
+    cross.append(rec)
     torch.cuda.empty_cache()
     rand = jrandom_check(dev)
 
@@ -703,6 +770,22 @@ def main() -> int:
         XGBoost, make_frame(X[:wide_n], y[:wide_n]), wide_n,
         expect(args.wide_trees * 8), "xgboost_512_bins_depth_8", None,
         ntrees=args.wide_trees, seed=seed, nbins=512, max_depth=8)[0])
+    # the bf16 operand mode, the JAX package's default on its own chip,
+    # through all three kernels; each held to its plain-histogram twin in
+    # bf16 on the card, its AUC beside its f32 twin's
+    bt, bd = args.bf16_trees, args.bf16_drf_trees
+    for builder, launches, label, kw in (
+            (XGBoost, expect(bt * 6), "xgboost_bf16", dict(ntrees=bt)),
+            (DRF, expect(bd * 8, bd * 4), "drf_bf16", dict(ntrees=bd)),
+            (XGBoost, expect(bt, 0, bt * 5), "xgboost_monotone_bf16",
+             dict(ntrees=bt, monotone_constraints=monotone, hist_fact_max_kc=32))):
+        rec, model = run_fit(builder, frame, n, launches, label, None, seed=seed,
+                             hist_dtype="bf16", **kw)
+        rec["f32_auc"] = f32_auc(builder, frame, seed=seed, **kw)
+        if "monotone_constraints" in kw:
+            rec["monotone_sweeps"] = monotone_sweeps(label, model, X, monotone)
+        print(f"bf16 fit: {label} AUC {rec['auc']} (f32 {rec['f32_auc']})", flush=True)
+        fits.append(rec)
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
@@ -715,13 +798,13 @@ def main() -> int:
     kernels = [
         kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
                       "h2o3_tpu/ops/pallas_histogram.py:94", checks, checks[0],
-                      total["hist_nodematmul"]),
+                      bf16_checks[0], total["hist_nodematmul"]),
         kernel_record("hist_sorted", "h2o3_tpu_torch/csrc/hist_sorted.cu",
                       "h2o3_tpu/ops/pallas_histogram.py:353", checks, checks[6],
-                      total["hist_sorted"]),
+                      bf16_checks[2], total["hist_sorted"]),
         kernel_record("hist_factorized", "h2o3_tpu_torch/csrc/hist_factorized.cu",
                       "h2o3_tpu/ops/pallas_histogram.py:243", checks, checks[11],
-                      total["hist_factorized"]),
+                      bf16_checks[3], total["hist_factorized"]),
     ]
     if args.out:
         with open(args.out, "w") as fh:

@@ -31,6 +31,10 @@
 //     hi * 16 + lo >= B1 (15 of them at 257 bins, where HI * 16 = 272) are
 //     never written out.
 //
+// The partial kernel has a float32 and a bf16 instantiation (kBf16,
+// hist_operand.cuh): the bf16 one rounds g, h and rw where it reads them and
+// adds them in the same order, so it gives the bf16 node-matmul kernel's bits.
+//
 // The same call on the same inputs therefore gives bit-identical output;
 // counts (sums of 1 without rw) are exact integers and a node with no rows
 // is exactly zero. The row chunks are those of the node-matmul kernel
@@ -53,12 +57,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_operand.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kLo = 16;     // _FACT_LO: bin = hi * kLo + lo
 constexpr int kUnroll = 4;  // 32-row batches whose loads are in flight together
 
+template <bool kBf16>
 __global__ void fact_partial_kernel(
     const int32_t* __restrict__ bins_fm,  // [F, N]
     const int32_t* __restrict__ nodes,    // [N]
@@ -98,9 +105,9 @@ __global__ void fact_partial_kernel(
       if (r < row_end) {
         nd[u] = nodes[r];
         code[u] = codes[r];
-        vg[u] = g[r];
-        vh[u] = h[r];
-        vw[u] = rw ? rw[r] : 1.0f;
+        vg[u] = hist_operand<kBf16>(g[r]);
+        vh[u] = hist_operand<kBf16>(h[r]);
+        vw[u] = rw ? hist_operand<kBf16>(rw[r]) : 1.0f;
       }
     }
 #pragma unroll
@@ -166,6 +173,24 @@ int smem_bytes(int n_nodes, int n_hi, int warps_per_block) {
   return warps_per_block * (n_hi * n_nodes * 3 * kLo + 3 * kWarp) * 4;
 }
 
+// Pass 1 of one call in the operand mode kBf16.
+template <bool kBf16>
+cudaError_t launch_partial(
+    const int32_t* bins_fm, const int32_t* nodes, const float* g,
+    const float* h, const float* rw, float* partial, int n_rows, int n_feat,
+    int n_nodes, int n_bins1, int n_hi, int warps_per_block, int chunk_rows,
+    int n_chunks, cudaStream_t s) {
+  const int smem = smem_bytes(n_nodes, n_hi, warps_per_block);
+  cudaError_t err = cudaFuncSetAttribute(
+      fact_partial_kernel<kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_feat + warps_per_block - 1) / warps_per_block, n_chunks);
+  fact_partial_kernel<kBf16><<<grid, warps_per_block * kWarp, smem, s>>>(
+      bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
+      n_hi, warps_per_block, chunk_rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -173,23 +198,18 @@ extern "C" {
 // Launches both passes on `stream`; returns the CUDA error code (0 = ok).
 // The caller allocates `partial` ([n_chunks, F, HI, K, 3, 16] float, with
 // HI = ceil(B1 / 16)) and `out` ([K, F, B1, 3] float) and has validated
-// shapes and types.
+// shapes and types. bf16 1 rounds the values to bf16 operands
+// (hist_operand.cuh), 0 reads them as float32.
 int hist_factorized_launch(
     const int32_t* bins_fm, const int32_t* nodes, const float* g,
     const float* h, const float* rw, float* partial, float* out,
     int n_rows, int n_feat, int n_nodes, int n_bins1, int warps_per_block,
-    int chunk_rows, int n_chunks, void* stream) {
+    int chunk_rows, int n_chunks, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_hi = (n_bins1 + kLo - 1) / kLo;
-  const int smem = smem_bytes(n_nodes, n_hi, warps_per_block);
-  cudaError_t err = cudaFuncSetAttribute(
-      fact_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_feat + warps_per_block - 1) / warps_per_block, n_chunks);
-  fact_partial_kernel<<<grid, warps_per_block * kWarp, smem, s>>>(
+  cudaError_t err = (bf16 ? launch_partial<true> : launch_partial<false>)(
       bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
-      n_hi, warps_per_block, chunk_rows);
-  err = cudaGetLastError();
+      n_hi, warps_per_block, chunk_rows, n_chunks, s);
   if (err != cudaSuccess) return (int)err;
   const long long cells = (long long)n_nodes * n_feat * n_bins1 * 3;
   const int rt = 256;

@@ -51,7 +51,10 @@
 // (hist_factorized.cu: the same chunks, the same order in a cell) gives the
 // same bits. The row chunks depend on the row and feature counts only
 // (ops/cuda_histogram.py row_chunks). Counts (sum of 1 without rw) are exact
-// integers.
+// integers. Each pass-1 kernel has a float32 and a bf16 instantiation
+// (kBf16, hist_operand.cuh): the bf16 one rounds g, h and rw where it reads
+// them (hist_warp_kernel from memory, hist_tile_kernel from the staged
+// rows, so the staging copy is the same) and adds them in the same order.
 //
 // Bound on this card: memory. A call must read each row's node and, for an
 // active row, its F bin codes and g, h (and rw): about N (4F + 16) bytes,
@@ -69,6 +72,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hist_operand.cuh"
 
 namespace {
 
@@ -107,6 +112,7 @@ int smem_bytes(int node_tile, int bin_tile, int tiles, int warps_per_block) {
 // ---------------------------------------------------------------------------
 // one tile per feature
 
+template <bool kBf16>
 __global__ void hist_warp_kernel(
     const int32_t* __restrict__ bins_fm,  // [F, N]
     const int32_t* __restrict__ nodes,    // [N]
@@ -147,9 +153,9 @@ __global__ void hist_warp_kernel(
       if (r < row_end) {
         nd[u] = nodes[r];
         code[u] = codes[r];
-        vg[u] = g[r];
-        vh[u] = h[r];
-        vw[u] = rw ? rw[r] : 1.0f;
+        vg[u] = hist_operand<kBf16>(g[r]);
+        vh[u] = hist_operand<kBf16>(h[r]);
+        vw[u] = rw ? hist_operand<kBf16>(rw[r]) : 1.0f;
       }
     }
 #pragma unroll
@@ -279,6 +285,7 @@ __device__ void add_pack(float* acc, const int4* pack, int n, int bin_tile,
 // into its pack, adding the pack to its tile `acc` whenever the next
 // batch's rows would not fit. code_row is the staged code row of its
 // feature; `n_pack` carries the pack's fill from group to group.
+template <bool kBf16>
 __device__ void add_staged(float* acc, int4* pack, int& n_pack,
                            const uint32_t* buf, int n_valid, int batch0,
                            const Tile& t, int code_row, int bin_tile,
@@ -302,9 +309,10 @@ __device__ void add_staged(float* acc, int4* pack, int& n_pack,
                       (unsigned)bl < (unsigned)(t.b1 - t.b0);
     cell[b] = kl * 3 * bin_tile + bl;
     ballot[b] = __ballot_sync(kAll, mine);
-    vg[b] = s_g[i];  // read by every lane (no branch); kept by its own
-    vh[b] = s_h[i];
-    vw[b] = has_rw ? s_w[i] : 1.0f;
+    // read by every lane (no branch); kept by its own
+    vg[b] = hist_operand<kBf16>(s_g[i]);
+    vh[b] = hist_operand<kBf16>(s_h[i]);
+    vw[b] = has_rw ? hist_operand<kBf16>(s_w[i]) : 1.0f;
   }
   const unsigned below = (1u << lane) - 1;
 #pragma unroll
@@ -323,6 +331,7 @@ __device__ void add_staged(float* acc, int4* pack, int& n_pack,
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(8 * kWarp) hist_tile_kernel(
     const int32_t* __restrict__ bins_fm,  // [F, N]
     const int32_t* __restrict__ nodes,    // [N]
@@ -374,7 +383,7 @@ __global__ void __launch_bounds__(8 * kWarp) hist_tile_kernel(
       cp_async_commit();
     }
     if (active)
-      add_staged(acc, pack, n_pack, stage + (grp & 1) * stage_size,
+      add_staged<kBf16>(acc, pack, n_pack, stage + (grp & 1) * stage_size,
                  (int)min((long long)kGroupRows, row_end - r0),
                  grp * kGroupBatches, t, t.f - f_lo, bin_tile, rw != nullptr, lane);
   }
@@ -413,6 +422,36 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Pass 1 of one call: hist_warp_kernel for one tile per feature, else
+// hist_tile_kernel, in the operand mode kBf16.
+template <bool kBf16>
+cudaError_t launch_pass1(
+    const int32_t* bins_fm, const int32_t* nodes, const float* g,
+    const float* h, const float* rw, float* partial, int n_rows, int n_feat,
+    int n_nodes, int n_bins1, int warps_per_block, int chunk_rows,
+    int n_chunks, int node_tile, int bin_tile, cudaStream_t s) {
+  const int tiles = (n_nodes + node_tile - 1) / node_tile *
+                    ((n_bins1 + bin_tile - 1) / bin_tile);
+  const int smem = smem_bytes(node_tile, bin_tile, tiles, warps_per_block);
+  const dim3 grid((n_feat * tiles + warps_per_block - 1) / warps_per_block, n_chunks);
+  cudaError_t err;
+  if (tiles == 1) {
+    err = allow_smem(hist_warp_kernel<kBf16>, smem);
+    if (err != cudaSuccess) return err;
+    hist_warp_kernel<kBf16><<<grid, warps_per_block * kWarp, smem, s>>>(
+        bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
+        warps_per_block, chunk_rows);
+  } else {
+    err = allow_smem(hist_tile_kernel<kBf16>, smem);
+    if (err != cudaSuccess) return err;
+    hist_tile_kernel<kBf16><<<grid, warps_per_block * kWarp, smem, s>>>(
+        bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
+        warps_per_block, chunk_rows, node_tile, bin_tile, tiles,
+        stage_words(staged_features(warps_per_block, tiles)));
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -421,32 +460,18 @@ extern "C" {
 // The caller allocates `partial` ([n_chunks, F, K, 3, B1] float) and `out`
 // ([K, F, B1, 3] float), has validated shapes and types, and gives the
 // launch plan and the tile (ops/cuda_histogram.py launch_plan, cell_tiles).
+// bf16 1 rounds the values to bf16 operands (hist_operand.cuh), 0 reads
+// them as float32.
 int hist_nodematmul_launch(
     const int32_t* bins_fm, const int32_t* nodes, const float* g,
     const float* h, const float* rw, float* partial, float* out,
     int n_rows, int n_feat, int n_nodes, int n_bins1, int warps_per_block,
-    int chunk_rows, int n_chunks, int node_tile, int bin_tile, void* stream) {
+    int chunk_rows, int n_chunks, int node_tile, int bin_tile, int bf16,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (n_nodes + node_tile - 1) / node_tile *
-                    ((n_bins1 + bin_tile - 1) / bin_tile);
-  const int smem = smem_bytes(node_tile, bin_tile, tiles, warps_per_block);
-  const dim3 grid((n_feat * tiles + warps_per_block - 1) / warps_per_block, n_chunks);
-  cudaError_t err;
-  if (tiles == 1) {
-    err = allow_smem(hist_warp_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    hist_warp_kernel<<<grid, warps_per_block * kWarp, smem, s>>>(
-        bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
-        warps_per_block, chunk_rows);
-  } else {
-    err = allow_smem(hist_tile_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    hist_tile_kernel<<<grid, warps_per_block * kWarp, smem, s>>>(
-        bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
-        warps_per_block, chunk_rows, node_tile, bin_tile, tiles,
-        stage_words(staged_features(warps_per_block, tiles)));
-  }
-  err = cudaGetLastError();
+  cudaError_t err = (bf16 ? launch_pass1<true> : launch_pass1<false>)(
+      bins_fm, nodes, g, h, rw, partial, n_rows, n_feat, n_nodes, n_bins1,
+      warps_per_block, chunk_rows, n_chunks, node_tile, bin_tile, s);
   if (err != cudaSuccess) return (int)err;
   const long long cells = (long long)n_feat * n_nodes * 3 * n_bins1;
   const int rt = 256;

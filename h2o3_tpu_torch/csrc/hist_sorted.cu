@@ -43,6 +43,11 @@
 //   pass 2 (sorted_reduce_kernel): one thread per output cell adds its
 //     node's tile partials in tile order, in double, and writes float.
 //
+// The gather has a float32 and a bf16 instantiation (kBf16,
+// hist_operand.cuh): the bf16 one writes g_s, h_s and w_s rounded to bf16,
+// where the TPU kernel's prep casts its values (`_prep_padded` :424), so pass
+// 1, unchanged, sums the rounded values in its order.
+//
 // The bits are those of the kernel before the gather pass (which read
 // bins_fm[f, order[i]], g[order[i]], ... inside pass 1): the tiles, the
 // 32-row batches counted from each tile's first row, the lanes, the sums
@@ -71,6 +76,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hist_operand.cuh"
 
 namespace {
 
@@ -156,7 +163,7 @@ __global__ void sorted_tiles_kernel(const int32_t* __restrict__ seg_off,
   }
 }
 
-template <typename T>
+template <typename T, bool kBf16>
 __global__ void sorted_gather_kernel(
     const T* __restrict__ codes_rm,        // [N, row_elems], row_elems * sizeof(T) % 16 == 0
     const int64_t* __restrict__ order,     // [N] row ids sorted by node
@@ -173,9 +180,9 @@ __global__ void sorted_gather_kernel(
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= seg_off[n_nodes]) return;
   const long long r = order[i];
-  g_s[i] = g[r];
-  h_s[i] = h[r];
-  if (rw) w_s[i] = rw[r];
+  g_s[i] = hist_operand<kBf16>(g[r]);
+  h_s[i] = hist_operand<kBf16>(h[r]);
+  if (rw) w_s[i] = hist_operand<kBf16>(rw[r]);
   const uint4* src = reinterpret_cast<const uint4*>(codes_rm + (size_t)r * row_elems);
   for (int c = 0; c * kPer < n_feat; ++c) {
     union { uint4 v; T e[kPer]; } u;
@@ -313,13 +320,13 @@ int smem_bytes(int n_bins1, int warps_per_block, bool masks) {
   return warps_per_block * ((masks ? 4 : 3) * n_bins1 + 3 * kWarp) * 4;
 }
 
-template <typename T>
+template <typename T, bool kBf16>
 int launch_gather(const void* codes_rm, int row_elems, const int64_t* order,
                   const int32_t* seg_off, const float* g, const float* h,
                   const float* rw, void* codes_s, float* g_s, float* h_s,
                   float* w_s, int n_rows, int n_feat, int n_nodes, cudaStream_t s) {
   const int gt = 256;
-  sorted_gather_kernel<T><<<(unsigned)((n_rows + gt - 1) / gt), gt, 0, s>>>(
+  sorted_gather_kernel<T, kBf16><<<(unsigned)((n_rows + gt - 1) / gt), gt, 0, s>>>(
       static_cast<const T*>(codes_rm), order, seg_off, g, h, rw,
       static_cast<T*>(codes_s), g_s, h_s, w_s, n_rows, n_feat, row_elems, n_nodes);
   return (int)cudaGetLastError();
@@ -398,20 +405,25 @@ int hist_sorted_offsets(const void* keys_sorted, int key_bytes, int32_t* seg_off
 
 // The gather: codes_rm [N, row_elems] -> codes_s [F, N] (the code width),
 // g, h (, rw) [N] -> g_s, h_s (, w_s) [N] float, at the sorted active
-// positions 0 .. seg_off[K]-1 (the rest is not written).
+// positions 0 .. seg_off[K]-1 (the rest is not written); bf16 1 writes the
+// values rounded to bf16 (hist_operand.cuh), 0 as they are.
 int hist_sorted_gather(
     const void* codes_rm, int code_bytes, int row_elems, const int64_t* order,
     const int32_t* seg_off, const float* g, const float* h, const float* rw,
     void* codes_s, float* g_s, float* h_s, float* w_s, int n_rows, int n_feat,
-    int n_nodes, void* stream) {
+    int n_nodes, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (code_bytes) {
-    case 1: return launch_gather<uint8_t>(codes_rm, row_elems, order, seg_off, g, h, rw,
-                                          codes_s, g_s, h_s, w_s, n_rows, n_feat, n_nodes, s);
-    case 2: return launch_gather<uint16_t>(codes_rm, row_elems, order, seg_off, g, h, rw,
-                                           codes_s, g_s, h_s, w_s, n_rows, n_feat, n_nodes, s);
+#define H2O3_GATHER(T, B)                                                          \
+  launch_gather<T, B>(codes_rm, row_elems, order, seg_off, g, h, rw, codes_s, g_s, \
+                      h_s, w_s, n_rows, n_feat, n_nodes, s)
+  switch (code_bytes * 2 + (bf16 ? 1 : 0)) {
+    case 2: return H2O3_GATHER(uint8_t, false);
+    case 3: return H2O3_GATHER(uint8_t, true);
+    case 4: return H2O3_GATHER(uint16_t, false);
+    case 5: return H2O3_GATHER(uint16_t, true);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef H2O3_GATHER
 }
 
 // Pass 1 and pass 2 on the gathered rows: `partial` is [n_tiles, F, 3, B1]

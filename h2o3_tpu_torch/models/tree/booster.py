@@ -18,6 +18,8 @@ eager PyTorch on one device:
 * histogram subtraction (build the smaller sibling, derive the larger from
   the parent) is an explicit argument: on by default on the card, off on
   the CPU — the same defaults as the JAX package on the TPU and on the CPU;
+* so is the histograms' operand mode (``hist_dtype``): float32 by default,
+  or bf16, the JAX package's default on its own chip;
 * row sampling (``sample_rate``), per-tree column sampling
   (``col_sample_rate_per_tree``) and per-node feature sampling (``mtries``)
   draw from the JAX package's random streams (``util/jrandom.py``), keyed
@@ -46,6 +48,7 @@ from h2o3_tpu_torch.ops.histogram import (
     FitCache,
     apply_bins,
     build_histogram,
+    check_hist_dtype,
     default_hist_impl,
     make_bins,
     node_totals,
@@ -300,7 +303,7 @@ def _build_one_tree(
     key: jrandom.Key, p: TreeParams,
     rw: Optional[torch.Tensor], subtract: bool, hist_impl: str,
     constraints: Optional[torch.Tensor] = None, fact_max_kc: int = 0,
-    cache: Optional[FitCache] = None,
+    cache: Optional[FitCache] = None, hist_dtype: str = "f32",
 ):
     """Grow one tree to max_depth with per-level node capacity 2^d.
 
@@ -314,8 +317,10 @@ def _build_one_tree(
     bounds start at ±inf and are carried down the levels (the children of
     a split on a constrained feature share the split's midpoint as a
     bound); every leaf value is clipped into its node's bounds.
-    ``fact_max_kc`` is ``build_histogram``'s factorized-kernel limit, and
-    ``cache`` the fit's ``FitCache``, which it hands every level.
+    ``fact_max_kc`` is ``build_histogram``'s factorized-kernel limit,
+    ``cache`` the fit's ``FitCache``, which it hands every level, and
+    ``hist_dtype`` its operand mode; the subtraction flow subtracts
+    histograms built in that mode, as the JAX package does.
     Returns (heap arrays [M] x5, per-row leaf value [N])."""
     D = p.max_depth
     n_bins1 = p.nbins + 1
@@ -368,7 +373,7 @@ def _build_one_tree(
                 in_hist & (parity == small_parity[par]), par, -1).int()
             hist_small = build_histogram(
                 bins_fm, half_nodes, g, h, Kp, n_bins1, rw=rw, impl=hist_impl,
-                fact_max_kc=fact_max_kc, cache=cache)
+                fact_max_kc=fact_max_kc, cache=cache, dtype=hist_dtype)
             can_m = prev_can[:, None, None, None]
             hist_big = torch.where(can_m, prev_hist - hist_small, 0.0)
             ls_m = prev_left_small[:, None, None, None]
@@ -378,7 +383,7 @@ def _build_one_tree(
         else:
             hist = build_histogram(
                 bins_fm, hist_nodes, g, h, K, n_bins1, rw=rw, impl=hist_impl,
-                fact_max_kc=fact_max_kc, cache=cache)
+                fact_max_kc=fact_max_kc, cache=cache, dtype=hist_dtype)
         node_feat_mask = feat_mask
         if p.mtries > 0:
             key, sub = jrandom.split(key)
@@ -496,6 +501,7 @@ def train_boosted(
     hist_impl: Optional[str] = None,
     subtract: Optional[bool] = None,
     hist_fact_max_kc: int = 0,
+    hist_dtype: str = "f32",
 ) -> BoostedTrees:
     """Device-resident booster loop.
 
@@ -516,7 +522,12 @@ def train_boosted(
     subtract: histogram subtraction (default: on for cuda, off for cpu).
     hist_fact_max_kc: levels whose padded node count K satisfies K·4 <= this
     take the factorized kernel (``ops/histogram.build_histogram``; 0, the
-    JAX package's default, sends none)."""
+    JAX package's default, sends none).
+    hist_dtype: the histograms' operand mode, "f32" (the default) or
+    "bf16": g, h and the count weight rounded to bf16 and summed in float,
+    as the JAX package's histograms do by default on its own chip (its
+    ``H2O3_TPU_HIST_DTYPE``). The terminal level's node totals are not
+    rounded."""
     if getattr(X, "is_dist_hist", False):
         raise _not_ported("chunk-homed distributed training",
                           "ROADMAP A10: cluster-side compute")
@@ -525,6 +536,7 @@ def train_boosted(
     hist_impl = hist_impl or default_hist_impl(dev)
     if hist_impl not in HIST_IMPLS:
         raise ValueError(f"hist_impl must be one of {HIST_IMPLS}, got {hist_impl!r}")
+    check_hist_dtype(hist_dtype)
     subtract_on = dev.type == "cuda" if subtract is None else bool(subtract)
 
     _t0 = time.time()
@@ -605,7 +617,7 @@ def train_boosted(
                     jrandom.fold_in(kt, c), p,
                     rw=w_d, subtract=subtract_on, hist_impl=hist_impl,
                     constraints=mono_d, fact_max_kc=hist_fact_max_kc,
-                    cache=cache,
+                    cache=cache, hist_dtype=hist_dtype,
                 )
                 margin[:, c] += pred
                 outs.append(tree)

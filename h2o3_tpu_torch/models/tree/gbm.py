@@ -47,6 +47,9 @@ class GBMParameters(ModelParameters):
     #: levels whose padded node count K has K·4 <= this take the
     #: factorized histogram kernel (0: none, the JAX package's default)
     hist_fact_max_kc: int = 0
+    #: histogram operand mode: "f32", or "bf16" (g, h and the count weight
+    #: rounded to bf16, summed in float: the JAX package's TPU default)
+    hist_dtype: str = "f32"
 
 
 class GBMModel(TreeModelBase):
@@ -114,6 +117,7 @@ class GBM(ModelBuilder):
             hist_impl=p.hist_impl,
             subtract=p.tree_subtract,
             hist_fact_max_kc=p.hist_fact_max_kc,
+            hist_dtype=p.hist_dtype,
         )
         model.ntrees_built = model.booster.trees_per_class[0].ntrees
         model.training_metrics = model.model_performance(frame)

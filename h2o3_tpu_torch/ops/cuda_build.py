@@ -3,14 +3,21 @@
 Each ``h2o3_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface,
 ``h2o3_tpu_torch/_build/lib<name>_<hash>.so`` (the directory is listed in
-``.gitignore``); the hash covers the source and the flags, so an edited
-source builds anew. Libraries are loaded with ``ctypes``. Nothing is built
-or loaded at import time: the first launch of a kernel builds its library,
+``.gitignore``); the hash covers the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header builds
+anew. Libraries are loaded with ``ctypes``. Nothing is built or loaded at
+import time: the first launch of a kernel builds its library,
 and ``build`` starts one ``nvcc`` per source at once for a caller that
 wants every kernel ready up front.
 
 ``LAUNCHES`` counts each kernel's launches; only a wrapper adds to it,
 right after it launched its kernel.
+
+``HIST_DTYPES`` are the kernels' operand modes (``hist_operand.cuh``):
+``"f32"`` reads g, h and the count weight as they are, ``"bf16"`` rounds
+each to bf16 first, as the JAX package's ``_resolve_hist_dtype``
+(``h2o3_tpu/ops/pallas_histogram.py:438``) does on its own chip;
+``round_operand`` is that rounding for the plain versions.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import threading
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -36,6 +45,9 @@ NVCC_FLAGS = (
 
 #: the kernels of the port, by source name under csrc/
 KERNELS = ("hist_nodematmul", "hist_sorted", "hist_factorized")
+
+#: the kernels' operand modes: float32 values, or values rounded to bf16
+HIST_DTYPES = ("f32", "bf16")
 
 #: launches of each kernel, counted by its wrapper where it launches
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -57,10 +69,13 @@ def source(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` goes (content-hashed)."""
-    src = source(name).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` goes (hashed over its
+    source, the headers in ``csrc/`` and the flags)."""
+    sha = hashlib.sha1(source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.name.encode() + header.read_bytes())
+    sha.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{sha.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:
@@ -133,3 +148,21 @@ def check_tensor(kernel: str, name: str, t, dtype, shape: tuple, device) -> None
             f"{kernel}: {name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_hist_dtype(dtype: str) -> str:
+    """``dtype`` if it is one of ``HIST_DTYPES``, else ValueError with the
+    JAX package's wording (``pallas_histogram.py:450``)."""
+    if dtype not in HIST_DTYPES:
+        raise ValueError(f"hist dtype must be 'f32' or 'bf16', got {dtype!r}")
+    return dtype
+
+
+def round_operand(v: torch.Tensor, dtype: str) -> torch.Tensor:
+    """``v`` as a kernel in operand mode ``dtype`` reads it: for ``"bf16"``
+    its float32 value rounded to bf16 (to nearest even) and widened back to
+    float32, as the JAX package casts its float32 operands; for ``"f32"``
+    ``v`` itself."""
+    if check_hist_dtype(dtype) == "bf16":
+        return v.float().to(torch.bfloat16).float()
+    return v

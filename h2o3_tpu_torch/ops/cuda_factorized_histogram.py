@@ -20,6 +20,8 @@ deterministic.
   16] slab index, in float64, then the permute and slice back to [K, F, B1,
   3], rounded once to float32. The CPU tests hold it against the JAX
   package, and ``chip_smoke.py`` holds the kernel against it.
+- Both take ``dtype``, the operand mode: ``"bf16"`` rounds g, h and the
+  count weight to bf16 before they are added (``cuda_build.round_operand``).
 - ``launch_plan`` raises ``ValueError`` for a level whose slab does not fit
   one block's shared memory; it never falls back to another kernel. The
   largest node count it takes is 71 at 257 bins (a 3,264-byte slab per
@@ -34,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from h2o3_tpu_torch.ops.cuda_build import LAUNCHES
+from h2o3_tpu_torch.ops.cuda_build import LAUNCHES, check_hist_dtype, round_operand
 from h2o3_tpu_torch.ops.cuda_histogram import (
     launch_chunked,
     load_chunked_library,
@@ -90,23 +92,26 @@ def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return load_chunked_library("hist_factorized")
+    return load_chunked_library("hist_factorized", 8)
 
 
 def hist_factorized_reference(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
-    rw: Optional[torch.Tensor] = None,
+    rw: Optional[torch.Tensor] = None, dtype: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw),
     computed through the factorized slab.
 
     bins_fm: [F, N] int bin codes (feature-major); nodes: [N] int (-1 =
-    inactive row); g, h: [N] float; rw: optional [N] count weight. Each
+    inactive row); g, h: [N] float; rw: optional [N] count weight; dtype:
+    the operand mode (``"bf16"`` rounds g, h and rw to bf16 first). Each
     channel's masked values are added (float64 ``index_add_``) at the flat
     slab index (f, hi, k, c, lo) of [F, HI, K, 3, 16]; the slab is then
     permuted to [K, F, HI·16, 3] and cut to B1 bins, as the JAX package
     transposes the kernel's [HI, (k, c, lo)] output."""
+    g, h = round_operand(g, dtype), round_operand(h, dtype)
+    rw = None if rw is None else round_operand(rw, dtype)
     n_feat, n = bins_fm.shape
     dev = bins_fm.device
     hi_n = n_hi(n_bins1)
@@ -131,20 +136,25 @@ def hist_factorized_reference(
 def hist_factorized(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
-    rw: Optional[torch.Tensor] = None,
+    rw: Optional[torch.Tensor] = None, dtype: str = "f32",
 ) -> torch.Tensor:
     """Histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw) per (node, feature,
     bin) over the rows whose node is >= 0. Bin codes lie in [0, n_bins1)
-    and nodes in [-1, n_nodes), as the booster makes them.
+    and nodes in [-1, n_nodes), as the booster makes them. dtype: the
+    operand mode, ``"f32"`` or ``"bf16"`` (g, h and rw rounded to bf16,
+    summed in float); any other value raises ValueError.
 
-    On a CUDA tensor: launches the kernel on the current stream (bins_fm
-    [F, N] int32, nodes [N] int32, g/h/rw [N] float32, all contiguous on one
-    card) and raises on anything else, on a level whose slab does not fit
-    shared memory, or on a launch error. On a CPU tensor: the plain
-    version, ``hist_factorized_reference``."""
+    On a CUDA tensor: launches the kernel's instantiation for ``dtype`` on
+    the current stream (bins_fm [F, N] int32, nodes [N] int32, g/h/rw [N]
+    float32, all contiguous on one card) and raises on anything else, on a
+    level whose slab does not fit shared memory, or on a launch error. On a
+    CPU tensor: the plain version, ``hist_factorized_reference``."""
+    check_hist_dtype(dtype)
     if bins_fm.device.type == "cpu":
-        return hist_factorized_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+        return hist_factorized_reference(bins_fm, nodes, g, h, n_nodes, n_bins1,
+                                         rw=rw, dtype=dtype)
     # partials [chunks, F, HI, K, 3, 16]
     return launch_chunked("hist_factorized", launch_plan,
                           n_hi(n_bins1) * n_nodes * 3 * FACT_LO,
-                          bins_fm, nodes, g, h, n_nodes, n_bins1, rw)
+                          bins_fm, nodes, g, h, n_nodes, n_bins1, rw,
+                          extra=(int(dtype == "bf16"),))

@@ -13,6 +13,10 @@ deterministic.
   ``index_add_`` over the flat (node, feature, bin) index, accumulated in
   float64 and rounded once to float32. The CPU tests hold it against the
   JAX package, and ``chip_smoke.py`` holds the kernel against it.
+- Both take ``dtype``, the operand mode (``cuda_build.HIST_DTYPES``):
+  ``"bf16"`` rounds g, h and the count weight to bf16 before they are
+  added, as the JAX package's bf16 mode does; the kernel has an
+  instantiation for each mode.
 - The shared library is built from the source with ``nvcc`` on first use
   (``ops/cuda_build.py``) and loaded with ``ctypes``. Nothing is built or
   imported at module import time.
@@ -27,9 +31,11 @@ import torch
 
 from h2o3_tpu_torch.ops.cuda_build import (
     LAUNCHES,
+    check_hist_dtype,
     check_tensor,
     load_library as _load,
     reset_launch_counts,
+    round_operand,
 )
 
 __all__ = ["LAUNCHES", "MAX_NODES", "reset_launch_counts", "load_library",
@@ -200,12 +206,12 @@ def row_chunks(n_rows: int, n_feat: int) -> Tuple[int, int]:
     return chunk_rows, -(-n_rows // chunk_rows)
 
 
-def load_chunked_library(kernel: str, n_ints: int = 7) -> ctypes.CDLL:
+def load_chunked_library(kernel: str, n_ints: int) -> ctypes.CDLL:
     """Build (at first use) and load the library of a row-chunked histogram
     kernel: ``<kernel>_launch`` and ``<kernel>_error_string``, the C
     interface the node-matmul and factorized kernels share: seven pointers,
-    ``n_ints`` ints (the factorized kernel's seven, and the node-matmul
-    kernel's tile after them), the stream."""
+    ``n_ints`` ints (seven of both kernels', the node-matmul kernel's tile,
+    and the operand mode last), the stream."""
     def bind(lib: ctypes.CDLL) -> None:
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{kernel}_launch")
@@ -220,20 +226,23 @@ def load_chunked_library(kernel: str, n_ints: int = 7) -> ctypes.CDLL:
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return load_chunked_library("hist_nodematmul", 9)
+    return load_chunked_library("hist_nodematmul", 10)
 
 
 def hist_nodematmul_reference(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
-    rw: Optional[torch.Tensor] = None,
+    rw: Optional[torch.Tensor] = None, dtype: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw).
 
     bins_fm: [F, N] int bin codes (feature-major); nodes: [N] int (-1 =
-    inactive row); g, h: [N] float; rw: optional [N] count weight. An
+    inactive row); g, h: [N] float; rw: optional [N] count weight; dtype:
+    the operand mode (``"bf16"`` rounds g, h and rw to bf16 first). An
     ``index_add_`` per channel over the flat (node, feature, bin) index,
     in float64 so the float32 result is the correctly rounded sum."""
+    g, h = round_operand(g, dtype), round_operand(h, dtype)
+    rw = None if rw is None else round_operand(rw, dtype)
     n_feat, n = bins_fm.shape
     dev = bins_fm.device
     valid = nodes >= 0
@@ -301,20 +310,24 @@ def launch_chunked(
 def hist_nodematmul(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
-    rw: Optional[torch.Tensor] = None,
+    rw: Optional[torch.Tensor] = None, dtype: str = "f32",
 ) -> torch.Tensor:
     """Histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw) per (node, feature,
     bin) over the rows whose node is >= 0. Bin codes lie in [0, n_bins1)
-    and nodes in [-1, n_nodes), as the booster makes them.
+    and nodes in [-1, n_nodes), as the booster makes them. dtype: the
+    operand mode, ``"f32"`` or ``"bf16"`` (g, h and rw rounded to bf16,
+    summed in float); any other value raises ValueError.
 
-    On a CUDA tensor: launches the kernel on the current stream (bins_fm
-    [F, N] int32, nodes [N] int32, g/h/rw [N] float32, all contiguous on one
-    card) and raises on anything else, on more than ``MAX_NODES`` nodes, or
-    on a launch error. On a CPU tensor: the plain version,
-    ``hist_nodematmul_reference``."""
+    On a CUDA tensor: launches the kernel's instantiation for ``dtype`` on
+    the current stream (bins_fm [F, N] int32, nodes [N] int32, g/h/rw [N]
+    float32, all contiguous on one card) and raises on anything else, on
+    more than ``MAX_NODES`` nodes, or on a launch error. On a CPU tensor:
+    the plain version, ``hist_nodematmul_reference``."""
+    check_hist_dtype(dtype)
     if bins_fm.device.type == "cpu":
-        return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+        return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1,
+                                         rw=rw, dtype=dtype)
     # partials [chunks, F, K, 3, B1]; each warp writes its tile's cells
     return launch_chunked("hist_nodematmul", launch_plan, n_nodes * 3 * n_bins1,
                           bins_fm, nodes, g, h, n_nodes, n_bins1, rw,
-                          extra=cell_tiles(n_nodes, n_bins1))
+                          extra=(*cell_tiles(n_nodes, n_bins1), int(dtype == "bf16")))

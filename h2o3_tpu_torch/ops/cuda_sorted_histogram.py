@@ -32,6 +32,9 @@ before the gather pass.
 - ``hist_sorted_ordered_reference`` is the plain version that keeps the
   kernel's float order and so its bits: the bit oracle of the tests and
   ``chip_smoke.py``.
+- Each takes ``dtype``, the operand mode: with ``"bf16"`` the gather writes
+  g, h and the count weight rounded to bf16 (``cuda_build.round_operand``),
+  where the JAX package's prep casts them, and pass 1 sums them unchanged.
 """
 
 from __future__ import annotations
@@ -41,7 +44,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from h2o3_tpu_torch.ops.cuda_build import LAUNCHES, check_tensor, load_library as _load
+from h2o3_tpu_torch.ops.cuda_build import (
+    LAUNCHES,
+    check_hist_dtype,
+    check_tensor,
+    load_library as _load,
+    round_operand,
+)
 
 #: longest run of one node's rows one warp sums in float before the
 #: float64 reduce over the node's tiles
@@ -191,8 +200,8 @@ def row_major_codes(bins_fm: torch.Tensor, n_bins1: int) -> torch.Tensor:
 class SortedRows(NamedTuple):
     """The active rows' codes and values in sorted order, as the gather
     writes them: codes [F, N] (``code_dtype``), g, h, w [N] float32 (w is
-    None without a count weight). Positions past seg_off[K] are not
-    written."""
+    None without a count weight), the values rounded to bf16 in the bf16
+    operand mode. Positions past seg_off[K] are not written."""
 
     codes: torch.Tensor
     g: torch.Tensor
@@ -202,7 +211,8 @@ class SortedRows(NamedTuple):
 
 def gather_rows_reference(codes_rm: torch.Tensor, layout: SortedLayout,
                           g: torch.Tensor, h: torch.Tensor,
-                          rw: Optional[torch.Tensor], n_feat: int) -> SortedRows:
+                          rw: Optional[torch.Tensor], n_feat: int,
+                          dtype: str = "f32") -> SortedRows:
     """Plain PyTorch twin of the gather kernel (positions past the active
     rows are zero here)."""
     n = g.shape[0]
@@ -213,6 +223,7 @@ def gather_rows_reference(codes_rm: torch.Tensor, layout: SortedLayout,
     codes.view(as_int)[:, :rows.numel()] = codes_rm.view(as_int)[rows, :n_feat].T
 
     def put(v):
+        v = round_operand(v, dtype)
         out = torch.zeros_like(v)
         out[:rows.numel()] = v[rows]
         return out
@@ -221,12 +232,14 @@ def gather_rows_reference(codes_rm: torch.Tensor, layout: SortedLayout,
 
 
 def gather_rows(codes_rm: torch.Tensor, layout: SortedLayout, g: torch.Tensor,
-                h: torch.Tensor, rw: Optional[torch.Tensor], n_feat: int) -> SortedRows:
-    """Gather the active rows into node order: the gather kernel on a CUDA
-    tensor (the caller has validated the inputs), the plain twin on a CPU
-    tensor."""
+                h: torch.Tensor, rw: Optional[torch.Tensor], n_feat: int,
+                dtype: str = "f32") -> SortedRows:
+    """Gather the active rows into node order, their values in operand mode
+    ``dtype``: the gather kernel's instantiation for it on a CUDA tensor
+    (the caller has validated the inputs), the plain twin on a CPU tensor."""
+    check_hist_dtype(dtype)
     if g.device.type == "cpu":
-        return gather_rows_reference(codes_rm, layout, g, h, rw, n_feat)
+        return gather_rows_reference(codes_rm, layout, g, h, rw, n_feat, dtype)
     n = g.shape[0]
     rows = SortedRows(
         torch.empty((n_feat, n), dtype=codes_rm.dtype, device=g.device),
@@ -240,7 +253,7 @@ def gather_rows(codes_rm: torch.Tensor, layout: SortedLayout, g: torch.Tensor,
             layout.order.data_ptr(), layout.seg_off.data_ptr(), g.data_ptr(),
             h.data_ptr(), _ptr(rw), rows.codes.data_ptr(), rows.g.data_ptr(),
             rows.h.data_ptr(), _ptr(rows.w), n, n_feat, layout.seg_off.numel() - 1,
-            stream))
+            int(dtype == "bf16"), stream))
     return rows
 
 
@@ -261,7 +274,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.hist_sorted_offsets.argtypes = [p, i, p, p, i, i, i, p]
     lib.hist_sorted_offsets.restype = i
     lib.hist_sorted_gather.argtypes = [p, i, i, p, p, p, p, p, p, p, p, p,
-                                       i, i, i, p]
+                                       i, i, i, i, p]
     lib.hist_sorted_gather.restype = i
     lib.hist_sorted_launch.argtypes = [p, i, p, p, p, p, p, p, p,
                                        i, i, i, i, i, i, i, i, p]
@@ -278,14 +291,17 @@ def load_library() -> ctypes.CDLL:
 def hist_sorted_reference(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
-    rw: Optional[torch.Tensor] = None,
+    rw: Optional[torch.Tensor] = None, dtype: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw).
 
     The kernel's prep (``sorted_prep``), then one ``index_add_`` per
     channel over the flat (node, feature, bin) index of the rows in sorted
-    order, in float64 so the float32 result is the correctly rounded sum.
-    Inactive rows (and rows of nodes outside [0, n_nodes)) add nothing."""
+    order, in float64 so the float32 result is the correctly rounded sum,
+    of g, h and rw in operand mode ``dtype``. Inactive rows (and rows of
+    nodes outside [0, n_nodes)) add nothing."""
+    g, h = round_operand(g, dtype), round_operand(h, dtype)
+    rw = None if rw is None else round_operand(rw, dtype)
     n_feat, n = bins_fm.shape
     dev = bins_fm.device
     rows = sorted_prep_reference(nodes, n_nodes).order
@@ -308,6 +324,7 @@ def hist_sorted_ordered_reference(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
     rw: Optional[torch.Tensor] = None, tile_rows: int = TILE_ROWS,
+    dtype: str = "f32",
 ) -> torch.Tensor:
     """Plain PyTorch histogram [K, F, B1, 3] float32 with the kernel's own
     float order, so it gives the kernel's bits: a bit oracle for tests and
@@ -321,7 +338,10 @@ def hist_sorted_ordered_reference(
     (float32); a node's tile partials are added in tile order in float64
     and rounded once. Here each step is one scatter that adds at most once
     to any cell: lane by lane, then batch by batch, then tile by tile. A
-    code outside [0, n_bins1) counts as no row, as in the kernel."""
+    code outside [0, n_bins1) counts as no row, as in the kernel. The values
+    are g, h and rw in operand mode ``dtype``, as the gather writes them."""
+    g, h = round_operand(g, dtype), round_operand(h, dtype)
+    rw = None if rw is None else round_operand(rw, dtype)
     n_feat, n = bins_fm.shape
     dev = bins_fm.device
     lay = sorted_prep_reference(nodes, n_nodes, tile_rows)
@@ -385,12 +405,14 @@ def hist_sorted(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
     rw: Optional[torch.Tensor] = None, codes_rm: Optional[torch.Tensor] = None,
+    dtype: str = "f32",
 ) -> torch.Tensor:
     """Histogram [K, F, B1, 3] float32 of (Σg, Σh, Σw) per (node, feature,
     bin) over the rows whose node lies in [0, n_nodes). Bin codes lie in
     [0, n_bins1), as the booster makes them; on the card (and in
     ``hist_sorted_ordered_reference``) a code outside that range adds
-    nothing.
+    nothing. dtype: the operand mode, ``"f32"`` or ``"bf16"`` (the gather
+    writes g, h and rw rounded to bf16); any other value raises ValueError.
 
     ``codes_rm``: the row-major copy of the codes (``row_major_codes``) the
     gather reads; a fit on the card makes it once and passes it to every
@@ -402,6 +424,7 @@ def hist_sorted(
     float32, all contiguous on one card) and raises on anything else or on
     a launch error. On a CPU tensor: the plain version,
     ``hist_sorted_reference``."""
+    check_hist_dtype(dtype)
     if bins_fm.dim() != 2:
         raise ValueError("hist_sorted: bins_fm must be [F, N]")
     if codes_rm is not None:
@@ -409,7 +432,8 @@ def hist_sorted(
                (bins_fm.shape[1], row_elems(bins_fm.shape[0], n_bins1)),
                bins_fm.device)
     if bins_fm.device.type == "cpu":
-        return hist_sorted_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+        return hist_sorted_reference(bins_fm, nodes, g, h, n_nodes, n_bins1,
+                                     rw=rw, dtype=dtype)
     if bins_fm.device.type != "cuda":
         raise ValueError(f"hist_sorted: unsupported device {bins_fm.device}")
     dev = bins_fm.device
@@ -430,7 +454,7 @@ def hist_sorted(
     if codes_rm is None:
         codes_rm = row_major_codes(bins_fm, n_bins1)
     layout = sorted_prep(nodes, n_nodes)
-    rows = gather_rows(codes_rm, layout, g, h, rw, n_feat)
+    rows = gather_rows(codes_rm, layout, g, h, rw, n_feat, dtype)
     partial = torch.empty((n_tiles, n_feat, 3, n_bins1), dtype=torch.float32, device=dev)
     lib = load_library()
     with torch.cuda.device(dev):

@@ -14,7 +14,10 @@
   (``ops/cuda_histogram.hist_nodematmul``), a wider one to the sorted
   per-node kernel (``ops/cuda_sorted_histogram.hist_sorted``); the plain
   version (``hist_nodematmul_reference``, the ``index_add_`` twin of
-  ``_shard_histogram`` :254) builds every level when asked for.
+  ``_shard_histogram`` :254) builds every level when asked for. Its
+  ``dtype`` (``"f32"`` or ``"bf16"``, the operand mode of
+  ``_resolve_hist_dtype``, ``pallas_histogram.py:438``) goes to whichever
+  version builds the level.
 - ``FitCache`` holds what a fit's levels share: the sorted kernel's
   row-major copy of the codes, made at the first level that needs it.
 - ``node_totals`` (:280): the terminal level's per-node totals, a scatter
@@ -28,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.ops.cuda_build import check_hist_dtype
 from h2o3_tpu_torch.ops.cuda_factorized_histogram import (
     fits as factorized_fits,
     hist_factorized,
@@ -191,7 +195,7 @@ def build_histogram(
     bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
     h: torch.Tensor, n_nodes: int, n_bins1: int,
     rw: Optional[torch.Tensor] = None, impl: Optional[str] = None,
-    fact_max_kc: int = 0, cache: Optional[FitCache] = None,
+    fact_max_kc: int = 0, cache: Optional[FitCache] = None, dtype: str = "f32",
 ) -> torch.Tensor:
     """Histogram [n_nodes, F, n_bins1, 3] float32 of (Σg, Σh, Σw).
 
@@ -205,7 +209,13 @@ def build_histogram(
     else the node-matmul kernel, which sums each cell in the same order and
     so gives the same bits. cache: the fit's ``FitCache`` (made for this
     ``bins_fm``); only a level that goes to the sorted kernel reads it, and
-    without it that kernel makes its own copy of the codes.
+    without it that kernel makes its own copy of the codes. dtype: the
+    operand mode, ``"f32"`` or ``"bf16"`` (g, h and rw rounded to bf16 and
+    summed in float, counts exact: the JAX package's default on its own
+    chip); any other value raises ValueError. The JAX package's scatter
+    impl ignores the dtype (``ops/histogram.py:403-404``), but ``"plain"``
+    here honours it, because in the port the plain version stands for the
+    kernels.
 
     The JAX package pads the node count up the ladder so one compiled plan
     serves a bucket; here nothing is compiled per shape, so every version
@@ -215,15 +225,17 @@ def build_histogram(
     impl = impl or default_hist_impl(bins_fm.device)
     if impl not in HIST_IMPLS:
         raise ValueError(f"hist impl must be one of {HIST_IMPLS}, got {impl!r}")
+    check_hist_dtype(dtype)
+    args = (bins_fm, nodes, g, h, n_nodes, n_bins1)
     if impl == "plain":
-        return hist_nodematmul_reference(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+        return hist_nodematmul_reference(*args, rw=rw, dtype=dtype)
     kc = pad_nodes(n_nodes) * _C
     if kc <= fact_max_kc and factorized_fits(n_nodes, n_bins1):
-        return hist_factorized(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+        return hist_factorized(*args, rw=rw, dtype=dtype)
     if kc > _NODE_MATMUL_MAX_KC:
-        return hist_sorted(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw,
+        return hist_sorted(*args, rw=rw, dtype=dtype,
                            codes_rm=None if cache is None else cache.codes_rm())
-    return hist_nodematmul(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw)
+    return hist_nodematmul(*args, rw=rw, dtype=dtype)
 
 
 def node_totals(
@@ -231,7 +243,9 @@ def node_totals(
     rw: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Per-node (Σg, Σh, Σw) [K, 3] float32 — one masked ``index_add_`` per
-    channel, in float64 (the terminal level needs only these totals)."""
+    channel, in float64 (the terminal level needs only these totals). It
+    has no operand mode: the JAX package's ``node_totals_sharded`` (:304)
+    sums the values unrounded in either mode."""
     valid = nodes >= 0
     node = torch.where(valid, nodes, 0).long()
     w = valid.double()

@@ -26,6 +26,15 @@ the codes (``row_major_codes``), the gather's plain twin, the wrapper's
 checks of that copy and its path from the fit to the sorted kernel alone
 are held here too.
 
+The bf16 operand mode (``dtype="bf16"``: g, h and the count weight rounded
+to bf16, summed in float; the JAX package's default on its own chip) of
+each plain version is held to the matching Pallas kernel in interpret mode
+with ``dtype="bf16"``, with inactive rows, empty nodes and a fractional
+count weight, at the f32 tolerance above (both sum the same rounded values;
+counts exact without a weight), and must differ from the f32 output. Its
+rounding is the JAX package's cast, bit for bit, and the dispatch hands the
+mode to whichever version builds a level.
+
 The kernels themselves run only on the card: see ``tests/test_torch_kernels.py``.
 """
 
@@ -42,6 +51,7 @@ from h2o3_tpu.ops.histogram import (
     pad_nodes as jax_pad_nodes,
 )
 from h2o3_tpu.ops.pallas_histogram import build_histogram_pallas
+from h2o3_tpu_torch.ops import cuda_build
 from h2o3_tpu_torch.ops import cuda_factorized_histogram as cf
 from h2o3_tpu_torch.ops import cuda_histogram as ch
 from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
@@ -93,6 +103,32 @@ def _assert_hist_close(got, want):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def _bf16_weight(rw):
+    """A fractional count weight, which bf16 rounds (_mk's are integers)."""
+    return None if rw is None else (rw * 0.37).astype(np.float32)
+
+
+def _assert_bf16_matches_jax(port, kernel, bins, nodes, g, h, k, b1, row_tile,
+                             rw=None):
+    """The port's plain version ``port`` in the bf16 operand mode against
+    the JAX package's Pallas ``kernel`` in interpret mode with
+    ``dtype="bf16"``: the f32 tolerance, counts exact without a weight; and
+    apart from the f32 output on the same inputs. Returns the bf16 output."""
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
+    rwt = None if rw is None else t(rw)
+    got = port(*args, rw=rwt, dtype="bf16").numpy()
+    want = np.asarray(build_histogram_pallas(
+        bins, nodes, g, h, k, b1, row_tile=row_tile, interpret=True,
+        kernel=kernel, rw=rw, dtype="bf16"))
+    assert got.shape == want.shape
+    if rw is None:
+        np.testing.assert_array_equal(got[..., 2], want[..., 2])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    assert not np.allclose(got, port(*args, rw=rwt).numpy(), rtol=RTOL, atol=ATOL)
+    return got
+
+
 @pytest.mark.parametrize(
     "n,f,k,b1,row_tile",
     [
@@ -120,6 +156,15 @@ def test_inactive_rows_empty_nodes_and_count_weight(weighted):
     assert np.all(got[2] == 0)  # the empty node is exactly zero
     _assert_hist_close(got, scatter)
     _assert_hist_close(got, pallas)
+    # the bf16 operand mode, and the dispatch's plain version honours it
+    rw = _bf16_weight(rw)
+    bf16 = _assert_bf16_matches_jax(ch.hist_nodematmul_reference, "nodematmul",
+                                    bins, nodes, g, h, 6, 13, 128, rw=rw)
+    assert np.all(bf16[2] == 0)
+    t = torch.from_numpy
+    np.testing.assert_array_equal(bf16, build_histogram(
+        t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 6, 13,
+        rw=None if rw is None else t(rw), impl="plain", dtype="bf16").numpy())
 
 
 def test_counts_are_exact_integers():
@@ -238,6 +283,19 @@ def test_sorted_inactive_rows_empty_nodes_and_count_weight(weighted):
     np.testing.assert_array_equal(got[..., 2], np.round(got[..., 2]))
     _assert_hist_close(got, scatter)
     _assert_hist_close(got, pallas)
+    # the bf16 operand mode; the ordered plain version sums the same
+    # rounded values in the kernel's order
+    rw = _bf16_weight(rw)
+    bf16 = _assert_bf16_matches_jax(cs.hist_sorted_reference, "sorted",
+                                    bins, nodes, g, h, k, 13, 128, rw=rw)
+    assert np.all(bf16[100] == 0) and np.all(bf16[40:60] == 0)
+    t = torch.from_numpy
+    ordered = cs.hist_sorted_ordered_reference(
+        t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, 13,
+        rw=None if rw is None else t(rw), tile_rows=128, dtype="bf16").numpy()
+    if rw is None:
+        np.testing.assert_array_equal(ordered[..., 2], bf16[..., 2])
+    np.testing.assert_allclose(ordered, bf16, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("k,frac_inactive", [(1, 0.0), (7, 0.3), (300, 0.5), (2048, 0.1)])
@@ -575,6 +633,11 @@ def test_factorized_inactive_rows_empty_nodes_and_count_weight(weighted, b1):
     np.testing.assert_array_equal(got[..., 2], np.round(got[..., 2]))
     _assert_hist_close(got, scatter)
     _assert_hist_close(got, pallas)
+    # the bf16 operand mode
+    bf16 = _assert_bf16_matches_jax(cf.hist_factorized_reference, "factorized",
+                                    bins, nodes, g, h, 6, b1, 128,
+                                    rw=_bf16_weight(rw))
+    assert np.all(bf16[2] == 0)
 
 
 def test_factorized_wrapper_on_cpu_tensors_is_the_plain_version():
@@ -619,6 +682,32 @@ def test_dispatch_takes_the_factorized_kernel_up_to_fact_max_kc(
     assert calls == []
 
 
+def test_dispatch_hands_the_operand_mode_to_every_kernel(monkeypatch):
+    # whichever version builds a level gets build_histogram's dtype, in
+    # both modes; a mode outside HIST_DTYPES raises before any is called
+    from h2o3_tpu_torch.ops import histogram as hmod
+
+    calls = []
+    for name in ("hist_factorized", "hist_nodematmul", "hist_sorted",
+                 "hist_nodematmul_reference"):
+        monkeypatch.setattr(
+            hmod, name,
+            lambda *a, _n=name[5:], **kw: calls.append((_n, a[4], kw["dtype"])) or _n)
+    z = torch.zeros(1, 4, dtype=torch.int32)
+    for dtype in cuda_build.HIST_DTYPES:
+        calls.clear()
+        for k, impl in ((1, "kernel"), (16, "kernel"), (65, "kernel"), (65, "plain")):
+            hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 3,
+                                 impl=impl, fact_max_kc=32, dtype=dtype)
+        assert calls == [("factorized", 1, dtype), ("nodematmul", 16, dtype),
+                         ("sorted", 65, dtype), ("nodematmul_reference", 65, dtype)]
+    calls.clear()
+    with pytest.raises(ValueError, match="hist dtype must be 'f32' or 'bf16'"):
+        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), 1, 3,
+                             impl="kernel", dtype="float32")
+    assert calls == []
+
+
 def test_dispatch_sends_what_the_factorized_kernel_cannot_hold_to_nodematmul(
         monkeypatch):
     # at 2,417 bins one node's [HI, 1, 3, 16] slab is 29,184 bytes: the
@@ -643,3 +732,53 @@ def test_dispatch_sends_what_the_factorized_kernel_cannot_hold_to_nodematmul(
     with pytest.raises(ValueError, match="shared memory"):
         cf.launch_plan(1000, 4, 8, 2417)
     ch.launch_plan(1000, 4, 8, 2417)  # the node-matmul kernel takes it
+
+
+def test_bf16_operands_are_the_jax_casts():
+    # the bf16 operand mode rounds each float32 value to nearest even, as
+    # the JAX package's astype(bfloat16) does: ties (1 + 2^-8 goes down to
+    # 1, 1 + 3·2^-8 up to 1 + 2^-6), subnormals, the largest floats, signed
+    # zeros; a float64 value is rounded through float32, as the JAX package
+    # casts g, h and the weight to float32 first; f32 leaves a value as it is
+    rng = np.random.default_rng(41)
+    v = np.concatenate([
+        np.float32([1 + 2**-8, 1 + 3 * 2**-8, -(1 + 2**-8), 2**-140, -2**-133,
+                    3.4e38, -3.4e38, 0.0, -0.0, 1.0, 3.0]),
+        rng.normal(size=500).astype(np.float32),
+        (rng.normal(size=500) * 1e-30).astype(np.float32)])
+    got = cuda_build.round_operand(torch.from_numpy(v), "bf16")
+    want = np.asarray(jnp.asarray(v).astype(jnp.bfloat16).astype(jnp.float32))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    assert got[0] == 1.0 and got[1] == 1 + 2**-6
+    v64 = np.float64([1 + 2**-8 + 2**-30, -(1 + 2**-8 + 2**-30)])
+    got = cuda_build.round_operand(torch.from_numpy(v64), "bf16").numpy()
+    np.testing.assert_array_equal(got, np.asarray(
+        jnp.asarray(v64, jnp.float32).astype(jnp.bfloat16).astype(jnp.float32)))
+    assert got[0] == 1.0  # 1 + 2^-8 in float32: a tie, to even
+    t = torch.from_numpy(v)
+    assert cuda_build.round_operand(t, "f32") is t
+    # every plain version in bf16: a float64 sum of the rounded values (the
+    # count of an unweighted row stays 1)
+    bins, nodes, g, h, rw = _mk(3000, 5, 8, 17, seed=43, frac_inactive=0.3,
+                                empty_node=4, weighted=True)
+    rw = _bf16_weight(rw)
+
+    def r(a):
+        return cuda_build.round_operand(torch.from_numpy(a), "bf16").double().numpy()
+
+    args = (torch.from_numpy(np.ascontiguousarray(bins.T)), torch.from_numpy(nodes),
+            torch.from_numpy(g), torch.from_numpy(h), 8, 17)
+    for w in (None, rw):
+        want = np.zeros((8, 5, 17, 3))
+        act = nodes >= 0
+        for f in range(5):
+            for c, val in enumerate((r(g), r(h), np.ones(3000) if w is None else r(w))):
+                np.add.at(want[:, f, :, c], (nodes[act], bins[act, f]), val[act])
+        for plain in (ch.hist_nodematmul_reference, cs.hist_sorted_reference,
+                      cs.hist_sorted_ordered_reference, cf.hist_factorized_reference):
+            got = plain(*args, rw=None if w is None else torch.from_numpy(w),
+                        dtype="bf16").numpy()
+            if w is None:
+                np.testing.assert_array_equal(got[..., 2], want[..., 2])
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -14,8 +14,11 @@ cell owned by one warp, the sorted kernel's tile bound, the factorized
 kernel's node limit) and the sorted kernel's plain prep are plain Python
 and run everywhere; its prep and gather kernels are held to their plain
 twins on the card.
-Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh (the plain version
-sums in float64, the kernel in float32 per chunk); counts exact.
+Each kernel is held in both operand modes (``"f32"`` and ``"bf16"``, the
+values rounded to bf16 before they are summed), each case named in its
+assertion. Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh in either
+mode (the plain version sums the same values in float64, the kernel in
+float32 per chunk); counts exact where they are integers.
 """
 
 import numpy as np
@@ -59,29 +62,6 @@ def test_launch_plan_rejects_what_does_not_fit():
         ch.launch_plan(1000, 4, 128, 257)
 
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for n, f, k, b1, weighted in [(100_000, 28, 64, 257, False),
-                                  (70_001, 11, 8, 21, True)]:
-        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n, frac_inactive=0.3,
-                                    empty_node=1, weighted=weighted)
-        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
-        rwt = None if rw is None else t(rw)
-        a = ch.hist_nodematmul(*args, rw=rwt)
-        b = ch.hist_nodematmul(*args, rw=rwt)
-        ref = ch.hist_nodematmul_reference(*args, rw=rwt)
-        wide = ch.hist_nodematmul(*args[:4], k + 3, b1, rw=rwt)
-        assert torch.equal(a, b)
-        assert torch.equal(a, wide[:k])
-        assert torch.equal(a[..., 2], ref[..., 2])
-        assert torch.all(a[1] == 0)
-        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
-
-
 @pytest.mark.parametrize("n_bins1", [2, 21, 257, 303, 513, 605, 1025, 1209, 4097])
 def test_launch_plan_tiles_every_level_up_to_64_nodes(n_bins1):
     # every level the dispatch sends (1 to 64 nodes) at any bin count: the
@@ -105,52 +85,6 @@ def test_launch_plan_tiles_every_level_up_to_64_nodes(n_bins1):
                 assert len(nodes) and len(bins)
                 owners[f, nodes.start:nodes.stop, bins.start:bins.stop] += 1
         assert np.all(owners == 1), (k, n_bins1)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card_at_wide_bins():
-    # the levels one warp's [K, 3, B1] histogram could not hold before the
-    # cells were tiled across warps: 64 nodes x 303 bins, 16 x 1209
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for n, f, k, b1, weighted in [(60_000, 5, 64, 303, False),
-                                  (50_001, 4, 16, 1209, True)]:
-        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + b1, frac_inactive=0.3,
-                                    empty_node=1, weighted=weighted)
-        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
-        rwt = None if rw is None else t(rw)
-        a = ch.hist_nodematmul(*args, rw=rwt)
-        b = ch.hist_nodematmul(*args, rw=rwt)
-        ref = ch.hist_nodematmul_reference(*args, rw=rwt)
-        wide = ch.hist_nodematmul(*args[:4], k + 3, b1, rw=rwt)
-        assert torch.equal(a, b)
-        assert torch.equal(a, wide[:k])
-        assert torch.equal(a[..., 2], ref[..., 2])
-        assert torch.all(a[1] == 0)
-        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
-
-
-@pytest.mark.cuda
-def test_tiled_levels_give_the_factorized_kernels_bits():
-    # B1 tiles these levels' cells across warps; each cell still adds its
-    # rows in the factorized kernel's order (and in B1's own one warp per
-    # feature order), so the outputs are equal bit for bit
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for n, f, k, b1, weighted in [(60_000, 5, 16, 257, False),
-                                  (50_001, 3, 64, 257, True),
-                                  (40_000, 9, 40, 257, False)]:
-        assert ch.cell_tiles(k, b1) != (k, b1)  # tiled across warps
-        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k, frac_inactive=0.3,
-                                    empty_node=1, weighted=weighted)
-        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
-        rwt = None if rw is None else t(rw)
-        assert torch.equal(ch.hist_nodematmul(*args, rw=rwt),
-                           cf.hist_factorized(*args, rw=rwt))
 
 
 @pytest.mark.parametrize("n_bins1", [2, 21, 257])
@@ -204,99 +138,6 @@ def test_every_kernel_has_a_source_and_a_count():
     assert ch.LAUNCHES is cuda_build.LAUNCHES is cs.LAUNCHES is cf.LAUNCHES
 
 
-@pytest.mark.cuda
-def test_sorted_kernel_matches_plain_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for n, f, k, b1, weighted in [(100_000, 28, 1024, 21, False),
-                                  (70_001, 11, 300, 257, True),
-                                  (50_000, 5, 64, 21, False)]:
-        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k, frac_inactive=0.3,
-                                    empty_node=1, weighted=weighted)
-        nodes[(nodes >= k // 3) & (nodes < k // 3 + 5)] = -1  # empty run mid-range
-        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
-        rwt = None if rw is None else t(rw)
-        a = cs.hist_sorted(*args, rw=rwt)
-        b = cs.hist_sorted(*args, rw=rwt)
-        ref = cs.hist_sorted_reference(*args, rw=rwt)
-        assert torch.equal(a, b)
-        assert torch.equal(a[..., 2], ref[..., 2])
-        assert torch.all(a[1] == 0) and torch.all(a[k // 3:k // 3 + 5] == 0)
-        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
-        if k <= 64:  # the node-matmul kernel serves this level too
-            nm = ch.hist_nodematmul(*args, rw=rwt)
-            assert torch.equal(a[..., 2], nm[..., 2])
-            torch.testing.assert_close(a, nm, rtol=RTOL, atol=ATOL)
-
-
-@pytest.mark.cuda
-def test_sorted_kernel_gives_the_ordered_bits():
-    # the plain version that walks the kernel's tiles, batches and lanes
-    # gives its bits, at 21 and 257 bins, with and without row weights: at
-    # 1,024 nodes (one tile each) and at 5 nodes of ~14,000 rows (four
-    # tiles each, a float64 reduce over them); and past 14,504 bins, where
-    # pass 1 finds peers with __match_any_sync, up to the widest level
-    # (19,338 bins at one feature), and at 14,504 with lane masks
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    narrow = [(100_000, 28, 1024), (100_003, 9, 5)]
-    wide = [(100_000, 1, 1024), (100_003, 2, 5)]
-    for n_bins1, weighted, shapes in [
-            (21, False, narrow), (21, True, narrow), (257, False, narrow),
-            (257, True, narrow), (19_338, False, wide), (19_338, True, wide),
-            (14_505, False, wide), (14_504, True, wide)]:
-        for n, f, k in shapes:
-            bins, nodes, g, h, rw = _mk(n, f, k, n_bins1, seed=n + k + n_bins1,
-                                        frac_inactive=0.3, empty_node=1,
-                                        weighted=weighted)
-            if shapes is wide:  # peers in most batches, and the top bin
-                bins[::2] %= 7
-                bins[::5] = n_bins1 - 1
-            args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, n_bins1)
-            rwt = None if rw is None else t(rw)
-            assert torch.equal(cs.hist_sorted(*args, rw=rwt),
-                               cs.hist_sorted_ordered_reference(*args, rw=rwt)), \
-                (n_bins1, weighted, n, f, k)
-
-
-@pytest.mark.cuda
-def test_sorted_prep_and_gather_kernels_match_their_twins():
-    # uint8 and uint16 codes (21 and 257 bins); skewed and empty nodes,
-    # out-of-range ones, tiles of 512 and 4,096 rows; int16 sort keys below
-    # 32,768 nodes, int32 above
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    n, f = 60_001, 13
-    for n_bins1 in (21, 257):
-        rng = np.random.default_rng(n_bins1)
-        for k in (1, 7, 1024, 3000, 40_000):
-            nodes = np.where(rng.random(n) < 0.5, k // 2,
-                             rng.integers(-1, k + 3, n)).astype(np.int32)
-            bins = rng.integers(0, n_bins1, size=(f, n)).astype(np.int32)
-            for tile_rows in (512, cs.TILE_ROWS):
-                got = cs.sorted_prep(t(nodes), k, tile_rows)
-                want = cs.sorted_prep_reference(t(nodes), k, tile_rows)
-                for a, b in zip(got, want):
-                    assert torch.equal(a, b), (n_bins1, k, tile_rows)
-            codes_rm = cs.row_major_codes(t(bins), n_bins1)
-            assert torch.equal(codes_rm[:, :f].long(), t(bins).T.long())
-            g, h, rw = (t(rng.random(n).astype(np.float32)) for _ in range(3))
-            m = int(got.seg_off[-1])
-            for w in (None, rw):
-                a = cs.gather_rows(codes_rm, got, g, h, w, f)
-                b = cs.gather_rows_reference(codes_rm, got, g, h, w, f)
-                assert torch.equal(a.codes[:, :m].long(), b.codes[:, :m].long())
-                for x, y in ((a.g, b.g), (a.h, b.h), (a.w, b.w)):
-                    assert (x is None) == (y is None)
-                    assert x is None or torch.equal(x[:m], y[:m]), (n_bins1, k)
-
-
 @pytest.mark.parametrize("n_bins1", [257, 21])
 @pytest.mark.parametrize("k", range(1, 17))
 def test_factorized_launch_plan_fits_and_shares_the_row_chunks(k, n_bins1):
@@ -314,28 +155,157 @@ def test_factorized_launch_plan_raises_beyond_shared_memory(n_bins1, k_max):
         cf.launch_plan(1000, 4, k_max + 1, n_bins1)
 
 
-@pytest.mark.cuda
-def test_factorized_kernel_matches_plain_on_card():
+def _card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda")
-    for n, f, k, b1, weighted in [(100_000, 28, 8, 257, False),
-                                  (70_001, 11, 5, 257, True),
-                                  (50_000, 5, 16, 21, False),
-                                  (30_000, 3, 1, 9, True)]:
-        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=n + k, frac_inactive=0.3,
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _weight(rw, dtype):
+    """The count weight of a card check: _mk's integer weights in f32, and
+    in bf16 fractional ones, which bf16 rounds."""
+    return rw if rw is None or dtype == "f32" else (rw * 0.37).astype(np.float32)
+
+
+def _on(dev, bins, nodes, g, h, k, b1, rw):
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return ((t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1),
+            None if rw is None else t(rw))
+
+
+#: (kernel, rows, features, nodes, bins, count weight, seed) of the card
+#: checks against the plain versions: the levels the fits give each kernel,
+#: B1's levels whose cells it tiles across warps (64 x 303, 16 x 1,209),
+#: and B3 at B1's tiled levels (16, 40 and 64 nodes at 257 bins)
+CARD_CASES = [
+    ("hist_nodematmul", 100_000, 28, 64, 257, False, 100_000),
+    ("hist_nodematmul", 70_001, 11, 8, 21, True, 70_001),
+    ("hist_nodematmul", 60_000, 5, 64, 303, False, 60_303),
+    ("hist_nodematmul", 50_001, 4, 16, 1209, True, 51_210),
+    ("hist_sorted", 100_000, 28, 1024, 21, False, 101_024),
+    ("hist_sorted", 70_001, 11, 300, 257, True, 70_301),
+    ("hist_sorted", 50_000, 5, 64, 21, False, 50_064),
+    ("hist_factorized", 100_000, 28, 8, 257, False, 100_008),
+    ("hist_factorized", 70_001, 11, 5, 257, True, 70_006),
+    ("hist_factorized", 50_000, 5, 16, 21, False, 50_016),
+    ("hist_factorized", 30_000, 3, 1, 9, True, 30_001),
+    ("hist_factorized", 60_000, 5, 16, 257, False, 60_016),
+    ("hist_factorized", 50_001, 3, 64, 257, True, 50_065),
+    ("hist_factorized", 40_000, 9, 40, 257, False, 40_040),
+]
+
+KERNELS = {"hist_nodematmul": (ch.hist_nodematmul, ch.hist_nodematmul_reference),
+           "hist_sorted": (cs.hist_sorted, cs.hist_sorted_reference),
+           "hist_factorized": (cf.hist_factorized, cf.hist_factorized_reference)}
+
+
+@pytest.mark.cuda
+def test_kernels_match_their_plain_versions_on_card():
+    dev = _card()
+    _check_plain_versions(dev)
+    _check_sorted_bits_prep_and_gather(dev)
+
+
+def _check_plain_versions(dev):
+    """Every kernel x operand mode: two calls bit-identical, counts exact
+    (unweighted in bf16, where the weight is fractional), an empty node
+    exactly zero, Σg/Σh at the tolerance; B1's build for 3 more nodes the
+    same bits; B2 the bits of its ordered plain version, and near B1 where
+    B1 serves the level; B3 the bits of B1 (same row chunks, same order in
+    a cell); and every bf16 output differs from the f32 one."""
+    # B1 tiles B3's last three levels' cells across warps
+    assert all(ch.cell_tiles(k, b1) != (k, b1) for _, _, _, k, b1, _, _ in CARD_CASES[-3:])
+    for kernel, n, f, k, b1, weighted, seed in CARD_CASES:
+        wrapper, reference = KERNELS[kernel]
+        bins, nodes, g, h, rw = _mk(n, f, k, b1, seed=seed, frac_inactive=0.3,
                                     empty_node=1 if k > 2 else None,
                                     weighted=weighted)
-        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-        args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1)
-        rwt = None if rw is None else t(rw)
-        a = cf.hist_factorized(*args, rw=rwt)
-        b = cf.hist_factorized(*args, rw=rwt)
-        ref = cf.hist_factorized_reference(*args, rw=rwt)
-        assert torch.equal(a, b)
-        assert torch.equal(a[..., 2], ref[..., 2])
-        if k > 2:
-            assert torch.all(a[1] == 0)
-        torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL)
-        # same row chunks, same order in a cell: the node-matmul kernel's bits
-        assert torch.equal(a, ch.hist_nodematmul(*args, rw=rwt))
+        empty = [1] if k > 2 else []
+        if kernel == "hist_sorted":  # a run of empty nodes mid-range
+            nodes[(nodes >= k // 3) & (nodes < k // 3 + 5)] = -1
+            empty += list(range(k // 3, k // 3 + 5))
+        f32 = None
+        for dtype in cuda_build.HIST_DTYPES:
+            name = f"{kernel} {dtype} N={n} F={f} K={k} B1={b1}{' rw' if weighted else ''}"
+            args, rwt = _on(dev, bins, nodes, g, h, k, b1, _weight(rw, dtype))
+            a = wrapper(*args, rw=rwt, dtype=dtype)
+            ref = reference(*args, rw=rwt, dtype=dtype)
+            assert torch.equal(a, wrapper(*args, rw=rwt, dtype=dtype)), name
+            if dtype == "f32" or rw is None:
+                assert torch.equal(a[..., 2], ref[..., 2]), name
+            assert torch.all(a[empty] == 0), name
+            torch.testing.assert_close(a, ref, rtol=RTOL, atol=ATOL, msg=name)
+            if kernel == "hist_nodematmul":
+                wide = wrapper(*args[:4], k + 3, b1, rw=rwt, dtype=dtype)
+                assert torch.equal(a, wide[:k]), name
+            if kernel == "hist_sorted":
+                assert torch.equal(a, cs.hist_sorted_ordered_reference(
+                    *args, rw=rwt, dtype=dtype)), name
+                if k <= 64:  # the node-matmul kernel serves this level too
+                    nm = ch.hist_nodematmul(*args, rw=rwt, dtype=dtype)
+                    assert torch.equal(a[..., 2], nm[..., 2]), name
+                    torch.testing.assert_close(a, nm, rtol=RTOL, atol=ATOL, msg=name)
+            if kernel == "hist_factorized":
+                assert torch.equal(a, ch.hist_nodematmul(*args, rw=rwt, dtype=dtype)), name
+            if f32 is None:
+                f32 = a
+            else:
+                assert not torch.equal(a, f32), f"{name}: the same as f32"
+
+
+def _check_sorted_bits_prep_and_gather(dev):
+    """B2's output is the bits of the plain version that walks its tiles,
+    batches and lanes, in both operand modes, at 21 and 257 bins, with and
+    without row weights: at 1,024 nodes (one tile each) and at 5 nodes of
+    ~14,000 rows (four tiles each, a float64 reduce over them); and past
+    14,504 bins, where pass 1 finds peers with __match_any_sync, up to the
+    widest level (19,338 bins at one feature), and at 14,504 with lane
+    masks. Its prep and gather kernels equal their plain twins: uint8 and
+    uint16 codes (21 and 257 bins); skewed, empty and out-of-range nodes;
+    tiles of 512 and 4,096 rows; int16 sort keys below 32,768 nodes, int32
+    above; the gather's values as they are and rounded to bf16."""
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    narrow = [(100_000, 28, 1024), (100_003, 9, 5)]
+    wide = [(100_000, 1, 1024), (100_003, 2, 5)]
+    for n_bins1, weighted, shapes in [
+            (21, False, narrow), (21, True, narrow), (257, False, narrow),
+            (257, True, narrow), (19_338, False, wide), (19_338, True, wide),
+            (14_505, False, wide), (14_504, True, wide)]:
+        for n, f, k in shapes:
+            bins, nodes, g, h, rw = _mk(n, f, k, n_bins1, seed=n + k + n_bins1,
+                                        frac_inactive=0.3, empty_node=1,
+                                        weighted=weighted)
+            if shapes is wide:  # peers in most batches, and the top bin
+                bins[::2] %= 7
+                bins[::5] = n_bins1 - 1
+            for dtype in cuda_build.HIST_DTYPES:
+                args, rwt = _on(dev, bins, nodes, g, h, k, n_bins1, _weight(rw, dtype))
+                assert torch.equal(
+                    cs.hist_sorted(*args, rw=rwt, dtype=dtype),
+                    cs.hist_sorted_ordered_reference(*args, rw=rwt, dtype=dtype)), \
+                    f"ordered bits {dtype} B1={n_bins1} rw={weighted} N={n} F={f} K={k}"
+    n, f = 60_001, 13
+    for n_bins1 in (21, 257):
+        rng = np.random.default_rng(n_bins1)
+        for k in (1, 7, 1024, 3000, 40_000):
+            nodes = np.where(rng.random(n) < 0.5, k // 2,
+                             rng.integers(-1, k + 3, n)).astype(np.int32)
+            bins = rng.integers(0, n_bins1, size=(f, n)).astype(np.int32)
+            for tile_rows in (512, cs.TILE_ROWS):
+                got = cs.sorted_prep(t(nodes), k, tile_rows)
+                want = cs.sorted_prep_reference(t(nodes), k, tile_rows)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), f"prep B1={n_bins1} K={k} tiles of {tile_rows}"
+            codes_rm = cs.row_major_codes(t(bins), n_bins1)
+            assert torch.equal(codes_rm[:, :f].long(), t(bins).T.long())
+            g, h, rw = (t(rng.random(n).astype(np.float32)) for _ in range(3))
+            m = int(got.seg_off[-1])
+            for w in (None, rw):
+                for dtype in cuda_build.HIST_DTYPES:
+                    name = f"gather {dtype} B1={n_bins1} K={k} rw={w is not None}"
+                    a = cs.gather_rows(codes_rm, got, g, h, w, f, dtype)
+                    b = cs.gather_rows_reference(codes_rm, got, g, h, w, f, dtype)
+                    assert torch.equal(a.codes[:, :m].long(), b.codes[:, :m].long()), name
+                    for x, y in ((a.g, b.g), (a.h, b.h), (a.w, b.w)):
+                        assert (x is None) == (y is None), name
+                        assert x is None or torch.equal(x[:m], y[:m]), name

@@ -26,6 +26,14 @@ continued from a checkpoint (k trees, then k more), give the JAX package's
 trees, and the checkpoint's validation errors are the JAX package's. One
 case is the path ``chip_smoke.py`` drives on the card: XGBoost with monotone
 constraints, subtraction and the factorized limit, then continued.
+
+Fits in the bf16 operand mode (``hist_dtype="bf16"``) through the kernel
+dispatch are held to the JAX package with its Pallas kernels in interpret
+mode and ``H2O3_TPU_HIST_DTYPE=bf16``, its default on its own chip: XGBoost
+(B1 levels), DRF deep enough for a sorted level (B2) and monotone XGBoost
+with the factorized limit (B3), each with equal trees and predictions at the
+tolerance above, and predictions apart from the same fit's in f32. An
+invalid ``hist_dtype`` raises the JAX package's error.
 """
 
 import contextlib
@@ -38,11 +46,13 @@ from h2o3_tpu import Frame as JFrame
 from h2o3_tpu.keyed import DKV as JDKV
 from h2o3_tpu.models.tree import DRF as JDRF, GBM as JGBM, XGBoost as JXGBoost
 from h2o3_tpu.models.tree import booster as jb
+from h2o3_tpu.ops.pallas_histogram import _resolve_hist_dtype
 from h2o3_tpu.models.tree.common import init_margin as j_init_margin
 from h2o3_tpu.models.tree.common import tree_matrix as j_tree_matrix
 from h2o3_tpu.ops.histogram import apply_bins as j_apply_bins
 import h2o3_tpu_torch as ht
 from h2o3_tpu_torch.models.tree.common import tree_matrix as p_tree_matrix
+from h2o3_tpu_torch.ops.histogram import build_histogram
 from h2o3_tpu_torch.keyed import DKV as PDKV
 from h2o3_tpu_torch.convert import ensemble_from_numpy
 
@@ -511,3 +521,79 @@ def test_wide_levels_at_512_bins_and_depth_8_match_jax(monkeypatch):
         ppred = pmodel.predict(pfr).col("predict").data
     assert pmodel.booster.trees_per_class[0].n_bins1 == 513
     np.testing.assert_allclose(ppred, jpred, rtol=1e-4, atol=1e-5)
+
+
+BF16_CASES = {
+    # levels of up to 4 nodes, on B1
+    "xgboost": ("xgboost", "bernoulli", {}),
+    # the level-8 half build of 128 nodes pads to 512: the sorted kernel (B2)
+    "drf": ("drf", "gaussian", dict(ntrees=2, max_depth=9)),
+    # levels padded to 8 nodes with K·4 <= 32: the factorized kernel (B3)
+    "monotone": ("xgboost", "gaussian", dict(
+        monotone_constraints={"x0": -1, "x1": 1, "x2": -1}, hist_fact_max_kc=32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_bf16_fit_matches_jax_pallas_bf16(case, monkeypatch):
+    algo, dist, extra = BF16_CASES[case]
+    extra = dict(extra)
+    fact = extra.pop("hist_fact_max_kc", 0)
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "1")
+    monkeypatch.setenv("H2O3_TPU_HIST_IMPL", "pallas")
+    monkeypatch.setenv("H2O3_TPU_HIST_DTYPE", "bf16")
+    monkeypatch.setenv("H2O3_TPU_HIST_FACT_MAX_KC", str(fact))
+    make = _mono_data if "monotone_constraints" in extra else _data
+    d = make(dist, 2000, seed=60 + len(case))
+    holdout = make(dist, 500, seed=97)
+    kw = dict(response_column="y", ntrees=3, max_depth=3, seed=8,
+              ignored_columns=["w", "off"])
+    kw.update(extra)
+    pcls, jcls = BUILDERS[algo]
+    # the booster's compiled block reads the histogram env vars when traced
+    jb._make_block_fn.cache_clear()
+    try:
+        jmodel = jcls(**kw).train(JFrame.from_dict(d))
+        try:
+            jpred = jmodel.predict(JFrame.from_dict(holdout))
+        finally:
+            JDKV.remove(jmodel.key)
+    finally:
+        jb._make_block_fn.cache_clear()
+    pho = ht.Frame.from_dict(holdout)
+    port_kw = dict(tree_subtract=True, hist_impl="kernel", hist_fact_max_kc=fact, **kw)
+    with ht.use_device("cpu"):
+        pfr = ht.Frame.from_dict(d)
+        pmodel = pcls(hist_dtype="bf16", **port_kw).train(pfr)
+        ppred = pmodel.predict(pho)
+        f32pred = pcls(**port_kw).train(pfr).predict(pho)
+    _assert_trees_equal(jmodel, pmodel)
+    moved = False
+    for name in jpred.names:
+        a, b = jpred.col(name).data, ppred.col(name).data
+        if jpred.col(name).domain is not None:
+            np.testing.assert_array_equal(a, b, err_msg=name)
+            continue
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
+        moved |= not np.allclose(f32pred.col(name).data, b, rtol=1e-4, atol=1e-5)
+    assert moved, "the bf16 fit predicts what the f32 fit predicts"
+
+
+def test_invalid_hist_dtype_raises_the_jax_error():
+    with pytest.raises(ValueError) as jerr:
+        _resolve_hist_dtype("f16")
+    want = "hist dtype must be 'f32' or 'bf16', got 'f16'"
+    assert str(jerr.value) == want
+    z = torch.zeros(2, 5, dtype=torch.int32)
+    for impl in ("plain", "kernel"):
+        with pytest.raises(ValueError) as err:
+            build_histogram(z, z[0], z[0].float(), z[0].float(), 2, 3, impl=impl,
+                            dtype="f16")
+        assert str(err.value) == want
+    d = _data("bernoulli", 200, seed=4)
+    for algo in BUILDERS:
+        with ht.use_device("cpu"), pytest.raises(ValueError) as err:
+            BUILDERS[algo][0](response_column="y", ntrees=1, max_depth=2,
+                              ignored_columns=["w", "off"],
+                              hist_dtype="f16").train(ht.Frame.from_dict(d))
+        assert str(err.value) == want, algo

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``h2o3_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--rows 2000000] [--out result.json]
+                          [--parent OLD_CHECKOUT]
 
 Run from the root of a checkout. Phases, each of which must pass:
 
@@ -30,9 +31,14 @@ Run from the root of a checkout. Phases, each of which must pass:
    and pass 2; and against the node-matmul kernel at 64 nodes;
 5. the same for the factorized kernel (``hist_factorized``) at the levels
    the monotone XGBoost path below sends it (N x 28, 257 bins, 1 node with
-   a count weight, 8 and 16 nodes; 21 bins at 8 nodes; 11 features at 5
-   nodes with a count weight), timing the node-matmul kernel at each shape
-   too, and against the node-matmul kernel on one level;
+   a count weight, 2, 4, 8 and 16 nodes, and 8 nodes at 60% inactive rows;
+   21 bins at 8 nodes; 11 features at 5 nodes with a count weight), timing
+   the node-matmul kernel at each shape too; there its output and the
+   node-matmul kernel's are bit-identical to their ordered plain version
+   (``hist_chunked_ordered_reference``), its time is split into pass 1
+   and pass 2, and with ``--parent`` another checkout's factorized kernel
+   (its own wrapper, plan and source) is held to the same bits and timed
+   in turn; and against the node-matmul kernel on one level;
 6. the port's ``jax.random`` streams (``util/jrandom.py``) give on the card
    the bits they give on the CPU;
 7. train XGBoost (``--base-trees`` trees, defaults: depth 6, 256 bins) on a
@@ -158,8 +164,10 @@ def kernel_fns(kernel: str):
     }[kernel]
 
 
-def kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev, empty_run=False):
-    """Random level inputs: 30% inactive rows, node k // 2 empty, and with
+def kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev, empty_run=False,
+                  inactive=0.3):
+    """Random level inputs: ``inactive`` of the rows inactive (30%; 60% is
+    a level past the root under subtraction), node k // 2 empty, and with
     ``empty_run`` also nodes k // 3 .. k // 3 + 4. Returns (args, rw,
     empty nodes)."""
     import torch
@@ -176,7 +184,7 @@ def kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev, empty_run=False):
         lo = k // 3
         nodes[(nodes >= lo) & (nodes < lo + 5)] = lo + 5
         empty += list(range(lo, lo + 5))
-    nodes[torch.rand(n, generator=gen, device=dev) < 0.3] = -1
+    nodes[torch.rand(n, generator=gen, device=dev) < inactive] = -1
     g = torch.rand(n, generator=gen, device=dev) * 2 - 1
     h = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
     rw = (torch.randint(1, 4, (n,), generator=gen, device=dev).float()
@@ -184,11 +192,14 @@ def kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev, empty_run=False):
     return (bins_fm, nodes, g, h, k, n_bins1), rw, empty
 
 
-def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev, dtype="f32"):
+def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev, dtype="f32",
+                inactive=0.3, parent=None):
     """One kernel-vs-plain check of ``kernel`` on k nodes in operand mode
-    ``dtype``; returns its record. In bf16 it also checks that the output
-    differs from the f32 output on the same inputs (the mode reached the
-    kernel) and times the f32 call beside the bf16 one."""
+    ``dtype`` with ``inactive`` of the rows inactive; returns its record.
+    In bf16 it also checks that the output differs from the f32 output on
+    the same inputs (the mode reached the kernel) and times the f32 call
+    beside the bf16 one. ``parent``: another checkout's factorized wrapper
+    (``parent_factorized``) to time in turn with this one."""
     import torch
 
     from h2o3_tpu_torch.ops.cuda_build import round_operand
@@ -196,7 +207,8 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev, dtype="f32")
 
     wrapper, reference = kernel_fns(kernel)
     args, rw, empty = kernel_inputs(n, n_feat, n_bins1, k, weighted, seed, dev,
-                                    empty_run=kernel == "hist_sorted")
+                                    empty_run=kernel == "hist_sorted",
+                                    inactive=inactive)
     bins_fm, nodes, g, h, _, _ = args
     kw = {}
     if kernel == "hist_sorted":
@@ -210,7 +222,8 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev, dtype="f32")
     ref = reference(*args, rw=rw, dtype=dtype)
     torch.cuda.synchronize()
     name = (f"{kernel} {dtype} N={n} F={n_feat} B1={n_bins1} K={k}"
-            f"{' rw' if weighted else ''}")
+            f"{' rw' if weighted else ''}"
+            f"{f' inactive={inactive}' if inactive != 0.3 else ''}")
     if not torch.equal(a, b):
         raise AssertionError(f"{name}: two kernel calls differ")
     k_pad = pad_nodes(k)
@@ -232,6 +245,8 @@ def kernel_case(kernel, n, n_feat, n_bins1, k, weighted, seed, dev, dtype="f32")
     extra = {}
     if kernel == "hist_sorted":
         extra = sorted_checks(name, args, rw, kw["codes_rm"], a, dtype)
+    if kernel == "hist_factorized":
+        extra = factorized_checks(name, args, rw, a, dtype, parent)
 
     ms = time_ms(lambda: wrapper(*args, rw=rw, **kw), reps=10)
     if dtype != "f32":  # the f32 call at this shape, in turn with the bf16 one
@@ -367,6 +382,96 @@ def sorted_split(args, rw, codes_rm, dtype, reps=10):
         if "Radix" in e.key:
             split["sort_device_ms"] += ms
     return split
+
+
+#: the factorized kernel's launches, by the name of their CUDA kernel
+FACTORIZED_KERNELS = {"fact_direct_kernel": "pass1_ms",
+                      "fact_staged_kernel": "pass1_ms",
+                      "fact_reduce_kernel": "pass2_ms"}
+
+
+def factorized_checks(name, args, rw, out, dtype, parent, reps=10):
+    """The factorized kernel's own checks on one level in operand mode
+    ``dtype``: its output and the node-matmul kernel's are the bits of
+    their ordered plain version (``hist_chunked_ordered_reference``); the
+    time split into pass 1 (for the staged kernel staging, compaction and
+    the packs' adds, one kernel) and pass 2 (device time by kernel name,
+    torch.profiler, ``reps`` calls); and with ``parent``, the other
+    checkout's kernel's bits and its time in turn with this one's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from h2o3_tpu_torch.ops import cuda_factorized_histogram as cf
+    from h2o3_tpu_torch.ops import cuda_histogram as ch
+
+    ordered = ch.hist_chunked_ordered_reference(*args, rw=rw, dtype=dtype)
+    if not torch.equal(out, ordered):
+        raise AssertionError(f"{name}: not the bits of the ordered plain version")
+    if not torch.equal(ch.hist_nodematmul(*args, rw=rw, dtype=dtype), ordered):
+        raise AssertionError(f"{name}: hist_nodematmul is not the ordered bits")
+    del ordered
+    bins_fm, _, _, _, k, n_bins1 = args
+    plan = cf.launch_plan(bins_fm.shape[1], bins_fm.shape[0], k, n_bins1)
+    rec = {"ordered_bits": True, "nodematmul_ordered_bits": True,
+           "plan": plan._asdict()}
+    split = {"call_ms": time_ms(lambda: cf.hist_factorized(*args, rw=rw, dtype=dtype), reps)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cf.hist_factorized(*args, rw=rw, dtype=dtype)
+        torch.cuda.synchronize()
+    split["other_device_ms"] = 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.self_device_time_total <= 0):
+            continue
+        part = [v for key, v in FACTORIZED_KERNELS.items() if key in e.key]
+        ms = e.self_device_time_total / 1e3 / reps
+        split[part[0] if part else "other_device_ms"] = \
+            split.get(part[0] if part else "other_device_ms", 0.0) + ms
+    rec["split"] = split
+    if parent is not None:
+        if not torch.equal(parent(*args, rw=rw, dtype=dtype), out):
+            raise AssertionError(f"{name}: the other checkout's kernel gives other bits")
+        turns = {"ms": [], "parent_ms": []}
+        for _ in range(2):  # this kernel, the other one, in turn
+            turns["ms"].append(time_ms(lambda: cf.hist_factorized(*args, rw=rw, dtype=dtype), reps))
+            turns["parent_ms"].append(time_ms(lambda: parent(*args, rw=rw, dtype=dtype), reps))
+        rec["in_turn"] = turns
+    return rec
+
+
+def parent_factorized(checkout):
+    """The factorized wrapper ``hist_factorized`` of another checkout of
+    this repository (``--parent``, e.g. a ``git archive`` of the parent
+    commit), imported as that checkout's own ``h2o3_tpu_torch``: its plan,
+    its binding and its kernel source, built into its own ``_build``. This
+    process's package is put back afterwards; the returned function keeps
+    the other package's modules."""
+    import importlib
+    from pathlib import Path
+
+    root = Path(checkout).resolve()
+    pkg = "h2o3_tpu_torch"
+
+    def ours():
+        return {k: m for k, m in sys.modules.items()
+                if k == pkg or k.startswith(pkg + ".")}
+
+    saved = ours()
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, str(root))
+    try:
+        mod = importlib.import_module(pkg + ".ops.cuda_factorized_histogram")
+    finally:
+        sys.path.remove(str(root))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    if root not in Path(mod.__file__).resolve().parents:
+        raise RuntimeError(f"--parent {checkout}: imported {mod.__file__}, not its own")
+    return mod.hist_factorized
 
 
 def cross_check(kernel, n, n_feat, n_bins1, k, seed, dev, dtype="f32"):
@@ -640,6 +745,10 @@ def main() -> int:
     ap.add_argument("--bf16-drf-trees", type=int, default=5,
                     help="trees of the bf16 DRF fit")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
+    ap.add_argument("--parent", default=None, metavar="CHECKOUT",
+                    help="another checkout of the repository (e.g. the parent "
+                         "commit's): check and time its factorized kernel in "
+                         "turn with this one at each of its levels")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one more XGBoost, DRF and monotone "
                          "XGBoost fit (device time by kernel)")
@@ -665,6 +774,7 @@ def main() -> int:
     build_s = time.time() - t0
     print(f"kernel build ({len(cuda_build.KERNELS)}, in parallel): {build_s:.1f} s",
           flush=True)
+    parent = parent_factorized(args.parent) if args.parent else None
     for name, log in cuda_build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -689,7 +799,8 @@ def main() -> int:
         ("hist_factorized", n, 28, 21, 8, False),
         ("hist_factorized", n, 11, 257, 5, True),  # K not a power of 2, F not of 8
     ]
-    checks = [kernel_case(*c, seed=seed + i, dev=dev) for i, c in enumerate(cases)]
+    checks = [kernel_case(*c, seed=seed + i, dev=dev, parent=parent)
+              for i, c in enumerate(cases)]
     cross = [cross_check("hist_sorted", n, 28, 21, 64, seed + len(cases), dev),
              cross_check("hist_factorized", n, 28, 257, 8, seed + len(cases) + 1, dev)]
     # levels whose per-warp [K, 3, B1] histogram did not fit shared memory
@@ -716,9 +827,18 @@ def main() -> int:
         ("hist_nodematmul", n, 28, 21, 8, False),  # hist_warp_kernel
         ("hist_sorted", n, 28, 21, 1024, False),
         ("hist_factorized", n, 28, 257, 8, False))]
-    bf16_checks = [kernel_case(*c, seed=seed + i, dev=dev, dtype="bf16")
+    bf16_checks = [kernel_case(*c, seed=seed + i, dev=dev, dtype="bf16", parent=parent)
                    for i, c in bf16_cases]
     checks += bf16_checks
+    # the factorized kernel's other levels in the monotone fit (2 and 4
+    # nodes), and its widest at 60% inactive rows, the share a level past
+    # the root has under subtraction
+    more_b3 = [("hist_factorized", n, 28, 257, 2, False),
+               ("hist_factorized", n, 28, 257, 4, False),
+               ("hist_factorized", n, 28, 257, 8, False)]
+    checks += [kernel_case(*c, seed=seed + 200 + i, dev=dev, parent=parent,
+                           inactive=0.6 if i == 2 else 0.3)
+               for i, c in enumerate(more_b3)]
     # B3 in bf16 gives the bits of B1 in bf16
     rec = cross_check("hist_factorized", n, 28, 257, 8, seed + len(cases) + 1, dev,
                       dtype="bf16")

@@ -3,15 +3,17 @@ and wrapper.
 
 Replaces the TPU kernel ``_fact_kernel`` (``h2o3_tpu/ops/pallas_histogram.py:243``,
 via ``_build_histogram_factorized`` :285): the [K, F, B1, 3] histogram of
-(Σg, Σh, Σw) per (node, feature, bin), with each bin split as
-``hi * 16 + lo`` and accumulated in the TPU kernel's [HI, K, C, 16] slab
-layout, then permuted back and cut to B1 bins. The JAX package sends a level
-to it when its padded node count K satisfies K·4 <= the factorized limit
-(``H2O3_TPU_HIST_FACT_MAX_KC``, 0 by default); the port takes that limit as
-the explicit ``fact_max_kc`` argument of ``ops/histogram.build_histogram``.
-The CUDA source is ``h2o3_tpu_torch/csrc/hist_factorized.cu``; its header
-says what bounds it on the card and how its design keeps the result
-deterministic.
+(Σg, Σh, Σw) per (node, feature, bin), which the TPU kernel accumulates in
+an [HI, K, C, 16] slab with each bin split as ``hi * 16 + lo``. The JAX
+package sends a level to it when its padded node count K satisfies K·4 <=
+the factorized limit (``H2O3_TPU_HIST_FACT_MAX_KC``, 0 by default); the port
+takes that limit as the explicit ``fact_max_kc`` argument of
+``ops/histogram.build_histogram``. The CUDA source is
+``h2o3_tpu_torch/csrc/hist_factorized.cu``; its header describes its two
+pass-1 kernels (a direct one whose warps read their own rows into the TPU
+kernel's [HI, K, 3, 16] slab, and a staged one whose block stages its row
+chunk once and packs the active rows), what bounds them on the card, and
+how both keep the node-matmul kernel's float order.
 
 - ``hist_factorized`` is the wrapper: on a CUDA tensor it launches the
   kernel (or raises), on a CPU tensor it computes the plain version.
@@ -19,20 +21,23 @@ deterministic.
   factorized way: an ``index_add_`` per channel into the flat [F, HI, K, 3,
   16] slab index, in float64, then the permute and slice back to [K, F, B1,
   3], rounded once to float32. The CPU tests hold it against the JAX
-  package, and ``chip_smoke.py`` holds the kernel against it.
+  package, and ``chip_smoke.py`` holds the kernel against it. The kernel's
+  bits are those of ``cuda_histogram.hist_chunked_ordered_reference``.
 - Both take ``dtype``, the operand mode: ``"bf16"`` rounds g, h and the
   count weight to bf16 before they are added (``cuda_build.round_operand``).
-- ``launch_plan`` raises ``ValueError`` for a level whose slab does not fit
-  one block's shared memory; it never falls back to another kernel. The
-  largest node count it takes is 71 at 257 bins (a 3,264-byte slab per
-  node) and 604 at 21 bins; ``fits`` says which levels it takes, and the
-  dispatch sends a level it cannot hold to the node-matmul kernel.
+- ``launch_plan`` picks the pass-1 kernel and its blocks, and raises
+  ``ValueError`` for a level ``fits`` refuses; it never falls back to
+  another kernel. ``fits`` takes the levels whose TPU-layout slab (one
+  warp's [HI, K, 3, 16] floats and a [3, 32] lane scratch, 3,264 bytes a
+  node at 257 bins) fits a block's shared memory: up to 71 nodes at 257
+  bins and 604 at 21, the levels the factorized kernel has always taken.
+  The dispatch sends a level it refuses to the node-matmul kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,56 +48,120 @@ from h2o3_tpu_torch.ops.cuda_histogram import (
     row_chunks,
 )
 
-__all__ = ["LAUNCHES", "FACT_LO", "n_hi", "fits", "launch_plan", "load_library",
-           "hist_factorized", "hist_factorized_reference"]
+__all__ = ["LAUNCHES", "FACT_LO", "FactPlan", "n_hi", "fits",
+           "launch_plan", "load_library", "hist_factorized",
+           "hist_factorized_reference"]
 
 #: the low part of a bin code (``_FACT_LO``): bin = hi * FACT_LO + lo
 FACT_LO = 16
-#: most warps (one per feature) in one block
-_MAX_WARPS_PER_BLOCK = 8
+#: most features a block takes, one warp each (kMaxGroup); a block of the
+#: direct kernel takes one
+_MAX_GROUP = 8
+#: the direct kernel's lane scratch, 32-bit words a warp
+_SCRATCH_WORDS = 3 * 32
+#: the staged kernel's ring of stages (kStages) and the rows a stage
+#: holds, the most first
+_STAGES = 4
+_STAGE_ROWS = (256, 128, 64, 32)
 #: shared memory a block may use on Hopper (227 KB opt-in limit)
 _SMEM_LIMIT = 232_448
+#: shared memory of one SM, what the card keeps of it for each block, and
+#: the most blocks an SM holds
+_SM_SMEM = 233_472
+_BLOCK_RESERVED = 1_024
+_SM_BLOCKS = 32
+#: the direct kernel takes a level while an SM holds more than this many of
+#: its warps; with fewer, its (feature, chunk) walks take a third round of
+#: the SMs at 28 features x 2M rows, and the staged kernel takes the level
+_DIRECT_MIN_WARPS = 8
+
+
+class FactPlan(NamedTuple):
+    """One call's launch: ``group`` features a block (one warp each), the
+    row chunks (``row_chunks``), and for the staged kernel (``staged`` 1)
+    ``stage_rows`` rows a stage."""
+
+    group: int
+    chunk_rows: int
+    n_chunks: int
+    stage_rows: int
+    staged: int
 
 
 def n_hi(n_bins1: int) -> int:
-    """HI = ceil(B1 / 16): the slab rows (17 at 257 bins)."""
+    """HI = ceil(B1 / 16): the TPU slab's rows (17 at 257 bins)."""
     return -(-n_bins1 // FACT_LO)
 
 
-def _smem_bytes(n_nodes: int, n_bins1: int, warps_per_block: int) -> int:
+def _words16(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def _smem_bytes(n_nodes: int, n_bins1: int, group: int, rows: int = 0,
+                staged: bool = False) -> int:
     """Dynamic shared memory of one block (smem_bytes in the CUDA source):
-    per warp a [HI, K, 3, 16] slab and a [3, 32] lane scratch."""
-    return 4 * warps_per_block * (n_hi(n_bins1) * n_nodes * 3 * FACT_LO + 3 * 32)
+    the direct kernel's warps' [HI, K, 3, 16] slabs and [3, 32] lane
+    scratch, or the staged kernel's consumers' [K, 3, B1] histograms and
+    its ring of stages (node, g, h, rw, the group's codes, the packed row
+    list and the pack table)."""
+    if not staged:
+        return 4 * group * (n_hi(n_bins1) * n_nodes * 3 * FACT_LO + _SCRATCH_WORDS)
+    hist = _words16(n_nodes * 3 * n_bins1)
+    stage = _words16((4 + group) * rows + rows // 2 + rows // 32 + 2)
+    return 4 * (group * hist + _STAGES * stage)
 
 
 def fits(n_nodes: int, n_bins1: int) -> bool:
-    """Whether one warp's [HI, K, 3, 16] slab fits a block's shared memory:
-    the levels ``launch_plan`` takes."""
+    """Whether the kernel takes a level: one direct warp's slab and lane
+    scratch fit a block's shared memory (the levels the factorized kernel
+    has always taken)."""
     return _smem_bytes(n_nodes, n_bins1, 1) <= _SMEM_LIMIT
 
 
-def launch_plan(n_rows: int, n_feat: int, n_nodes: int,
-                n_bins1: int) -> Tuple[int, int, int]:
-    """(warps per block, chunk rows, chunks) for one call.
+def _spread(n_feat: int, most: int) -> int:
+    """Features a block: at most ``most``, spread evenly over the fewest
+    blocks (7 a block at 28 features and 8 at most)."""
+    blocks = -(-n_feat // min(most, n_feat))
+    return -(-n_feat // blocks)
+
+
+def launch_plan(n_rows: int, n_feat: int, n_nodes: int, n_bins1: int) -> FactPlan:
+    """The launch of one call.
 
     The row chunks are the node-matmul kernel's (``row_chunks``), a
-    function of (rows, features) alone: the float summation order does not
-    change with the node count, and a cell sums the same rows in the same
-    order as in ``hist_nodematmul``. Raises ValueError when one warp's
-    slab does not fit in shared memory."""
-    per_warp = _smem_bytes(n_nodes, n_bins1, 1)
+    function of (rows, features) alone: a cell sums the same rows in the
+    same order as in ``hist_nodematmul``, whichever pass-1 kernel runs. The
+    direct kernel (one feature a block, its warp reading its own rows)
+    takes a level while an SM holds more than 8 of its blocks; a wider one
+    (from 8 nodes at 257 bins, 64 at 21) goes to the staged kernel, with as
+    many features a block as fit, up to 8, spread evenly over the fewest
+    blocks, and the largest stages that let it hold them. Raises ValueError
+    on a level ``fits`` refuses."""
     if not fits(n_nodes, n_bins1):
         raise ValueError(
-            f"hist_factorized: {n_nodes} nodes x {n_bins1} bins "
-            f"({per_warp} bytes of [HI, K, 3, {FACT_LO}] slab) do not fit one "
+            f"hist_factorized: {n_nodes} nodes x {n_bins1} bins do not fit one "
             f"block's shared memory ({_SMEM_LIMIT} bytes)")
-    wpb = max(1, min(n_feat, _MAX_WARPS_PER_BLOCK, _SMEM_LIMIT // per_warp))
-    return (wpb, *row_chunks(n_rows, n_feat))
+    chunk_rows, n_chunks = row_chunks(n_rows, n_feat)
+    per_sm = min(_SM_BLOCKS,
+                 _SM_SMEM // (_smem_bytes(n_nodes, n_bins1, 1) + _BLOCK_RESERVED))
+    # the staged kernel: per stage size, the features a block holds; the
+    # most, then the largest stages
+    staged = max(
+        ((_spread(n_feat, max(w for w in range(1, _MAX_GROUP + 1)
+                              if _smem_bytes(n_nodes, n_bins1, w, rows, True)
+                              <= _SMEM_LIMIT)), rows)
+         for rows in _STAGE_ROWS
+         if _smem_bytes(n_nodes, n_bins1, 1, rows, True) <= _SMEM_LIMIT),
+        default=None)
+    if per_sm > _DIRECT_MIN_WARPS or staged is None:
+        return FactPlan(1, chunk_rows, n_chunks, 0, 0)
+    group, rows = staged
+    return FactPlan(group, chunk_rows, n_chunks, rows, 1)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library."""
-    return load_chunked_library("hist_factorized", 8)
+    return load_chunked_library("hist_factorized", 10)
 
 
 def hist_factorized_reference(
@@ -147,13 +216,13 @@ def hist_factorized(
     On a CUDA tensor: launches the kernel's instantiation for ``dtype`` on
     the current stream (bins_fm [F, N] int32, nodes [N] int32, g/h/rw [N]
     float32, all contiguous on one card) and raises on anything else, on a
-    level whose slab does not fit shared memory, or on a launch error. On a
-    CPU tensor: the plain version, ``hist_factorized_reference``."""
+    level ``fits`` refuses, or on a launch error. On a CPU tensor: the
+    plain version, ``hist_factorized_reference``."""
     check_hist_dtype(dtype)
     if bins_fm.device.type == "cpu":
         return hist_factorized_reference(bins_fm, nodes, g, h, n_nodes, n_bins1,
                                          rw=rw, dtype=dtype)
-    # partials [chunks, F, HI, K, 3, 16]
+    # partials [chunks, F, HI * K * 3 * 16]: one slab a (chunk, feature)
     return launch_chunked("hist_factorized", launch_plan,
                           n_hi(n_bins1) * n_nodes * 3 * FACT_LO,
                           bins_fm, nodes, g, h, n_nodes, n_bins1, rw,

@@ -13,6 +13,10 @@ deterministic.
   ``index_add_`` over the flat (node, feature, bin) index, accumulated in
   float64 and rounded once to float32. The CPU tests hold it against the
   JAX package, and ``chip_smoke.py`` holds the kernel against it.
+- ``hist_chunked_ordered_reference`` is the plain version that keeps the
+  float order this kernel and the factorized kernel share, so it gives
+  their bits: a bit oracle for the tests and ``chip_smoke.py``, never on
+  the main path.
 - Both take ``dtype``, the operand mode (``cuda_build.HIST_DTYPES``):
   ``"bf16"`` rounds g, h and the count weight to bf16 before they are
   added, as the JAX package's bf16 mode does; the kernel has an
@@ -41,7 +45,8 @@ from h2o3_tpu_torch.ops.cuda_build import (
 __all__ = ["LAUNCHES", "MAX_NODES", "reset_launch_counts", "load_library",
            "launch_plan", "cell_tiles", "warp_tile", "row_chunks",
            "load_chunked_library", "launch_chunked",
-           "hist_nodematmul", "hist_nodematmul_reference"]
+           "hist_nodematmul", "hist_nodematmul_reference",
+           "hist_chunked_ordered_reference"]
 
 #: most warps in one block
 _MAX_WARPS_PER_BLOCK = 8
@@ -210,8 +215,9 @@ def load_chunked_library(kernel: str, n_ints: int) -> ctypes.CDLL:
     """Build (at first use) and load the library of a row-chunked histogram
     kernel: ``<kernel>_launch`` and ``<kernel>_error_string``, the C
     interface the node-matmul and factorized kernels share: seven pointers,
-    ``n_ints`` ints (seven of both kernels', the node-matmul kernel's tile,
-    and the operand mode last), the stream."""
+    ``n_ints`` ints (seven of both kernels', the rest of each kernel's
+    plan: the node-matmul kernel's tile, the factorized kernel's stage rows
+    and pass-1 kernel; the operand mode last), the stream."""
     def bind(lib: ctypes.CDLL) -> None:
         p, i = ctypes.c_void_p, ctypes.c_int
         launch = getattr(lib, f"{kernel}_launch")
@@ -260,6 +266,71 @@ def hist_nodematmul_reference(
         .float().contiguous()
 
 
+def hist_chunked_ordered_reference(
+    bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
+    h: torch.Tensor, n_nodes: int, n_bins1: int,
+    rw: Optional[torch.Tensor] = None, dtype: str = "f32",
+) -> torch.Tensor:
+    """Plain PyTorch histogram [K, F, B1, 3] float32 in the float order of
+    the node-matmul and factorized kernels, so it gives their bits.
+
+    The order: the rows are cut into the chunks of ``row_chunks``; in a
+    chunk, each aligned 32-row batch's rows of a (node, bin) cell are
+    summed from 0 in row order in float32, and the batch sums are added to
+    the cell's chunk partial in row order in float32; the chunk partials
+    are added in float64 in chunk order and rounded once. Here each step is
+    one scatter that adds at most once to any cell: lane by lane, then
+    batch by batch, then chunk by chunk. A row counts when its node lies in
+    [0, n_nodes) and its code in [0, n_bins1), as in the kernels. The values
+    are g, h and rw in operand mode ``dtype``."""
+    g, h = round_operand(g, dtype), round_operand(h, dtype)
+    rw = None if rw is None else round_operand(rw, dtype)
+    n_feat, n = bins_fm.shape
+    dev = bins_fm.device
+    chunk_rows, n_chunks = row_chunks(n, n_feat)
+    n_batch = -(-n // 32)
+    pad = n_batch * 32 - n
+    node = torch.nn.functional.pad(nodes.long(), (0, pad), value=-1).view(n_batch, 32)
+    codes = torch.nn.functional.pad(bins_fm.long(), (0, pad)).view(n_feat, n_batch, 32)
+    live = (node >= 0) & (node < n_nodes) & (codes >= 0) & (codes < n_bins1)
+    key = torch.where(live, node * n_bins1 + codes, -1)      # [F, NB, 32]
+    w = torch.ones_like(g) if rw is None else rw
+    vals = torch.stack([torch.nn.functional.pad(v.float(), (0, pad)) for v in (g, h, w)])
+    vals = vals.view(3, 1, n_batch, 32)
+    # batch sums: each lane adds into its lowest peer's slot, lane by lane
+    sums = torch.zeros(3, n_feat, n_batch, 32, dtype=torch.float32, device=dev)
+    leaders = torch.empty_like(key)
+    for lane in range(32):
+        same = key[..., :lane + 1] == key[..., lane:lane + 1]
+        leader = same.int().argmax(-1, keepdim=True)          # [F, NB, 1]
+        leaders[..., lane:lane + 1] = leader
+        idx = leader[None].expand(3, -1, -1, -1)
+        sums.scatter_(3, idx, sums.gather(3, idx) + vals[..., lane:lane + 1])
+    # each live leader's sum into its chunk's cell, batch by batch
+    f_i, b_i, l_i = torch.nonzero(live & (leaders == torch.arange(32, device=dev)),
+                                  as_tuple=True)
+    per_chunk = chunk_rows // 32
+    in_chunk = b_i % per_chunk
+    order = torch.argsort(in_chunk, stable=True)
+    f_i, b_i, l_i = f_i[order], b_i[order], l_i[order]
+    cell = ((b_i // per_chunk) * n_feat + f_i) * (n_nodes * n_bins1) + key[f_i, b_i, l_i]
+    add = sums[:, f_i, b_i, l_i]
+    partial = torch.zeros(3, n_chunks * n_feat * n_nodes * n_bins1,
+                          dtype=torch.float32, device=dev)
+    start = 0
+    for cnt in torch.bincount(in_chunk, minlength=per_chunk).tolist():
+        c = cell[start:start + cnt]
+        partial[:, c] = partial[:, c] + add[:, start:start + cnt]
+        start += cnt
+    # the chunk partials in chunk order, in float64
+    partial = partial.view(3, n_chunks, n_feat * n_nodes * n_bins1)
+    out = torch.zeros(3, n_feat * n_nodes * n_bins1, dtype=torch.float64, device=dev)
+    for c in range(n_chunks):
+        out += partial[:, c].double()
+    return out.view(3, n_feat, n_nodes, n_bins1).permute(2, 1, 3, 0) \
+        .float().contiguous()
+
+
 def launch_chunked(
     kernel: str, plan: Callable[[int, int, int, int], Tuple[int, int, int]],
     slab_cells: int, bins_fm: torch.Tensor, nodes: torch.Tensor,
@@ -272,7 +343,8 @@ def launch_chunked(
     and the [chunks, F, slab_cells] float32 partials, launch on the current
     stream, raise on a launch error, and count the launch.
     ``plan(rows, features, nodes, bins)`` gives (warps per block, chunk
-    rows, chunks); ``extra`` ints follow the chunks in the launch."""
+    rows, chunks) and any more ints of the kernel's plan, which follow the
+    chunks in the launch; then come the ``extra`` ints."""
     if bins_fm.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {bins_fm.device}")
     dev = bins_fm.device
@@ -289,16 +361,16 @@ def launch_chunked(
     out = torch.empty((n_nodes, n_feat, n_bins1, 3), dtype=torch.float32, device=dev)
     if n == 0 or n_feat == 0:
         return out.zero_()
-    wpb, chunk_rows, n_chunks = plan(n, n_feat, n_nodes, n_bins1)
+    wpb, chunk_rows, n_chunks, *plan_extra = plan(n, n_feat, n_nodes, n_bins1)
     partial = torch.empty((n_chunks, n_feat, slab_cells), dtype=torch.float32, device=dev)
-    lib = load_chunked_library(kernel, 7 + len(extra))
+    lib = load_chunked_library(kernel, 7 + len(plan_extra) + len(extra))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"{kernel}_launch")(
             bins_fm.data_ptr(), nodes.data_ptr(), g.data_ptr(), h.data_ptr(),
             None if rw is None else rw.data_ptr(), partial.data_ptr(),
             out.data_ptr(), n, n_feat, n_nodes, n_bins1, wpb, chunk_rows,
-            n_chunks, *extra, stream,
+            n_chunks, *plan_extra, *extra, stream,
         )
     if err != 0:
         msg = getattr(lib, f"{kernel}_error_string")(err).decode()

@@ -18,6 +18,13 @@ The factorized kernel's plain version (``hist_factorized_reference``, an
 cut to B1 bins) is held to the scatter oracle and to the factorized Pallas
 kernel in interpret mode, at 257 bins too, where HI·16 = 272 exceeds B1.
 
+The node-matmul and factorized kernels' ordered plain version
+(``hist_chunked_ordered_reference``: their row chunks, 32-row batches and
+lanes, so it gives their bits on the card) is held bit for bit to a
+scalar-loop reading of the factorized kernel's staged pass (stages, packs
+of whole batches, leaders), in both operand modes, and to the Pallas
+kernel and the scatter oracle at the tolerance below.
+
 The sorted kernel's ordered plain version (``hist_sorted_ordered_reference``,
 the kernel's own float order: tiles, 32-row batches, lanes) is held bit for
 bit to a scalar-loop reading of the kernel's algorithm, and to the plain
@@ -611,6 +618,63 @@ def _jax_fact(bins, nodes, g, h, k, b1, row_tile, rw=None):
     return scatter, pallas
 
 
+def _ordered(bins, nodes, g, h, k, b1, rw=None, dtype="f32"):
+    t = torch.from_numpy
+    return ch.hist_chunked_ordered_reference(
+        t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), k, b1,
+        rw=None if rw is None else t(rw), dtype=dtype).numpy()
+
+
+def _fact_kernel_by_loops(bins_fm, nodes, g, h, k, b1, rw, stage_rows, dtype):
+    """The factorized kernel's algorithm read as scalar loops in float32:
+    the row chunks of ``row_chunks``, each walked in stages of
+    ``stage_rows`` rows; a stage's active rows (0 <= node < k) in row order,
+    cut into packs of whole 32-row batches with at most 32 active rows; per
+    feature and pack, the lanes of one (node, bin) cell led by the lowest,
+    which walks them in lane order, sums each batch's values from 0 and
+    adds each batch's sum into the cell in turn; then the chunk partials in
+    float64, in chunk order. Values in operand mode ``dtype``."""
+    def operand(v):
+        return cuda_build.round_operand(torch.from_numpy(v), dtype).numpy()
+
+    f32 = np.float32
+    g, h = operand(g), operand(h)
+    w = np.ones_like(g) if rw is None else operand(rw)
+    n_feat, n = bins_fm.shape
+    chunk_rows, n_chunks = ch.row_chunks(n, n_feat)
+    part = np.zeros((n_chunks, n_feat, k, b1, 3), np.float32)
+    for c in range(n_chunks):
+        end = min(n, (c + 1) * chunk_rows)
+        for r0 in range(c * chunk_rows, end, stage_rows):
+            stop = min(end, r0 + stage_rows)
+            packs = [[]]
+            for b0 in range(r0, stop, 32):
+                batch = [r for r in range(b0, min(b0 + 32, stop)) if 0 <= nodes[r] < k]
+                if len(packs[-1]) + len(batch) > 32:
+                    packs.append([])
+                packs[-1] += batch
+            for f in range(n_feat):
+                for pack in packs:
+                    cells = [(nodes[r], bins_fm[f, r]) for r in pack]
+                    for lane, (nd, code) in enumerate(cells):
+                        if not 0 <= code < b1 or cells.index((nd, code)) != lane:
+                            continue  # no row, or not its cell's first lane
+                        acc = [f32(x) for x in part[c, f, nd, code]]
+                        s, batch = [f32(0)] * 3, pack[lane] // 32
+                        for r, cell in zip(pack[lane:], cells[lane:]):
+                            if cell != (nd, code):
+                                continue
+                            if r // 32 != batch:  # the next batch of this cell
+                                acc = [f32(a + b) for a, b in zip(acc, s)]
+                                s, batch = [f32(0)] * 3, r // 32
+                            s = [f32(a + b) for a, b in zip(s, (g[r], h[r], w[r]))]
+                        part[c, f, nd, code] = [f32(a + b) for a, b in zip(acc, s)]
+    out = np.zeros(part.shape[1:], np.float64)
+    for c in range(n_chunks):
+        out = out + part[c].astype(np.float64)
+    return out.astype(np.float32).transpose(1, 0, 2, 3)
+
+
 @pytest.mark.parametrize("n,f,k,b1,row_tile", FACT_SHAPES)
 def test_factorized_plain_matches_jax(n, f, k, b1, row_tile):
     bins, nodes, g, h, _ = _mk(n, f, k, b1, seed=n + b1)
@@ -621,6 +685,11 @@ def test_factorized_plain_matches_jax(n, f, k, b1, row_tile):
     _assert_hist_close(got, pallas)
     if b1 == 257:  # the NA code 256 is slab cell (hi 16, lo 0)
         assert got[..., 256, 2].sum() == np.sum(bins == 256)
+    # the kernels' float order (the bit oracle of B1 and B3) computes the
+    # same function
+    ordered = _ordered(bins, nodes, g, h, k, b1)
+    _assert_hist_close(ordered, pallas)
+    _assert_hist_close(ordered, scatter)
 
 
 @pytest.mark.parametrize("weighted,b1", [(False, 13), (True, 13), (True, 257)])
@@ -638,6 +707,26 @@ def test_factorized_inactive_rows_empty_nodes_and_count_weight(weighted, b1):
                                     bins, nodes, g, h, 6, b1, 128,
                                     rw=_bf16_weight(rw))
     assert np.all(bf16[2] == 0)
+    # the kernels' ordered plain version: the kernel read as loops, bit for
+    # bit, in both modes, here (30% inactive: a pack is mostly one batch)
+    # and at 70% inactive (packs of two batches and more) with an
+    # out-of-range node and code; and the Pallas kernel at the tolerance
+    sparse = nodes.copy()
+    sparse[np.random.default_rng(5).random(sparse.size) < 0.57] = -1
+    sparse[::41] = 7
+    odd = bins.copy()
+    odd[::13, 1] = b1 + 2
+    for nd, bn in ((nodes, bins), (sparse, odd)):
+        bins_fm = np.ascontiguousarray(bn.T)
+        for dtype, w in (("f32", rw), ("bf16", _bf16_weight(rw))):
+            got = _ordered(bn, nd, g, h, 6, b1, rw=w, dtype=dtype)
+            want = _fact_kernel_by_loops(bins_fm, nd, g, h, 6, b1, w, 64, dtype)
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    _assert_hist_close(_ordered(bins, nodes, g, h, 6, b1, rw=rw), pallas)
+    bf16_ordered = _assert_bf16_matches_jax(ch.hist_chunked_ordered_reference,
+                                            "factorized", bins, nodes, g, h, 6, b1,
+                                            128, rw=_bf16_weight(rw))
+    assert np.all(bf16_ordered[2] == 0)
 
 
 def test_factorized_wrapper_on_cpu_tensors_is_the_plain_version():

@@ -11,9 +11,11 @@ machine that has only PyTorch:
 The launch-plan arithmetic around the kernels (shared-memory fit, row
 chunks that ignore the node count, the node-matmul kernel's tiles, each
 cell owned by one warp, the sorted kernel's tile bound, the factorized
-kernel's node limit) and the sorted kernel's plain prep are plain Python
-and run everywhere; its prep and gather kernels are held to their plain
-twins on the card.
+kernel's node limit and its choice of pass-1 kernel) and the sorted
+kernel's plain prep are plain Python and run everywhere; its prep and
+gather kernels are held to their plain twins on the card, and the
+node-matmul and factorized kernels to the plain version that keeps their
+float order (``hist_chunked_ordered_reference``), bit for bit.
 Each kernel is held in both operand modes (``"f32"`` and ``"bf16"``, the
 values rounded to bf16 before they are summed), each case named in its
 assertion. Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh in either
@@ -141,16 +143,42 @@ def test_every_kernel_has_a_source_and_a_count():
 @pytest.mark.parametrize("n_bins1", [257, 21])
 @pytest.mark.parametrize("k", range(1, 17))
 def test_factorized_launch_plan_fits_and_shares_the_row_chunks(k, n_bins1):
-    wpb, chunk_rows, n_chunks = cf.launch_plan(2_000_000, 28, k, n_bins1)
-    assert 1 <= wpb <= 8 and cf._smem_bytes(k, n_bins1, wpb) <= cf._SMEM_LIMIT
-    # the node-matmul kernel's chunks: the same rows summed in the same order
-    assert (chunk_rows, n_chunks) == ch.launch_plan(2_000_000, 28, k, n_bins1)[1:]
+    plan = cf.launch_plan(2_000_000, 28, k, n_bins1)
+    assert 1 <= plan.group <= 8
+    assert plan.stage_rows % 32 == 0 and plan.stage_rows <= 256
+    assert (plan.stage_rows > 0) == bool(plan.staged)
+    assert cf._smem_bytes(k, n_bins1, plan.group, plan.stage_rows,
+                          bool(plan.staged)) <= cf._SMEM_LIMIT
+    # the features spread evenly over the fewest blocks: one fewer feature
+    # a block would take one more block
+    blocks = -(-28 // plan.group)
+    assert plan.group == 1 or -(-28 // (plan.group - 1)) > blocks
+    # the node-matmul kernel's chunks: the same rows summed in the same
+    # order
+    assert plan[1:3] == ch.launch_plan(2_000_000, 28, k, n_bins1)[1:]
+    # the staged kernel where an SM holds at most 8 blocks of the direct
+    # one, a feature each (from 8 nodes at 257 bins), with 7 features a
+    # block at 28 features
+    assert plan.staged == (n_bins1 == 257 and k >= 8)
+    if not plan.staged:
+        assert plan.group == 1
+    elif k == 8:
+        assert plan.group == 7
+    assert cf.fits(k, n_bins1)
     assert cf.n_hi(n_bins1) * cf.FACT_LO >= n_bins1 > (cf.n_hi(n_bins1) - 1) * cf.FACT_LO
 
 
 @pytest.mark.parametrize("n_bins1,k_max", [(257, 71), (21, 604)])
 def test_factorized_launch_plan_raises_beyond_shared_memory(n_bins1, k_max):
-    assert cf.launch_plan(1000, 4, k_max, n_bins1)[0] == 1
+    # fits takes the levels whose TPU-layout slab fits (71 nodes at 257
+    # bins, 604 at 21), and the plan takes every one of them, with fewer
+    # features a block as the level widens, down to one
+    assert cf.fits(k_max, n_bins1) and not cf.fits(k_max + 1, n_bins1)
+    assert cf.launch_plan(1000, 4, k_max, n_bins1).group == 1
+    for k in range(1, k_max + 1):
+        plan = cf.launch_plan(2_000_000, 28, k, n_bins1)
+        assert cf._smem_bytes(k, n_bins1, plan.group, plan.stage_rows,
+                              bool(plan.staged)) <= cf._SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         cf.launch_plan(1000, 4, k_max + 1, n_bins1)
 
@@ -176,7 +204,9 @@ def _on(dev, bins, nodes, g, h, k, b1, rw):
 #: (kernel, rows, features, nodes, bins, count weight, seed) of the card
 #: checks against the plain versions: the levels the fits give each kernel,
 #: B1's levels whose cells it tiles across warps (64 x 303, 16 x 1,209),
-#: and B3 at B1's tiled levels (16, 40 and 64 nodes at 257 bins)
+#: and B3 at every level the fits give it (1, 2, 4, 5 and 8 nodes at 257
+#: bins, 8 and 16 at 21, the root at 9) and at B1's tiled levels (16, 40
+#: and 64 nodes at 257 bins)
 CARD_CASES = [
     ("hist_nodematmul", 100_000, 28, 64, 257, False, 100_000),
     ("hist_nodematmul", 70_001, 11, 8, 21, True, 70_001),
@@ -189,6 +219,11 @@ CARD_CASES = [
     ("hist_factorized", 70_001, 11, 5, 257, True, 70_006),
     ("hist_factorized", 50_000, 5, 16, 21, False, 50_016),
     ("hist_factorized", 30_000, 3, 1, 9, True, 30_001),
+    ("hist_factorized", 40_000, 28, 1, 257, True, 40_001),
+    ("hist_factorized", 40_000, 28, 2, 257, False, 40_002),
+    ("hist_factorized", 40_003, 28, 4, 257, False, 40_004),
+    ("hist_factorized", 50_000, 28, 8, 21, True, 50_008),
+    ("hist_factorized", 40_000, 6, 96, 21, False, 40_096),  # staged at 21 bins
     ("hist_factorized", 60_000, 5, 16, 257, False, 60_016),
     ("hist_factorized", 50_001, 3, 64, 257, True, 50_065),
     ("hist_factorized", 40_000, 9, 40, 257, False, 40_040),
@@ -212,7 +247,8 @@ def _check_plain_versions(dev):
     exactly zero, Σg/Σh at the tolerance; B1's build for 3 more nodes the
     same bits; B2 the bits of its ordered plain version, and near B1 where
     B1 serves the level; B3 the bits of B1 (same row chunks, same order in
-    a cell); and every bf16 output differs from the f32 one."""
+    a cell) and of their ordered plain version, and so at 60% inactive
+    rows; and every bf16 output differs from the f32 one."""
     # B1 tiles B3's last three levels' cells across warps
     assert all(ch.cell_tiles(k, b1) != (k, b1) for _, _, _, k, b1, _, _ in CARD_CASES[-3:])
     for kernel, n, f, k, b1, weighted, seed in CARD_CASES:
@@ -246,11 +282,29 @@ def _check_plain_versions(dev):
                     assert torch.equal(a[..., 2], nm[..., 2]), name
                     torch.testing.assert_close(a, nm, rtol=RTOL, atol=ATOL, msg=name)
             if kernel == "hist_factorized":
-                assert torch.equal(a, ch.hist_nodematmul(*args, rw=rwt, dtype=dtype)), name
+                _check_factorized_bits(dev, a, args, rwt, dtype, name)
             if f32 is None:
                 f32 = a
             else:
                 assert not torch.equal(a, f32), f"{name}: the same as f32"
+
+
+def _check_factorized_bits(dev, out, args, rw, dtype, name):
+    """B3's output, from the pass-1 kernel its plan picks (the cases hold
+    both), is the bits of B1 and of their ordered plain version; and so at
+    60% inactive rows, where a pack takes two batches or more."""
+    bins_fm, nodes, g, h, k, b1 = args
+    ordered = ch.hist_chunked_ordered_reference(*args, rw=rw, dtype=dtype)
+    assert torch.equal(out, ordered), f"{name}: not the ordered bits"
+    assert torch.equal(ch.hist_nodematmul(*args, rw=rw, dtype=dtype), ordered), name
+    gen = torch.Generator(device=dev).manual_seed(k * b1)
+    nodes = torch.where(torch.rand(nodes.shape, generator=gen, device=dev) < 0.43,
+                        -1, nodes)
+    args = (bins_fm, nodes, g, h, k, b1)
+    sparse = cf.hist_factorized(*args, rw=rw, dtype=dtype)
+    assert torch.equal(sparse, ch.hist_chunked_ordered_reference(*args, rw=rw, dtype=dtype)), \
+        f"{name} at 60% inactive: not the ordered bits"
+    assert torch.equal(sparse, ch.hist_nodematmul(*args, rw=rw, dtype=dtype)), name
 
 
 def _check_sorted_bits_prep_and_gather(dev):

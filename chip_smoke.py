@@ -41,17 +41,30 @@ Run from the root of a checkout. Phases, each of which must pass:
    in turn; and against the node-matmul kernel on one level;
 6. the port's ``jax.random`` streams (``util/jrandom.py``) give on the card
    the bits they give on the CPU;
-7. train XGBoost (``--base-trees`` trees, defaults: depth 6, 256 bins) on a
+7. the fit's binning on the card (``apply_bins_device``) gives the host
+   ``apply_bins``'s codes, ``torch.equal`` (transposed), at N x 28 for 256,
+   20 and 512 bins and on a 100,000-row adversarial frame (5% NaN, +-inf,
+   -0.0, values at and one float32 step off an edge, a 3-value column with
+   +inf-padded edges, an all-NaN column); the host's seconds and the
+   card's milliseconds, upload included;
+8. train XGBoost (``--base-trees`` trees, defaults: depth 6, 256 bins) on a
    HIGGS-shaped frame (N x 28 numeric, binary response), predict, score;
    check that each kernel ran exactly once per level it serves, that AUC
    is finite and above 0.5, that the same fit with the plain histogram on
    the card gives the same trees (or AUC within 1e-4), and that a small
-   fit on the card gives the same trees as on the CPU;
-8. the same for GBM (``--base-trees`` trees, defaults: depth 5, 20 bins);
-9. the same for DRF at its defaults but for its trees (``--drf-trees``;
+   fit on the card gives the same trees as on the CPU. Every fit of this
+   and the later phases checks its device frame cache lookup exactly: the
+   hits and misses its key gives (frame, bins, seed, device), and the
+   entry it used lies on its device; each fit record carries them and the
+   parts of its fit time (``setup_s``, ``prep_s`` with ``bins_s`` and
+   ``place_s``, ``boost_s``, ``metrics_s``);
+9. the same for GBM (``--base-trees`` trees, defaults: depth 5, 20 bins);
+10. the same for DRF at its defaults but for its trees (``--drf-trees``;
    depth 12, 20 bins, sample_rate 0.632, mtries sqrt(F)): 8 node-matmul
-   and 4 sorted launches per tree;
-10. the same for XGBoost at its defaults (``--trees`` trees) with
+   and 4 sorted launches per tree; with GBM's bins and seed it hits GBM's
+   cache entry, and the entry grows by the row-major codes its first
+   sorted level makes there, once;
+11. the same for XGBoost at its defaults (``--trees`` trees) with
    ``monotone_constraints`` on x2 and x3, each in the direction of the
    column's correlation with the response (the direction a user who knows
    the data would set; against it, no split on the column is allowed and
@@ -63,11 +76,11 @@ Run from the root of a checkout. Phases, each of which must pass:
    AUC within 1e-4), and every one of 1,000 rows' margins exactly monotone,
    in the constraint's direction, as x2 or x3 is swept over 20 values, and
    some rows' margins moving;
-11. XGBoost at ``nbins=512`` and ``max_depth=8`` (``--wide-trees`` trees)
+12. XGBoost at ``nbins=512`` and ``max_depth=8`` (``--wide-trees`` trees)
    on the first ``--wide-rows`` rows of the frame: its built levels hold 1
    to 64 nodes at 513 bins, all on the node-matmul kernel (8 launches per
-   tree), checked as in 7 but for the small fit on the CPU;
-12. the bf16 operand mode (``dtype="bf16"``: g, h and the count weight
+   tree), checked as in 8 but for the small fit on the CPU;
+13. the bf16 operand mode (``dtype="bf16"``: g, h and the count weight
    rounded to bf16, summed in float, counts exact; the JAX package's default
    on its own chip) at one level of each kernel the bf16 fits build (N x 28:
    B1 at 257 bins x 16 nodes, its tile kernel, and 21 x 8, its warp kernel;
@@ -75,18 +88,25 @@ Run from the root of a checkout. Phases, each of which must pass:
    plain version in bf16 as in 3-5 (B2 bit-identical to its ordered plain
    version), different from the f32 output, timed in turn with the f32
    call; and B3 in bf16 bit-identical to B1 in bf16;
-13. XGBoost (``--bf16-trees`` trees: 6 B1 launches each), DRF
-   (``--bf16-drf-trees``: 8 B1 and 4 B2 each) and phase 10's monotone
+14. XGBoost (``--bf16-trees`` trees: 6 B1 launches each), DRF
+   (``--bf16-drf-trees``: 8 B1 and 4 B2 each) and phase 11's monotone
    XGBoost (``--bf16-trees``: 1 B1 and 5 B3 each) with
-   ``hist_dtype="bf16"``, checked as in 7 but for the small fit on the CPU,
-   the monotone one also with phase 10's sweep; each prints its AUC beside
-   that of its twin in f32, trained after it;
-14. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+   ``hist_dtype="bf16"``, checked as in 8 but for the small fit on the CPU,
+   the monotone one also with phase 11's sweep; each prints its AUC beside
+   that of its twin in f32, trained after it; the bf16 DRF fit hits GBM's
+   entry and makes no second row-major copy;
+15. XGBoost cross-validation (``nfolds=3``, random folds, ``--cv-trees``
+   trees) on the first ``--wide-rows`` rows: the CV AUC finite and above
+   0.5, 6 node-matmul launches per tree of each of the 4 fits, each fold
+   frame a cache miss, and equal fold trees (or CV AUC within 1e-4) with
+   the plain histogram on the card; then no cache entry was evicted;
+16. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
-kernel's f32 record and, under ``"bf16"``, its bf16 one), then
+kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
+those of phases 8-15), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX.
@@ -533,19 +553,230 @@ def trees_equal(ma, mb) -> bool:
     return True
 
 
-def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **kw):
+class CacheKeys:
+    """The ``tree_bins`` entries the device frame cache should hold, as the
+    booster keys them: (frame, nbins, seed, device) stands for (the frame's
+    column stamps, the edges' digest and nbins, the device), since a frame,
+    a bin count and a seed give one set of edges. A fit's lookup hits iff
+    its key was placed before: every entry of this run fits the budget,
+    which ``check_no_evictions`` confirms at the end."""
+
+    def __init__(self):
+        self.placed = set()
+        self.names = {}
+
+    def name(self, frame, name):
+        self.names[id(frame)] = name
+        return frame
+
+    def expect(self, frame, nbins, seed, device):
+        import torch
+
+        key = (self.names[id(frame)], nbins, seed, torch.device(device).type)
+        hit = key in self.placed
+        self.placed.add(key)
+        return (1, 0) if hit else (0, 1)
+
+
+def tree_bins_counts():
+    """(hits, misses) of the device frame cache's ``tree_bins`` lookups so far."""
+    from h2o3_tpu_torch.frame.devcache import DEVCACHE
+
+    c = DEVCACHE.stats()["kinds"].get("tree_bins", {"hits": 0, "misses": 0})
+    return c["hits"], c["misses"]
+
+
+def counted_train(keys, label, builder_cls, frame, device="cuda", **kw):
+    """Train one builder on ``device`` and check its device frame cache
+    lookup against ``keys``: exactly the hits and misses the keys give, and
+    the entry it used lies on its device (a card fit served codes kept on
+    the CPU would fail here). Returns (model, {"hits", "misses"})."""
+    import torch
+
+    from h2o3_tpu_torch.frame.devcache import DEVCACHE
+
+    builder = builder_cls(response_column="y", device=str(device), **kw)
+    want = keys.expect(frame, builder.params.nbins, builder.params.actual_seed(), device)
+    h0, m0 = tree_bins_counts()
+    model = builder.train(frame)
+    h1, m1 = tree_bins_counts()
+    got = (h1 - h0, m1 - m0)
+    if got != want:
+        raise AssertionError(
+            f"{label}: device frame cache (hits, misses) {got}, expected {want}")
+    key, entry = next(reversed(DEVCACHE._entries.items()))
+    dev = torch.device(device).type
+    if key[3][0] != dev or entry.value.bins_fm.device.type != dev:
+        raise AssertionError(
+            f"{label}: the fit on {dev} used an entry on {entry.value.bins_fm.device}")
+    return model, {"hits": got[0], "misses": got[1]}
+
+
+def frame_entry(frame, nbins):
+    """The device frame cache's card entry for ``frame``'s codes at ``nbins``."""
+    from h2o3_tpu_torch.frame import devcache
+
+    token = devcache.frame_token(frame)
+    found = [e for k, e in devcache.DEVCACHE._entries.items()
+             if k[0] == "tree_bins" and k[1][0] == token and k[2][1] == nbins
+             and k[3][0] == "cuda"]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} card entries for the frame at {nbins} bins")
+    return found[0]
+
+
+def check_no_evictions():
+    from h2o3_tpu_torch.frame.devcache import DEVCACHE
+
+    st = DEVCACHE.stats()
+    if st["kinds"]["tree_bins"]["evictions"]:
+        raise AssertionError(f"device frame cache evicted entries: {st}")
+    return st
+
+
+def adversarial_frame(n, n_feat, nbins, seed):
+    """A float32 frame of the values binning can get wrong, with its edges
+    (made from the float64 data, so most lie between two float32 values):
+    5% NaN, +-inf, -0.0 beside 0.0, values set to an edge rounded to
+    float32 and to its float32 neighbours, a 3-value column (edges padded
+    with +inf) and an all-NaN column."""
+    from h2o3_tpu_torch.ops.histogram import make_bins
+
+    rng = np.random.default_rng(seed)
+    f = n_feat - 3
+    X = rng.normal(size=(n, n_feat))
+    X[:, f] = rng.integers(0, 3, n)
+    X[:, f + 1] = 0.0
+    X[:, f + 2] = np.nan
+    X[:, :f][rng.random((n, f)) < 0.05] = np.nan
+    edges = make_bins(X, nbins, seed=seed)
+    X = X.astype(np.float32)
+    m = n // 8
+    for j in range(f + 2):
+        for v in (np.inf, -np.inf, -0.0):
+            X[rng.integers(0, n, 100), j] = v
+        finite = edges[j][np.isfinite(edges[j])]
+        if finite.size:  # not the constant column
+            e = rng.choice(finite, m).astype(np.float32)
+            X[rng.integers(0, n, m), j] = e
+            X[rng.integers(0, n, m), j] = np.nextafter(e, np.float32(np.inf))
+            X[rng.integers(0, n, m), j] = np.nextafter(e, np.float32(-np.inf))
+    return X, edges
+
+
+def binning_phase(X, seed, dev, reps=3):
+    """The fit's device binning (``apply_bins_device``) against the host
+    ``apply_bins`` it replaces: ``torch.equal`` to its codes, transposed,
+    at N x 28 for 256, 20 and 512 bins and on a 100,000-row adversarial
+    frame; the host's seconds and the device's milliseconds, the upload of
+    X included (the first call, then the mean of ``reps``)."""
+    import torch
+
+    from h2o3_tpu_torch.ops.histogram import apply_bins, apply_bins_device, make_bins
+
+    cases = [(f"N={X.shape[0]} F={X.shape[1]} nbins={b}", X,
+              make_bins(X, b, seed=seed)) for b in (256, 20, 512)]
+    Xa, ea = adversarial_frame(100_000, 28, 256, seed)
+    cases.append(("adversarial N=100000 F=28 nbins=256", Xa, ea))
+    recs = []
+    for name, x, edges in cases:
+        t0 = time.time()
+        host = apply_bins(x, edges)
+        host_s = time.time() - t0
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            got = apply_bins_device(x, edges, dev)
+            torch.cuda.synchronize()
+            times.append((time.time() - t0) * 1e3)
+        if not torch.equal(got.cpu(), torch.from_numpy(np.ascontiguousarray(host.T))):
+            raise AssertionError(f"binning {name}: device codes differ from apply_bins")
+        rec = {"case": name, "torch_equal": True, "host_s": host_s,
+               "device_first_ms": times[0], "device_ms": sum(times[1:]) / reps,
+               "na_codes": int((host == edges.shape[1] + 1).sum())}
+        print(f"binning ok: {json.dumps(rec)}", flush=True)
+        recs.append(rec)
+    return recs
+
+
+def cv_phase(keys, builder_cls, frame, n_rows, seed, trees, dev="cuda"):
+    """Cross-validation through the kernels: ``nfolds=3`` (random) with
+    ``trees`` trees; the CV AUC finite and above 0.5; each fit's 6 node-matmul
+    launches per tree (the main fit and the 3 fold fits); each fold frame a
+    cache miss (its rows are new columns); the same run with the plain
+    histogram on the card gives equal trees in every fold (or a CV AUC
+    within 1e-4)."""
+    from h2o3_tpu_torch.ops import cuda_build
+
+    kw = dict(ntrees=trees, seed=seed, nfolds=3, fold_assignment="random",
+              keep_cross_validation_predictions=True)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        cuda_build.reset_launch_counts()
+        h0, m0 = tree_bins_counts()
+        want = keys.expect(frame, 256, seed, dev)
+        t0 = time.time()
+        model = builder_cls(response_column="y", hist_impl=impl, device=str(dev),
+                            **kw).train(frame)
+        train_s = time.time() - t0
+        h1, m1 = tree_bins_counts()
+        launches = dict(cuda_build.LAUNCHES)
+        got = (h1 - h0, m1 - m0)
+        if got != (want[0], want[1] + 3):
+            raise AssertionError(f"cv {impl}: device frame cache (hits, misses) {got}, "
+                                 f"expected {(want[0], want[1] + 3)}")
+        runs[impl] = (model, launches, train_s, got)
+    model, launches, train_s, got = runs["kernel"]
+    expect = {"hist_nodematmul": 4 * trees * 6, "hist_sorted": 0, "hist_factorized": 0}
+    if launches != expect:
+        raise AssertionError(f"cv: kernel launches {launches}, expected {expect}")
+    auc = model.cross_validation_metrics.auc
+    if not (np.isfinite(auc) and auc > 0.5):
+        raise AssertionError(f"cv: AUC {auc} is not finite and above 0.5")
+    hold = model.cv_holdout_predictions
+    if hold.shape != (n_rows, 2) or not np.all(np.isfinite(hold)):
+        raise AssertionError(f"cv: holdout predictions are not {n_rows} x 2 finite values")
+    plain = runs["plain"][0]
+    folds_equal = [trees_equal(a, b) for a, b in zip(model.cv_models, plain.cv_models)]
+    plain_auc = plain.cross_validation_metrics.auc
+    if not all(folds_equal) and abs(plain_auc - auc) > 1e-4:
+        raise AssertionError(f"cv: the plain-histogram CV differs (AUC {plain_auc} vs {auc})")
+    rec = {"fit": "xgboost_cv3", "rows": n_rows, "train_s": train_s, "cv_auc": auc,
+           "launches": launches, "cache": {"hits": got[0], "misses": got[1]},
+           "plain_cache": dict(zip(("hits", "misses"), runs["plain"][3])),
+           "plain_train_s": runs["plain"][2], "plain_cv_auc": plain_auc,
+           "plain_folds_trees_equal": folds_equal,
+           "fold_timings": [timing_split(m) for m in model.cv_models]}
+    print(f"cv ok: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def timing_split(model):
+    """A fit's ``train_s`` in parts (``model.timings``), seconds:
+    ``tree_fit_setup``, the booster's prep (``make_bins``, the bin codes
+    made and placed, the rest), the boosting loop, the training metrics."""
+    t = model.timings
+    return {"setup_s": t["setup_s"], "prep_s": t["prep_s"], "bins_s": t["bins_s"],
+            "place_s": t["place_s"],
+            "prep_rest_s": t["prep_s"] - t["bins_s"] - t["place_s"],
+            "boost_s": t["train_s"], "metrics_s": t["metrics_s"]}
+
+
+def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, keys,
+            **kw):
     """Train + predict + score one builder on the card through the kernels,
     then check it against the plain histogram and, on ``small_frame`` (None:
     not), against the CPU. expect_launches: {kernel: launches} the fit must
-    make, exactly."""
+    make, exactly; every train's device frame cache hits and misses are
+    the ones ``keys`` gives."""
     import torch
 
-    from h2o3_tpu_torch import use_device
     from h2o3_tpu_torch.ops import cuda_build
 
     cuda_build.reset_launch_counts()
     t0 = time.time()
-    model = builder_cls(response_column="y", **kw).train(frame)
+    model, cache = counted_train(keys, label, builder_cls, frame, **kw)
     torch.cuda.synchronize()
     train_s = time.time() - t0
     t0 = time.time()
@@ -566,7 +797,8 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
     if not (np.isfinite(auc) and auc > 0.5):
         raise AssertionError(f"{label}: AUC {auc} is not finite and above 0.5")
 
-    plain = builder_cls(response_column="y", hist_impl="plain", **kw).train(frame)
+    plain, plain_cache = counted_train(keys, f"{label} plain", builder_cls, frame,
+                                       hist_impl="plain", **kw)
     same_plain = trees_equal(model, plain)
     plain_auc = plain.training_metrics.auc
     if not same_plain and abs(plain_auc - auc) > 1e-4:
@@ -578,16 +810,16 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
         "train_rows_per_s": n_rows / train_s, "predict_s": predict_s,
         "predict_rows_per_s": n_rows / predict_s, "model_performance_s": perf_s,
         "auc": auc, "logloss": perf.logloss, "launches": launches,
-        "prep_s": model.timings["prep_s"], "boost_s": model.timings["train_s"],
+        **timing_split(model), "cache": cache, "plain_cache": plain_cache,
         "plain_trees_equal": same_plain, "plain_auc": plain_auc,
     }
     if small_frame is not None:
-        card = builder_cls(response_column="y", **kw).train(small_frame)
-        card_plain = builder_cls(response_column="y", hist_impl="plain",
-                                 **kw).train(small_frame)
-        with use_device("cpu"):
-            cpu = builder_cls(response_column="y", tree_subtract=True,
-                              **kw).train(small_frame)
+        card, c1 = counted_train(keys, f"{label} small", builder_cls, small_frame, **kw)
+        card_plain, c2 = counted_train(keys, f"{label} small plain", builder_cls,
+                                       small_frame, hist_impl="plain", **kw)
+        cpu, c3 = counted_train(keys, f"{label} small cpu", builder_cls, small_frame,
+                                device="cpu", tree_subtract=True, **kw)
+        rec["small_cache"] = {"card": c1, "card_plain": c2, "cpu": c3}
         same_cpu = trees_equal(card, cpu)
         if not same_cpu and abs(card.training_metrics.auc - cpu.training_metrics.auc) > 1e-4:
             raise AssertionError(f"{label}: small fit on the card differs from the CPU")
@@ -601,22 +833,30 @@ def run_fit(builder_cls, frame, n_rows, expect_launches, label, small_frame, **k
 
 
 def continue_fit(builder_cls, frame, X, prior, n_trees, expect_launches, label,
-                 monotone, **kw):
+                 monotone, keys, **kw):
     """Continue ``prior`` from its checkpoint to ``n_trees`` trees on the
-    card; check the launches of the new trees, the trees against one fit of
-    ``n_trees``, and, for each constrained column, that 1,000 rows' margins
-    move exactly in its direction as the column is swept over 20 values."""
+    card, predict and score; check the launches of the new trees, the
+    device frame cache lookups, the trees against one fit of ``n_trees``,
+    and, for each constrained column, that 1,000 rows' margins move exactly
+    in its direction as the column is swept over 20 values."""
     import torch
 
     from h2o3_tpu_torch.ops import cuda_build
 
     cuda_build.reset_launch_counts()
     t0 = time.time()
-    model = builder_cls(response_column="y", ntrees=n_trees, checkpoint=prior.key,
-                        monotone_constraints=monotone, **kw).train(frame)
+    model, cache = counted_train(keys, label, builder_cls, frame, ntrees=n_trees,
+                                 checkpoint=prior.key, monotone_constraints=monotone,
+                                 **kw)
     torch.cuda.synchronize()
     train_s = time.time() - t0
     launches = dict(cuda_build.LAUNCHES)
+    t0 = time.time()
+    model.predict(frame)
+    predict_s = time.time() - t0
+    t0 = time.time()
+    model.model_performance(frame)
+    perf_s = time.time() - t0
     if launches != expect_launches:
         raise AssertionError(
             f"{label}: kernel launches of the continued trees {launches}, "
@@ -627,8 +867,9 @@ def continue_fit(builder_cls, frame, X, prior, n_trees, expect_launches, label,
     if not (np.isfinite(auc) and auc > 0.5):
         raise AssertionError(f"{label}: AUC {auc} is not finite and above 0.5")
 
-    single = builder_cls(response_column="y", ntrees=n_trees,
-                         monotone_constraints=monotone, **kw).train(frame)
+    single, single_cache = counted_train(keys, f"{label} single", builder_cls, frame,
+                                         ntrees=n_trees, monotone_constraints=monotone,
+                                         **kw)
     same_single = trees_equal(model, single)
     single_auc = single.training_metrics.auc
     if not same_single and abs(single_auc - auc) > 1e-4:
@@ -636,9 +877,11 @@ def continue_fit(builder_cls, frame, X, prior, n_trees, expect_launches, label,
             f"{label}: one {n_trees}-tree fit differs (AUC {single_auc} vs {auc})")
 
     rec = {
-        "fit": label, "trees": n_trees, "train_s": train_s, "auc": auc,
-        "launches": launches, "prep_s": model.timings["prep_s"],
-        "boost_s": model.timings["train_s"], "single_fit_trees_equal": same_single,
+        "fit": label, "trees": n_trees, "train_s": train_s, "predict_s": predict_s,
+        "model_performance_s": perf_s, "auc": auc,
+        "launches": launches, **timing_split(model), "cache": cache,
+        "single_cache": single_cache,
+        "single_fit_trees_equal": same_single,
         "single_fit_auc": single_auc,
         "monotone_sweeps": monotone_sweeps(label, model, X, monotone),
     }
@@ -671,9 +914,10 @@ def monotone_sweeps(label, model, X, monotone):
     return sweeps
 
 
-def f32_auc(builder_cls, frame, **kw):
-    """Training AUC of the f32 twin of a bf16 fit (its launches uncounted)."""
-    return builder_cls(response_column="y", **kw).train(frame).training_metrics.auc
+def f32_auc(keys, label, builder_cls, frame, **kw):
+    """Training AUC of the f32 twin of a bf16 fit (its launches uncounted;
+    its cache lookup checked: the codes do not depend on the operand mode)."""
+    return counted_train(keys, label, builder_cls, frame, **kw)[0].training_metrics.auc
 
 
 def profile_fit(builder_cls, frame, label, **kw):
@@ -744,6 +988,8 @@ def main() -> int:
                     help="trees of the bf16 XGBoost and monotone XGBoost fits")
     ap.add_argument("--bf16-drf-trees", type=int, default=5,
                     help="trees of the bf16 DRF fit")
+    ap.add_argument("--cv-trees", type=int, default=4,
+                    help="trees of each fit of the 3-fold XGBoost cross-validation")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--parent", default=None, metavar="CHECKOUT",
                     help="another checkout of the repository (e.g. the parent "
@@ -849,8 +1095,12 @@ def main() -> int:
     rand = jrandom_check(dev)
 
     X, y = synth_higgs(n, 28, seed)
-    frame = make_frame(X, y)
-    small_frame = make_frame(*synth_higgs(20_000, 28, seed + 1))
+    binning = binning_phase(X, seed, dev)
+    keys = CacheKeys()
+    frame = keys.name(make_frame(X, y), "higgs")
+    small_frame = keys.name(make_frame(*synth_higgs(20_000, 28, seed + 1)), "small")
+    wide_n = min(args.wide_rows, n)
+    wide_frame = keys.name(make_frame(X[:wide_n], y[:wide_n]), "wide")
 
     def expect(nodematmul=0, sorted_=0, factorized=0):
         return {"hist_nodematmul": nodematmul, "hist_sorted": sorted_,
@@ -858,37 +1108,47 @@ def main() -> int:
 
     fits = [
         run_fit(XGBoost, frame, n, expect(args.base_trees * 6), "xgboost",
-                small_frame, ntrees=args.base_trees, seed=seed)[0],
+                small_frame, keys, ntrees=args.base_trees, seed=seed)[0],
         run_fit(GBM, frame, n, expect(args.base_trees * 5), "gbm", small_frame,
-                ntrees=args.base_trees, seed=seed)[0],
-        # DRF at depth 12 with subtraction: levels 0-7 build <= 64 nodes
-        # (node-matmul), levels 8-11 build 128-1024 (sorted); 12 is terminal
-        run_fit(DRF, frame, n, expect(args.drf_trees * 8, args.drf_trees * 4),
-                "drf", small_frame, ntrees=args.drf_trees, seed=seed)[0],
+                keys, ntrees=args.base_trees, seed=seed)[0],
     ]
+    # DRF at depth 12 with subtraction: levels 0-7 build <= 64 nodes
+    # (node-matmul), levels 8-11 build 128-1024 (sorted); 12 is terminal.
+    # With GBM's 20 bins and seed it hits GBM's entry, and its first sorted
+    # level makes the row-major codes there, once: the entry grows by them
+    gbm_entry = frame_entry(frame, 20)
+    entry_bytes = [gbm_entry.nbytes]
+    fits.append(run_fit(DRF, frame, n, expect(args.drf_trees * 8, args.drf_trees * 4),
+                        "drf", small_frame, keys, ntrees=args.drf_trees, seed=seed)[0])
+    codes_rm = gbm_entry.value.arrays["codes_rm"]
+    entry_bytes.append(gbm_entry.nbytes)
+    if codes_rm is None or entry_bytes[1] - entry_bytes[0] != codes_rm.nbytes:
+        raise AssertionError(
+            f"drf: GBM's entry grew {entry_bytes}, not by its row-major codes "
+            f"({None if codes_rm is None else codes_rm.nbytes} bytes)")
+    fits[-1]["entry_bytes"] = entry_bytes
     # the monotone XGBoost path: levels padded to 8 nodes (K·4 <= 32) on the
     # factorized kernel, the 16-node level on the node-matmul kernel
     monotone = {f"x{j}": int(np.sign(np.corrcoef(X[:, j], y)[0, 1])) for j in (2, 3)}
     mono_rec, mono_model = run_fit(
         XGBoost, frame, n, expect(args.trees, 0, args.trees * 5), "xgboost_monotone",
-        small_frame, ntrees=args.trees, seed=seed, monotone_constraints=monotone,
+        small_frame, keys, ntrees=args.trees, seed=seed, monotone_constraints=monotone,
         hist_fact_max_kc=32)
     mono_rec["monotone_constraints"] = monotone
     fits.append(mono_rec)
     fits.append(continue_fit(
         XGBoost, frame, X, mono_model, 2 * args.trees,
         expect(args.trees, 0, args.trees * 5), "xgboost_monotone_continued",
-        monotone, seed=seed, hist_fact_max_kc=32))
+        monotone, keys, seed=seed, hist_fact_max_kc=32))
     # 512 bins at depth 8: built levels of 1, 1, 2, ..., 64 nodes at 513
     # bins, each on the node-matmul kernel. Held to the plain histogram on
     # the card only: a 20,000-row fit this deep parts from the CPU's at near
     # ties with the plain histogram on the card too (the card and the CPU
     # round their float sums differently), so that comparison would not test
     # the kernel; the CPU tests hold this configuration to the JAX package.
-    wide_n = min(args.wide_rows, n)
     fits.append(run_fit(
-        XGBoost, make_frame(X[:wide_n], y[:wide_n]), wide_n,
-        expect(args.wide_trees * 8), "xgboost_512_bins_depth_8", None,
+        XGBoost, wide_frame, wide_n,
+        expect(args.wide_trees * 8), "xgboost_512_bins_depth_8", None, keys,
         ntrees=args.wide_trees, seed=seed, nbins=512, max_depth=8)[0])
     # the bf16 operand mode, the JAX package's default on its own chip,
     # through all three kernels; each held to its plain-histogram twin in
@@ -899,13 +1159,18 @@ def main() -> int:
             (DRF, expect(bd * 8, bd * 4), "drf_bf16", dict(ntrees=bd)),
             (XGBoost, expect(bt, 0, bt * 5), "xgboost_monotone_bf16",
              dict(ntrees=bt, monotone_constraints=monotone, hist_fact_max_kc=32))):
-        rec, model = run_fit(builder, frame, n, launches, label, None, seed=seed,
+        rec, model = run_fit(builder, frame, n, launches, label, None, keys, seed=seed,
                              hist_dtype="bf16", **kw)
-        rec["f32_auc"] = f32_auc(builder, frame, seed=seed, **kw)
+        rec["f32_auc"] = f32_auc(keys, f"{label} f32", builder, frame, seed=seed, **kw)
         if "monotone_constraints" in kw:
             rec["monotone_sweeps"] = monotone_sweeps(label, model, X, monotone)
         print(f"bf16 fit: {label} AUC {rec['auc']} (f32 {rec['f32_auc']})", flush=True)
         fits.append(rec)
+    # the bf16 DRF fit hit GBM's entry and made no second row-major copy
+    if gbm_entry.nbytes != entry_bytes[1] or gbm_entry.value.arrays["codes_rm"] is not codes_rm:
+        raise AssertionError("drf_bf16: GBM's entry changed after its first DRF fit")
+    cv = cv_phase(keys, XGBoost, wide_frame, wide_n, seed, args.cv_trees)
+    cache_stats = check_no_evictions()
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
@@ -914,7 +1179,7 @@ def main() -> int:
                          hist_fact_max_kc=32)]
             if args.profile else None)
 
-    total = {k: sum(f["launches"][k] for f in fits) for k in cuda_build.KERNELS}
+    total = {k: sum(f["launches"][k] for f in fits + [cv]) for k in cuda_build.KERNELS}
     kernels = [
         kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
                       "h2o3_tpu/ops/pallas_histogram.py:94", checks, checks[0],
@@ -930,7 +1195,8 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump({"card": smi, "device": kind, "torch": torch.__version__,
                        "build_s": build_s, "kernel_checks": checks,
-                       "cross_check": cross, "jrandom": rand, "fits": fits,
+                       "cross_check": cross, "jrandom": rand, "binning": binning,
+                       "fits": fits, "cv": cv, "devcache": cache_stats,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

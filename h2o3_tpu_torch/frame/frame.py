@@ -5,17 +5,20 @@ one dense numpy array on the host (float64 with NaN for NUM/TIME, int32
 codes with -1 for CAT, object for STR). The model builders move what they
 need to the device themselves, so the frame itself holds no tensors.
 
-Kept from the JAX package: ``Column``, ``Frame``, ``from_dict`` and the
-rollups that trees need (min/max/mean/sigma), computed in numpy. CSV
-parsing, the native tokenizer, the chunk codecs and the munging surface
-(row/column selection, binds) are not part of this package yet.
+Kept from the JAX package: ``Column``, ``Frame``, ``from_dict``, row
+selection (``Frame.rows``), the column version stamps the device frame
+cache keys on, and the rollups that trees need (min/max/mean/sigma),
+computed in numpy. CSV parsing, the native tokenizer, the chunk codecs and
+the rest of the munging surface (column selection, binds) are not part of
+this package yet.
 """
 
 from __future__ import annotations
 
 import enum
+import itertools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -29,6 +32,14 @@ class ColType(enum.Enum):
     STR = "string"
     UUID = "uuid"
     BAD = "bad"  # all-NA column
+
+
+#: process-wide monotonic column-version source. Every Column state (a
+#: fresh construction or an in-place mutation, ``invalidate_rollups``) draws
+#: a new number, so a (name, version) pair identifies column data for the
+#: life of the process; the device frame cache (``frame/devcache.py``) keys
+#: its placements on these stamps.
+_COLUMN_VERSIONS = itertools.count(1)
 
 
 NA_CAT = np.int32(-1)  # categorical NA sentinel (codes); numeric NA is NaN
@@ -71,7 +82,7 @@ def compute_rollups(col: "Column") -> RollupStats:
 class Column:
     """One named, typed column with host-canonical numpy storage."""
 
-    __slots__ = ("name", "type", "data", "domain", "_rollups")
+    __slots__ = ("name", "type", "data", "domain", "_rollups", "version")
 
     def __init__(
         self,
@@ -89,6 +100,7 @@ class Column:
         self.data = _canonicalize(data, type)
         self.domain = list(domain) if domain is not None else None
         self._rollups: Optional[RollupStats] = None
+        self.version = next(_COLUMN_VERSIONS)
         if self.type is ColType.CAT and self.domain is None:
             raise ValueError(f"CAT column {name!r} requires a domain")
 
@@ -114,6 +126,13 @@ class Column:
         if self._rollups is None:
             self._rollups = compute_rollups(self)
         return self._rollups
+
+    def invalidate_rollups(self) -> None:
+        """Mutation notification: drops the cached rollups and bumps the
+        version stamp, so no device placement keyed on the old state is
+        served for the mutated data."""
+        self._rollups = None
+        self.version = next(_COLUMN_VERSIONS)
 
     def numeric_view(self) -> np.ndarray:
         """float64 view: CAT codes as floats with NaN NAs."""
@@ -242,6 +261,13 @@ class Frame:
     def columns(self) -> List[Column]:
         return list(self._cols)
 
+    @property
+    def version(self) -> Tuple[int, ...]:
+        """Per-column version stamps. Two frames with equal (names, version)
+        tuples hold identical data; a mutating path makes a fresh Column
+        (new stamp) or bumps in place with ``invalidate_rollups``."""
+        return tuple(c.version for c in self._cols)
+
     def col(self, name_or_idx: Union[str, int]) -> Column:
         if isinstance(name_or_idx, int):
             return self._cols[name_or_idx]
@@ -249,6 +275,17 @@ class Frame:
             if c.name == name_or_idx:
                 return c
         raise KeyError(f"no column {name_or_idx!r} in {self.names}")
+
+    def rows(self, sel: Any) -> "Frame":
+        """The rows a slice, a boolean mask or an index array selects, as a
+        new Frame of new Columns (new version stamps)."""
+        if isinstance(sel, slice) or (
+            isinstance(sel, np.ndarray) and sel.dtype in (bool, np.bool_)
+        ):
+            idx = np.arange(self.nrows)[sel]
+        else:
+            idx = np.asarray(sel, dtype=np.int64)
+        return Frame([c.select(idx) for c in self._cols])
 
     def __repr__(self) -> str:
         more = "..." if self.ncols > 8 else ""

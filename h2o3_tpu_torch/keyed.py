@@ -7,15 +7,32 @@ the reference is the lifecycle surface that ``models/framework.py`` uses:
 a frame in use by a running build cannot be removed) and per-thread scopes
 (``water/Scope.java``: keys a failed build registered are swept).
 
-Persistence, the memory budget with its ice spill, and the cluster router
-are not part of this package yet.
+Removing a frame's key (``remove``, or a scope drop) also evicts the
+device placements linked to it in the device frame cache
+(``frame/devcache.py``).
+
+Persistence, the memory budget with its ice spill, ``rekey``, ``clear``
+and the cluster router are not part of this package yet.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import uuid
 from typing import Any, Dict, List, Optional
+
+
+def _devcache_invalidate(key: Optional[str]) -> None:
+    """Drop device placements linked to a dropped frame key.
+
+    Looked up through sys.modules so the store never imports the cache: if
+    the module was never loaded, nothing was ever cached."""
+    if not key:
+        return
+    mod = sys.modules.get("h2o3_tpu_torch.frame.devcache")
+    if mod is not None:
+        mod.DEVCACHE.invalidate_frame(key)
 
 
 class KeyedStore:
@@ -75,7 +92,9 @@ class KeyedStore:
     def remove(self, key: str) -> None:
         with self._lock:
             self._check_unlocked(key)
-            self._store.pop(key, None)
+            v = self._store.pop(key, None)
+        if v is not None:
+            _devcache_invalidate(key)
 
     def keys(self) -> List[str]:
         with self._lock:
@@ -87,13 +106,17 @@ class KeyedStore:
 
     def scope_exit(self, keep: Optional[List[str]] = None) -> None:
         keep_set = set(keep or [])
+        dropped: List[str] = []
         with self._lock:
             if not self._scopes:
                 return
             for k in self._scopes.pop():
                 if k in keep_set or self._read_locks.get(k):
                     continue
-                self._store.pop(k, None)
+                if self._store.pop(k, None) is not None:
+                    dropped.append(k)
+        for k in dropped:
+            _devcache_invalidate(k)
 
 
 #: the process-wide catalog

@@ -2,17 +2,18 @@
 
 Parameters / Job / Model / ModelBuilder lifecycle (``hex/Model.java``,
 ``hex/ModelBuilder.java:368-377``, ``water/Job.java``): validate the
-parameters, build, score, compute metrics. ``ModelBuilder.train`` resolves
-the device the build runs on once (``device.resolve_device``) and the model
-keeps it, so scoring runs where training ran.
+parameters, build, cross-validate (``nfolds`` or ``fold_column``), score,
+compute metrics. ``ModelBuilder.train`` resolves the device the build runs
+on once (``device.resolve_device``) and the model keeps it, so scoring runs
+where training ran; the fold fits run there too.
 
-Not part of this package yet: the telemetry spans, homing a finished model
-on a cluster's serving ring, and cross-validation (``nfolds``/``fold_column``
-raise ``NotImplementedError``).
+Not part of this package yet: the telemetry spans, job cancellation and
+homing a finished model on a cluster's serving ring.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from dataclasses import dataclass, field as dataclass_field
 from typing import Any, Dict, List, Optional
@@ -75,6 +76,9 @@ class Job:
         self.status = "RUNNING"
         return self
 
+    def update(self, progress: float) -> None:
+        self.progress = min(max(progress, 0.0), 1.0)
+
     def done(self) -> None:
         self.end_time = time.time()
         self.progress = 1.0
@@ -123,6 +127,7 @@ class Model:
         self.device = device
         self.training_metrics: Optional[Any] = None
         self.validation_metrics: Optional[Any] = None
+        self.cross_validation_metrics: Optional[Any] = None
         self.scoring_history: List[Dict[str, Any]] = []
         self.run_time: float = 0.0
         DKV.put(self.key, self)
@@ -207,10 +212,10 @@ class ModelBuilder:
                     f"(got {val!r}); supported common params: "
                     f"{sorted(self.SUPPORTED_COMMON) or 'none'}"
                 )
-        if p.nfolds or p.fold_column:
-            raise NotImplementedError(
-                "cross-validation (nfolds / fold_column) is not ported to "
-                "h2o3_tpu_torch yet (ROADMAP A5: host model layer)")
+        if p.nfolds == 1:
+            raise ValueError("nfolds must be 0 or >= 2")
+        if p.nfolds and p.fold_column:
+            raise ValueError("cannot use both nfolds and fold_column")
         if p.response_column and p.response_column not in frame.names:
             raise ValueError(f"response_column {p.response_column!r} not in frame")
         if p.weights_column and p.weights_column not in frame.names:
@@ -237,6 +242,8 @@ class ModelBuilder:
         keep = [self.job.key]
         try:
             model = self._fit(frame, valid, device)
+            if self.params.nfolds >= 2 or self.params.fold_column:
+                self._cross_validate(model, frame, device)
             model.run_time = time.time() - t0
             self.job.done()
             keep = None
@@ -248,3 +255,95 @@ class ModelBuilder:
             DKV.scope_exit(keep=DKV.keys() if keep is None else keep)
             for k in locked:
                 DKV.read_unlock(k, self.job.key)
+
+    # -- cross-validation (ModelBuilder.computeCrossValidation) --------------
+    def _cross_validate(self, main_model: Model, frame: Frame,
+                        device: torch.device) -> None:
+        """Fit one model per fold on the other folds' rows, score its
+        holdout, and give the main model the metrics of the assembled
+        holdout predictions (``cross_validation_metrics``), the fold models
+        (``cv_models``) and, with ``keep_cross_validation_predictions``,
+        the predictions (``cv_holdout_predictions``)."""
+        p = self.params
+        fold = fold_assignment(
+            n=frame.nrows,
+            nfolds=p.nfolds,
+            scheme=p.fold_assignment,
+            seed=p.actual_seed(),
+            y=response_vector(main_model.data_info, frame)
+            if p.fold_assignment == "stratified" else None,
+            fold_column=frame.col(p.fold_column).numeric_view().astype(np.int64)
+            if p.fold_column
+            else None,
+        )
+        nfolds = int(fold.max()) + 1
+        nclasses = main_model.nclasses
+        holdout = (
+            np.full(frame.nrows, np.nan)
+            if nclasses == 1
+            else np.full((frame.nrows, nclasses), np.nan)
+        )
+        cv_models = []
+        for f in range(nfolds):
+            tr = frame.rows(fold != f)
+            te = frame.rows(fold == f)
+            sub = type(self)(_clone_params_no_cv(p))
+            m = sub._fit(tr, None, device)
+            cv_models.append(m)
+            holdout[fold == f] = m._predict_raw(te)
+            self.job.update(0.5 + 0.5 * (f + 1) / nfolds)
+        y = response_vector(main_model.data_info, frame)
+        w = (
+            frame.col(p.weights_column).numeric_view() if p.weights_column else None
+        )
+        if nclasses == 1:
+            main_model.cross_validation_metrics = M.regression_metrics(y, holdout, weights=w)
+        elif nclasses == 2:
+            main_model.cross_validation_metrics = M.binomial_metrics(y, holdout[:, 1], weights=w)
+        else:
+            main_model.cross_validation_metrics = M.multinomial_metrics(
+                y.astype(np.int64), holdout, main_model.data_info.response_domain, weights=w
+            )
+        main_model.cv_models = cv_models
+        if p.keep_cross_validation_predictions:
+            main_model.cv_holdout_predictions = holdout
+
+
+def _clone_params_no_cv(p: ModelParameters) -> ModelParameters:
+    q = copy.deepcopy(p)
+    q.nfolds = 0
+    q.fold_column = None
+    return q
+
+
+def fold_assignment(
+    n: int,
+    nfolds: int,
+    scheme: str = "auto",
+    seed: int = 42,
+    y: Optional[np.ndarray] = None,
+    fold_column: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Row -> fold id (hex/FoldAssignment.java). auto==random; modulo is
+    deterministic row%nfolds; stratified balances class frequencies per fold."""
+    if fold_column is not None:
+        vals = fold_column
+        uniq = np.unique(vals)
+        remap = {v: i for i, v in enumerate(uniq)}
+        return np.array([remap[v] for v in vals], dtype=np.int64)
+    if scheme in ("auto", "random"):
+        rng = np.random.default_rng(seed)
+        return rng.integers(0, nfolds, size=n)
+    if scheme == "modulo":
+        return np.arange(n) % nfolds
+    if scheme == "stratified":
+        if y is None:
+            raise ValueError("stratified fold assignment needs the response")
+        rng = np.random.default_rng(seed)
+        fold = np.zeros(n, dtype=np.int64)
+        for cls in np.unique(y[~np.isnan(y)]):
+            idx = np.nonzero(y == cls)[0]
+            perm = rng.permutation(len(idx))
+            fold[idx[perm]] = np.arange(len(idx)) % nfolds
+        return fold
+    raise ValueError(f"unknown fold_assignment {scheme!r}")

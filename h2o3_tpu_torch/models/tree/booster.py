@@ -3,10 +3,13 @@
 Shared by GBM and XGBoost. The design is the JAX package's, written as
 eager PyTorch on one device:
 
-* global quantile binning once per fit (``ops/histogram.make_bins`` and
-  ``apply_bins`` on the host), then the bin codes go to the device once,
-  feature-major ([F, N] int32), which is the layout the histogram kernel
-  reads and the row router gathers from;
+* global quantile binning once per fit (``ops/histogram.make_bins`` on the
+  host), then the bin codes are made on the device once
+  (``apply_bins_device``), feature-major ([F, N] int32), which is the
+  layout the histogram kernel reads and the row router gathers from; with
+  a ``cache_token`` they are kept in the device frame cache
+  (``frame/devcache.py``), so a later fit on the same unmutated frame and
+  binning reuses them;
 * a tree grows level by level with a fixed node capacity 2^d per level;
   each level builds one histogram for all its nodes (on the card: a
   hand-written kernel, node-matmul up to 64 padded nodes, sorted per-node
@@ -35,6 +38,8 @@ custom objective (ROADMAP A11) and chunk-homed distributed training
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import time
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
@@ -43,10 +48,11 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.frame import devcache
 from h2o3_tpu_torch.ops.histogram import (
     HIST_IMPLS,
     FitCache,
-    apply_bins,
+    apply_bins_device,
     build_histogram,
     check_hist_dtype,
     default_hist_impl,
@@ -458,11 +464,9 @@ class BoostedTrees:
         return len(self.trees_per_class)
 
     def predict_margin(self, X: np.ndarray) -> np.ndarray:
-        """Raw margins [N, C] float64 from raw features (re-binned with the
-        stored edges, on the host), the trees walked on the device."""
-        t0 = self.trees_per_class[0]
-        bins_fm = torch.from_numpy(
-            np.ascontiguousarray(apply_bins(X, t0.edges).T)).to(self.device)
+        """Raw margins [N, C] float64 from raw features, re-binned with the
+        stored edges and the trees walked, on the device."""
+        bins_fm = apply_bins_device(X, self.trees_per_class[0].edges, self.device)
         cols = []
         for c, trees in enumerate(self.trees_per_class):
             if trees.ntrees == 0:
@@ -502,6 +506,8 @@ def train_boosted(
     subtract: Optional[bool] = None,
     hist_fact_max_kc: int = 0,
     hist_dtype: str = "f32",
+    cache_token=None,
+    cache_frame_key: Optional[str] = None,
 ) -> BoostedTrees:
     """Device-resident booster loop.
 
@@ -527,7 +533,15 @@ def train_boosted(
     "bf16": g, h and the count weight rounded to bf16 and summed in float,
     as the JAX package's histograms do by default on its own chip (its
     ``H2O3_TPU_HIST_DTYPE``). The terminal level's node totals are not
-    rounded."""
+    rounded.
+    cache_token: hashable identity of X's provenance (frame column versions
+    and encoding; ``models/tree/common.tree_cache_token``). When set, the
+    fit's ``FitCache`` (the bin codes made on the device, and the sorted
+    kernel's row-major copy once a level makes it) is kept in the device
+    frame cache under (token, edges, nbins, device), so a repeat GBM, DRF
+    or XGBoost fit on the same unmutated frame reuses the resident codes
+    instead of binning again. cache_frame_key links the entry to a DKV
+    frame for eviction. None bypasses the cache."""
     if getattr(X, "is_dist_hist", False):
         raise _not_ported("chunk-homed distributed training",
                           "ROADMAP A10: cluster-side compute")
@@ -549,9 +563,26 @@ def train_boosted(
             raise ValueError("checkpoint nbins mismatch")
     else:
         edges = make_bins(X, p.nbins, seed=p.seed)
+    _t_bins = time.time()
     n_bins1 = p.nbins + 1
-    bins_fm = torch.from_numpy(np.ascontiguousarray(apply_bins(X, edges).T)).to(dev)
-    cache = FitCache(bins_fm, n_bins1)
+    # the codes are a function of (X's provenance, edges, device) alone,
+    # reusable across fits of any algorithm that share a frame and a
+    # binning spec. A hit must not change a tree: nothing on the fit's or
+    # the scoring path writes into bins_fm or codes_rm in place.
+    extra_key = (hashlib.sha1(np.ascontiguousarray(edges).tobytes()).hexdigest(),
+                 p.nbins)
+    entry = devcache.cache_key("tree_bins", cache_token, extra_key, dev)
+
+    def _place():
+        return FitCache(apply_bins_device(X, edges, dev), n_bins1,
+                        on_grow=functools.partial(devcache.DEVCACHE.grow_entry, entry))
+
+    cache = devcache.cached("tree_bins", cache_token, extra_key, dev, _place,
+                            frame_key=cache_frame_key)
+    bins_fm = cache.bins_fm
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _t_place = time.time()
 
     C = n_class_trees
     y_d = torch.from_numpy(np.ascontiguousarray(y, dtype=np.float32)).to(dev)
@@ -641,6 +672,8 @@ def train_boosted(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings["prep_s"] = _t_prep - _t0
+        timings["bins_s"] = _t_bins - _t0
+        timings["place_s"] = _t_place - _t_bins
         timings["train_s"] = time.time() - _t_prep
     return BoostedTrees(trees_per_class, np.asarray(init_margin, np.float64), p,
                         average=average, device=dev)

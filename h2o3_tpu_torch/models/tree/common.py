@@ -5,18 +5,22 @@ XGBoost share. Trees consume raw (non-standardized) predictors; categoricals are
 label-encoded ordinals by default or one-hot indicators with
 ``categorical_encoding="one_hot_explicit"``.
 
-Not part of this package yet: the device frame cache (``tree_cache_token``:
-the bins are re-binned every fit), SHAP contributions, variable
-importances, chunk-homed frames and the custom distribution.
+``tree_cache_token`` is the device frame cache's identity of a fit's bin
+codes, so repeat fits on an unmutated frame reuse them.
+
+Not part of this package yet: SHAP contributions, variable importances,
+chunk-homed frames and the custom distribution.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.frame import devcache
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.keyed import DKV
 from h2o3_tpu_torch.models import metrics as M
@@ -266,6 +270,25 @@ def training_score(
     return wavg((margin[:, 0] - y) ** 2)
 
 
+def tree_cache_token(frame: Frame, p, encoding: str):
+    """Device frame cache identity of a booster's bin-code placement.
+
+    The binned matrix is a function of the frame's column versions, the
+    categorical encoding, and the params that shape X and the keep mask
+    (ignored, response, weights and offset columns) only: it does not
+    depend on the algorithm, so GBM, DRF and XGBoost fits on one frame with
+    one binning spec share one entry. Returns None (cache bypass) for
+    frames without version stamps."""
+    tok = devcache.frame_token(frame)
+    if tok is None:
+        return None
+    return (
+        tok, encoding, tuple(p.ignored_columns), p.response_column,
+        getattr(p, "weights_column", None),
+        getattr(p, "offset_column", None),
+    )
+
+
 def extract_weights(frame: Frame, p, keep: np.ndarray):
     """Load + validate weights_column, folding zero/NA-weight rows into the
     keep mask (dropping them is equivalent to the reference's zero
@@ -319,6 +342,19 @@ def tree_fit_setup(frame: Frame, p, model_cls, use_offset: bool,
     if mono is not None and dist == "multinomial":
         raise ValueError("monotone_constraints not supported for multinomial")
     return model, X, y, weights, offset, objective, f0, n_class_trees, mono
+
+
+def finish_tree_fit(model, frame: Frame, valid: Optional[Frame]):
+    """The end of a GBM/XGBoost/DRF ``_fit``: the trees built, then the
+    training (and validation) metrics, their scoring pass timed as
+    ``metrics_s``."""
+    model.ntrees_built = model.booster.trees_per_class[0].ntrees
+    t0 = time.time()
+    model.training_metrics = model.model_performance(frame)
+    model.timings["metrics_s"] = time.time() - t0
+    if valid is not None:
+        model.validation_metrics = model.model_performance(valid)
+    return model
 
 
 def make_tree_monitor(model, p, objective, y, weights, history):
@@ -449,7 +485,11 @@ class TreeModelBase(Model):
         self.distribution = distribution
         self.booster = None  # BoostedTrees
         self.ntrees_built = 0
-        #: fit wall seconds: prep_s (binning + upload), train_s (boosting)
+        #: fit wall seconds: setup_s (``tree_fit_setup``: layout, matrix,
+        #: targets), prep_s (the booster's set-up: bins_s for ``make_bins``,
+        #: place_s for the bin codes made and placed, the rest for y, the
+        #: starting margin and the other uploads), train_s (boosting),
+        #: metrics_s (the training-metrics scoring pass)
         self.timings: dict = {}
         self.tree_encoding = resolve_tree_encoding(
             getattr(params, "categorical_encoding", "auto"))

@@ -8,12 +8,12 @@ predictions average the trees. A classifier fits one indicator-regression
 tree set per class (one set of P(class 1) for a binomial response); the
 averaged leaves are class fractions, normalised to probabilities.
 
-Not part of this package yet: the chunk-homed distributed fit and the
-device frame cache (``tree_cache_token``).
+Not part of this package yet: the chunk-homed distributed fit.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -29,6 +29,8 @@ from h2o3_tpu_torch.models.tree.common import (
     checkpoint_booster,
     extra_trees,
     extract_weights,
+    finish_tree_fit,
+    tree_cache_token,
     tree_data_info,
     tree_matrix,
 )
@@ -82,6 +84,7 @@ class DRF(ModelBuilder):
     def _fit(self, frame: Frame, valid: Optional[Frame],
              device: torch.device) -> DRFModel:
         p: DRFParameters = self.params
+        t0 = time.time()
         ignored = list(p.ignored_columns)
         if p.weights_column and p.weights_column not in ignored:
             ignored.append(p.weights_column)
@@ -109,6 +112,7 @@ class DRF(ModelBuilder):
         else:
             targets = y[:, None]
             n_class_trees = 1
+        model.timings["setup_s"] = time.time() - t0
 
         tp = TreeParams(
             ntrees=extra_trees(p, n_class_trees),
@@ -144,9 +148,7 @@ class DRF(ModelBuilder):
             subtract=p.tree_subtract,
             hist_fact_max_kc=p.hist_fact_max_kc,
             hist_dtype=p.hist_dtype,
+            cache_token=tree_cache_token(frame, p, model.tree_encoding),
+            cache_frame_key=getattr(frame, "key", None),
         )
-        model.ntrees_built = model.booster.trees_per_class[0].ntrees
-        model.training_metrics = model.model_performance(frame)
-        if valid is not None:
-            model.validation_metrics = model.model_performance(valid)
-        return model
+        return finish_tree_fit(model, frame, valid)

@@ -7,6 +7,7 @@ leaf L2, on the booster core of ``models/tree/booster.py``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -19,7 +20,9 @@ from h2o3_tpu_torch.models.tree.common import (
     TreeModelBase,
     checkpoint_booster,
     extra_trees,
+    finish_tree_fit,
     make_tree_monitor,
+    tree_cache_token,
     tree_fit_setup,
 )
 
@@ -76,9 +79,11 @@ class GBM(ModelBuilder):
     def _fit(self, frame: Frame, valid: Optional[Frame],
              device: torch.device) -> GBMModel:
         p: GBMParameters = self.params
+        t0 = time.time()
         model, X, y, weights, offset, objective, f0, n_class_trees, mono = (
             tree_fit_setup(frame, p, GBMModel, use_offset=True, device=device)
         )
+        model.timings["setup_s"] = time.time() - t0
         tp = TreeParams(
             ntrees=extra_trees(p, n_class_trees),
             max_depth=p.max_depth,
@@ -118,9 +123,7 @@ class GBM(ModelBuilder):
             subtract=p.tree_subtract,
             hist_fact_max_kc=p.hist_fact_max_kc,
             hist_dtype=p.hist_dtype,
+            cache_token=tree_cache_token(frame, p, model.tree_encoding),
+            cache_frame_key=getattr(frame, "key", None),
         )
-        model.ntrees_built = model.booster.trees_per_class[0].ntrees
-        model.training_metrics = model.model_performance(frame)
-        if valid is not None:
-            model.validation_metrics = model.model_performance(valid)
-        return model
+        return finish_tree_fit(model, frame, valid)

@@ -7,6 +7,7 @@ the booster core of ``models/tree/booster.py``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -19,7 +20,9 @@ from h2o3_tpu_torch.models.tree.common import (
     TreeModelBase,
     checkpoint_booster,
     extra_trees,
+    finish_tree_fit,
     make_tree_monitor,
+    tree_cache_token,
     tree_fit_setup,
 )
 
@@ -88,9 +91,11 @@ class XGBoost(ModelBuilder):
                 f"xgboost does not support distribution {p.distribution!r}; "
                 f"choose from {sorted(self.DISTRIBUTIONS)}"
             )
+        t0 = time.time()
         model, X, y, weights, _, objective, f0, n_class_trees, mono = (
             tree_fit_setup(frame, p, XGBoostModel, use_offset=False, device=device)
         )
+        model.timings["setup_s"] = time.time() - t0
         tp = TreeParams(
             ntrees=extra_trees(p, n_class_trees),
             max_depth=p.max_depth,
@@ -130,9 +135,7 @@ class XGBoost(ModelBuilder):
             subtract=p.tree_subtract,
             hist_fact_max_kc=p.hist_fact_max_kc,
             hist_dtype=p.hist_dtype,
+            cache_token=tree_cache_token(frame, p, model.tree_encoding),
+            cache_frame_key=getattr(frame, "key", None),
         )
-        model.ntrees_built = model.booster.trees_per_class[0].ntrees
-        model.training_metrics = model.model_performance(frame)
-        if valid is not None:
-            model.validation_metrics = model.model_performance(valid)
-        return model
+        return finish_tree_fit(model, frame, valid)

@@ -1,8 +1,10 @@
 """Gradient histograms — the port of ``h2o3_tpu/ops/histogram.py``.
 
-- ``make_bins`` (:113) and ``apply_bins`` (:178) are copied verbatim and run
-  on the host in numpy, so bin codes are bit-identical to the JAX package.
-  The NA code is ``nbins`` (256 at XGBoost's default), so codes are int32.
+- ``make_bins`` (:113) is copied verbatim and runs on the host in numpy.
+  ``apply_bins_device`` makes the bin codes on the fit's device, feature-major
+  ([F, N] int32), bit for bit the codes of ``apply_bins`` (:178), which is
+  kept verbatim as its reference. The NA code is ``nbins`` (256 at
+  XGBoost's default), so codes are int32.
 - ``pad_nodes`` (:70-89): the node-count ladder 8/64/512.
 - ``build_histogram`` is the dispatch, as ``pallas_histogram.py:475-476,
   494-512`` keys it off the padded node count (``histogram.py:398-402``):
@@ -18,15 +20,17 @@
   ``dtype`` (``"f32"`` or ``"bf16"``, the operand mode of
   ``_resolve_hist_dtype``, ``pallas_histogram.py:438``) goes to whichever
   version builds the level.
-- ``FitCache`` holds what a fit's levels share: the sorted kernel's
-  row-major copy of the codes, made at the first level that needs it.
+- ``FitCache`` holds what a fit's levels share: the feature-major codes and
+  the sorted kernel's row-major copy of them, made at the first level that
+  needs it. The device frame cache keeps it, so later fits on the same
+  frame share it too.
 - ``node_totals`` (:280): the terminal level's per-node totals, a scatter
   (``index_add_``) as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,8 +147,12 @@ def apply_bins(X: np.ndarray, edges: np.ndarray) -> np.ndarray:
     ~0.7x, jnp/f32 ~0.7x AND inexact), while for wide-short matrices the
     per-call overhead of F tiny searchsorteds dominates and the batched
     argsort path wins (n=8, F=5000: ~1.8x). Both paths are bit-exact
-    against the per-feature formulation; the hot repeat-fit case no longer
-    reaches either — the device frame cache serves the bin codes resident.
+    against the per-feature formulation.
+
+    In this package it is the reference that ``apply_bins_device`` is held
+    to, and no fit or scoring pass calls it: they bin on their device, and
+    a repeat fit on an unmutated frame takes its codes resident from the
+    device frame cache (``frame/devcache.py``).
     """
     X = np.asarray(X)
     n, F = X.shape
@@ -161,6 +169,40 @@ def apply_bins(X: np.ndarray, edges: np.ndarray) -> np.ndarray:
     return out
 
 
+#: values searched per ``torch.searchsorted`` call of ``apply_bins_device``
+#: (a float64 workspace of 256 MiB)
+_BIN_BLOCK_VALUES = 1 << 25
+
+
+def apply_bins_device(X: np.ndarray, edges: np.ndarray, device) -> torch.Tensor:
+    """``apply_bins(X, edges).T`` made on ``device``: bin codes [F, N] int32,
+    feature-major, bit for bit the host function's codes.
+
+    X [N, F] goes to the device as it is and is transposed there. Values
+    are widened to float64 before they are searched, as numpy's
+    ``searchsorted`` promotes float32 values to the float64 edges' type (a
+    float32 search would move codes at values next to an edge): code =
+    the number of edges <= the value (``right=True``), so +inf gives
+    ``nbins - 1`` even against the +inf edges that pad a low-cardinality
+    column, -inf gives 0 and -0.0 equals a 0.0 edge. NaN gives ``nbins``
+    by an explicit ``where``. Row blocks bound the float64 workspace."""
+    dev = torch.device(device)
+    n, F = X.shape
+    out = torch.empty((F, n), dtype=torch.int32, device=dev)
+    if n == 0 or F == 0:
+        return out
+    nbins = edges.shape[1] + 1
+    x = torch.from_numpy(np.ascontiguousarray(X)).to(dev)
+    e = torch.from_numpy(np.ascontiguousarray(edges, dtype=np.float64)).to(dev)
+    block = max(1, _BIN_BLOCK_VALUES // F)
+    for s in range(0, n, block):
+        xb = torch.empty((F, min(block, n - s)), dtype=torch.float64, device=dev)
+        xb.copy_(x[s:s + block].T)
+        codes = torch.searchsorted(e, xb, right=True, out_int32=True)
+        out[:, s:s + block] = torch.where(torch.isnan(xb), nbins, codes)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # histograms
 
@@ -171,23 +213,37 @@ def default_hist_impl(device: torch.device) -> str:
 
 
 class FitCache:
-    """What one fit's levels share, for ``build_histogram``: the row-major
-    copy of the fit's codes (``cuda_sorted_histogram.row_major_codes``)
-    that the sorted kernel's gather reads. It is made once, at the first
-    level that goes to the sorted kernel, and only on the card: on the CPU
-    that level takes the plain version, which reads ``bins_fm``."""
+    """What a fit's levels share, for ``build_histogram``: the fit's
+    feature-major codes ``bins_fm`` and their row-major copy
+    (``cuda_sorted_histogram.row_major_codes``) that the sorted kernel's
+    gather reads. The copy is made once, at the first level that goes to
+    the sorted kernel, and only on the card: on the CPU that level takes
+    the plain version, which reads ``bins_fm``.
 
-    def __init__(self, bins_fm: torch.Tensor, n_bins1: int):
-        self._bins_fm = bins_fm
+    The device frame cache keeps a fit's ``FitCache`` (its tensors are
+    ``arrays``), so later fits on the same frame and binning share both
+    tensors; ``on_grow``, when set, is told the bytes of the copy when it
+    is made (the cache's ``grow_entry`` for the entry)."""
+
+    def __init__(self, bins_fm: torch.Tensor, n_bins1: int,
+                 on_grow: Optional[Callable[[int], None]] = None):
+        self.bins_fm = bins_fm
         self._n_bins1 = n_bins1
         self._codes_rm: Optional[torch.Tensor] = None
+        self.on_grow = on_grow
+
+    @property
+    def arrays(self) -> Dict[str, Optional[torch.Tensor]]:
+        return {"bins_fm": self.bins_fm, "codes_rm": self._codes_rm}
 
     def codes_rm(self) -> Optional[torch.Tensor]:
         """The copy (made at the first call), or None on the CPU."""
-        if self._bins_fm.device.type == "cpu":
+        if self.bins_fm.device.type == "cpu":
             return None
         if self._codes_rm is None:
-            self._codes_rm = row_major_codes(self._bins_fm, self._n_bins1)
+            self._codes_rm = row_major_codes(self.bins_fm, self._n_bins1)
+            if self.on_grow is not None:
+                self.on_grow(self._codes_rm.nbytes)
         return self._codes_rm
 
 

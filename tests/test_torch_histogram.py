@@ -42,6 +42,21 @@ counts exact without a weight), and must differ from the f32 output. Its
 rounding is the JAX package's cast, bit for bit, and the dispatch hands the
 mode to whichever version builds a level.
 
+Binning: ``make_bins`` and the host ``apply_bins`` are the JAX package's,
+and the fit's device binning ``apply_bins_device`` (CPU tensors here) gives
+the same codes bit for bit, on float64 and float32 frames and on values
+binning can get wrong (NaN, +-inf against +inf-padded edges, -0.0, values
+next to an edge, an all-NaN column, no rows, no features).
+
+Fits through the device frame cache: a repeat fit on an unmutated frame
+hits and hands its levels the cached ``FitCache``, with equal trees; a
+mutated column, ``DKV.remove`` of the frame's key or a cleared cache makes
+the next fit miss; a DRF fit with GBM's bins and seed shares GBM's entry.
+The cache itself is driven through one sequence beside the JAX package's
+``DeviceFrameCache`` (LRU order, budget, an oversized newest entry,
+``set_max_bytes``, ``grow_entry``, ``invalidate_frame``, ``clear``, the
+device in the key): the same hits, misses and surviving keys.
+
 The kernels themselves run only on the card: see ``tests/test_torch_kernels.py``.
 """
 
@@ -64,6 +79,7 @@ from h2o3_tpu_torch.ops import cuda_histogram as ch
 from h2o3_tpu_torch.ops import cuda_sorted_histogram as cs
 from h2o3_tpu_torch.ops.histogram import (
     apply_bins,
+    apply_bins_device,
     build_histogram,
     make_bins,
     node_totals,
@@ -227,6 +243,34 @@ def test_pad_nodes_ladder_matches_jax():
         assert pad_nodes(k) == jax_pad_nodes(k)
 
 
+def _adversarial_bins_frame(n, f, nbins, seed):
+    """A float32 frame of the values binning can get wrong, with its edges:
+    5% NaN, +-inf, -0.0 beside 0.0, values set to an edge rounded to
+    float32 and to that value's float32 neighbours, a 3-value column (edges
+    padded with +inf) and an all-NaN column (edges ``arange``)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, f + 3))
+    X[:, f] = rng.integers(0, 3, n)  # 3 values: midpoint edges, +inf pad
+    X[:, f + 1] = 0.0  # with -0.0 below
+    X[:, f + 2] = np.nan  # all NaN
+    X[:, :f][rng.random((n, f)) < 0.05] = np.nan
+    # edges of the float64 data, so most lie between two float32 values
+    edges = make_bins(X, nbins, seed=seed)
+    X = X.astype(np.float32)
+    m = max(n // 8, 1)
+    for j in range(f + 2):
+        X[rng.integers(0, n, 3), j] = np.inf
+        X[rng.integers(0, n, 3), j] = -np.inf
+        X[rng.integers(0, n, 3), j] = -0.0
+        finite = edges[j][np.isfinite(edges[j])]
+        if finite.size:
+            e = rng.choice(finite, m).astype(np.float32)
+            X[rng.integers(0, n, m), j] = e  # equal to an edge (in float32)
+            X[rng.integers(0, n, m), j] = np.nextafter(e, np.float32(np.inf))
+            X[rng.integers(0, n, m), j] = np.nextafter(e, np.float32(-np.inf))
+    return X, edges
+
+
 @pytest.mark.parametrize("n,f,nbins", [(5000, 6, 256), (3000, 4, 20), (8, 400, 16)])
 def test_bins_bit_identical(n, f, nbins):
     rng = np.random.default_rng(n + f)
@@ -238,6 +282,33 @@ def test_bins_bit_identical(n, f, nbins):
     codes = apply_bins(X, edges)
     np.testing.assert_array_equal(codes, jax_apply_bins(X, edges))
     assert codes.dtype == np.int32 and codes.max() <= nbins
+    # the fit's device binning (on CPU tensors here) gives the same codes,
+    # feature-major, for float64 X and for the fit's float32 X
+    for x in (X, X.astype(np.float32)):
+        got = apply_bins_device(x, edges, "cpu")
+        assert got.dtype == torch.int32 and got.shape == (f, n), x.dtype
+        np.testing.assert_array_equal(got.numpy(), jax_apply_bins(x, edges).T,
+                                      err_msg=f"device binning, {x.dtype} X")
+    # and on the values binning can get wrong: NaN, +-inf against +inf
+    # padded edges, -0.0 against a 0.0 edge, values equal to an edge or one
+    # float32 step off it, an all-NaN column; a float32 search would move
+    # codes next to an edge, so the float64 search must be what runs
+    Xa, ea = _adversarial_bins_frame(n, f, nbins, seed=n + f)
+    want = jax_apply_bins(Xa, ea)
+    np.testing.assert_array_equal(apply_bins(Xa, ea), want, err_msg="host copy, adversarial")
+    got = apply_bins_device(Xa, ea, "cpu").numpy()
+    np.testing.assert_array_equal(got, want.T, err_msg="device binning, adversarial")
+    assert (got[f + 2] == nbins).all(), "all-NaN column: the NA code"
+    np.testing.assert_array_equal(got[np.isposinf(Xa).T], nbins - 1, err_msg="+inf code")
+    np.testing.assert_array_equal(got[np.isneginf(Xa).T], 0, err_msg="-inf code")
+    f32_search = torch.searchsorted(torch.from_numpy(ea).float(),
+                                    torch.from_numpy(np.ascontiguousarray(Xa.T)),
+                                    right=True).numpy()
+    ok = ~np.isnan(Xa.T)
+    assert (f32_search[ok] != want.T[ok]).any(), "no value the float32 search moves"
+    # no rows, and no features
+    assert apply_bins_device(Xa[:0], ea, "cpu").shape == (f + 3, 0)
+    assert apply_bins_device(Xa[:, :0], ea[:0], "cpu").shape == (0, n)
 
 
 # ---------------------------------------------------------------------------
@@ -573,6 +644,129 @@ def test_fit_makes_codes_rm_once_for_its_sorted_levels(
     pb.train_boosted(X, "gaussian", y, 1, np.zeros(1), p, device="cpu",
                      hist_impl="plain", subtract=subtract)
     assert made == []
+
+    _check_fits_through_the_frame_cache(monkeypatch, X, y, caches, max_depth, subtract)
+    _check_cache_protocol_matches_jax()
+
+
+def _check_fits_through_the_frame_cache(monkeypatch, X, y, caches, max_depth, subtract):
+    """Builder fits keep their FitCache in the device frame cache: a repeat
+    fit on the unmutated frame hits and hands its levels the cached
+    FitCache, with equal trees; so does a DRF fit with the same bins and
+    seed; a mutated column, DKV.remove of the frame's key or a cleared
+    cache makes the next fit miss, with equal trees."""
+    import h2o3_tpu_torch as ht
+    from h2o3_tpu_torch.frame import devcache
+    from h2o3_tpu_torch.keyed import DKV as PDKV
+
+    fresh = devcache.DeviceFrameCache()
+    monkeypatch.setattr(devcache, "DEVCACHE", fresh)
+    fr = ht.Frame.from_dict({**{f"x{j}": X[:, j] for j in range(4)}, "y": y})
+    fr.key = PDKV.put(PDKV.make_key("frame"), fr)
+    kw = dict(response_column="y", ntrees=2, max_depth=max_depth, nbins=20, seed=1,
+              tree_subtract=subtract, hist_impl="kernel", device="cpu")
+
+    def fit(case, builder, hits, misses):
+        caches.clear()
+        m = builder(**kw).train(fr)
+        assert caches and all(c is caches[0] for c in caches), case
+        got = fresh.stats()["kinds"]["tree_bins"]
+        assert (got["hits"], got["misses"]) == (hits, misses), (case, got)
+        assert caches[0].bins_fm is fresh._entries[next(reversed(fresh._entries))].value.bins_fm, case
+        return m, caches[0]
+
+    first, cache = fit("first fit", ht.GBM, 0, 1)
+    again, cache_again = fit("repeat fit", ht.GBM, 1, 1)
+    assert cache_again is cache, "the repeat fit is not handed the cached FitCache"
+    drf, cache_drf = fit("DRF with GBM's bins and seed", ht.DRF, 2, 1)
+    assert cache_drf is cache, "the DRF fit does not share GBM's entry"
+    fr.col("x1").invalidate_rollups()
+    mutated, cache_mutated = fit("after a mutated column", ht.GBM, 2, 2)
+    assert cache_mutated is not cache
+    PDKV.remove(fr.key)
+    assert len(fresh) == 0, "DKV.remove left the frame's entries"
+    removed, _ = fit("after DKV.remove", ht.GBM, 2, 3)
+    fresh.clear()
+    cleared, _ = fit("after clear", ht.GBM, 2, 4)
+    for name, m in (("repeat", again), ("mutated", mutated), ("removed", removed),
+                    ("cleared", cleared)):
+        for f in ("feat", "split_bin", "default_left", "is_split", "leaf"):
+            np.testing.assert_array_equal(
+                np.stack(getattr(first.booster.trees_per_class[0], f)),
+                np.stack(getattr(m.booster.trees_per_class[0], f)), err_msg=f"{name} {f}")
+
+
+def _check_cache_protocol_matches_jax():
+    """One sequence of lookups through the port's DeviceFrameCache and the
+    JAX package's: after each step the same builds (misses, in order), the
+    same surviving keys in LRU order and the same bytes."""
+    from h2o3_tpu.frame.devcache import DeviceFrameCache as JDeviceFrameCache
+    from h2o3_tpu_torch.frame import devcache
+
+    port, ref = devcache.DeviceFrameCache(max_bytes=100), JDeviceFrameCache(max_bytes=100)
+    built = {"port": [], "jax": []}
+    gets = 0
+
+    def get(key, nbytes, frame_key=None):
+        nonlocal gets
+        gets += 1
+        for name, cache, make in (
+                ("port", port, lambda: torch.zeros(nbytes, dtype=torch.uint8)),
+                ("jax", ref, lambda: np.zeros(nbytes, dtype=np.uint8))):
+            cache.get_or_put(key, lambda: built[name].append(key) or make(),
+                             frame_key=frame_key, kind="tree_bins")
+
+    def check(step, keys):
+        assert built["port"] == built["jax"], step
+        assert list(port._entries) == list(ref._entries) == keys, step
+        assert port.stats()["bytes"] == ref.stats()["bytes"], step
+        counts = port.stats()["kinds"]["tree_bins"]
+        assert (counts["misses"], counts["hits"]) == (
+            len(built["port"]), gets - len(built["port"])), step
+
+    def key(name, device="cpu"):
+        return devcache.cache_key("tree_bins", ("frame", 10, ((name, 1),)), ("e", 20), device)
+
+    A, B, C, D, E, F, G = (key(c) for c in "ABCDEFG")
+    get(A, 40, "fa")
+    get(B, 40)
+    check("two entries", [A, B])
+    get(A, 40)
+    check("a hit moves A last", [B, A])
+    get(C, 40)
+    check("over budget: the least recently used goes", [A, C])
+    get(B, 40)
+    check("B again is a miss", [C, B])
+    get(D, 500)
+    check("an oversized newest entry stays alone", [D])
+    for cache in (port, ref):
+        cache.set_max_bytes(1000)
+    get(E, 10)
+    for cache in (port, ref):
+        cache.set_max_bytes(20)
+    check("set_max_bytes shrinks", [E])
+    for cache in (port, ref):
+        cache.grow_entry(E, 15)
+        cache.grow_entry(A, 15)  # evicted: no-op
+    check("grow_entry on the only entry", [E])
+    get(F, 5, "fa")
+    get(G, 5, "fb")
+    check("growth counted", [F, G])
+    assert port.invalidate_frame("fa") == ref.invalidate_frame("fa") == 1
+    check("invalidate_frame", [G])
+    cpu, meta = key("H"), key("H", "meta")
+    assert cpu != meta, "the device is not in the key"
+    get(cpu, 5)
+    get(meta, 5)
+    get(cpu, 5)
+    check("the device in the key", [G, meta, cpu])
+    for cache in (port, ref):
+        cache.clear()
+    check("clear", [])
+    n_built, before = [], devcache.DEVCACHE.stats()
+    for _ in range(2):  # no token: built every time, never kept or counted
+        devcache.cached("tree_bins", None, None, "cpu", lambda: n_built.append(1))
+    assert len(n_built) == 2 and devcache.DEVCACHE.stats() == before
 
 
 def test_dispatch_takes_the_sorted_kernel_beyond_64_padded_nodes(monkeypatch):

@@ -100,13 +100,28 @@ Run from the root of a checkout. Phases, each of which must pass:
    0.5, 6 node-matmul launches per tree of each of the 4 fits, each fold
    frame a cache miss, and equal fold trees (or CV AUC within 1e-4) with
    the plain histogram on the card; then no cache entry was evicted;
-16. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+16. the scoring surface on phase 8's XGBoost model (and phase 10's DRF
+   model for the MOJO): ``predict_raw_batched`` on [frame, frame, its
+   first 300,000 rows], each caller's raw scores ``np.array_equal`` to a
+   pass over its frame alone, timed against the three passes;
+   ``reset_threshold`` moves labels; ``make_metrics`` on the raw scores
+   equals ``model_performance``; ``predict_contributions`` (TreeSHAP on the
+   host, the training frame as background) on the first 2,000 rows, each
+   row summing to ``predict_margin`` at rtol 1e-5 / atol 1e-5, in rows/s;
+   ``variable_importances`` summing to 1; ``save_model``/``load_model`` on
+   the card giving the same bits on 300,000 rows, and ``dumps_model`` the
+   same bytes twice; the XGBoost and DRF MOJOs scored by the numpy
+   ``genmodel`` on 10,000 rows at rtol 1e-4 / atol 1e-5; the C POJO built
+   with the host's C compiler against ``predict`` at rtol 1e-5 / atol 1e-6;
+   the entry step (``h2o3_tpu_torch.entry``) on the card against the CPU's
+   at atol 1e-6. It prints a ``{"surface": {...}}`` line with each time;
+17. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15), then
+those of phases 8-15; phase 16 launches no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX.
@@ -949,6 +964,176 @@ def profile_fit(builder_cls, frame, label, **kw):
     return rec
 
 
+def compile_pojo(src, workdir):
+    """The C POJO as a shared library, built with the host's C compiler
+    (the one nvcc itself needs)."""
+    import ctypes
+    import os
+    import shutil
+
+    cc = shutil.which("gcc") or shutil.which("cc")
+    if cc is None:
+        raise AssertionError("surface: no host C compiler for the POJO")
+    c_path, so_path = os.path.join(workdir, "pojo.c"), os.path.join(workdir, "pojo.so")
+    with open(c_path, "w") as fh:
+        fh.write(src)
+    subprocess.run([cc, "-O2", "-shared", "-fPIC", "-o", so_path, c_path, "-lm"],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(so_path)
+    lib.score.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_double)]
+    return lib
+
+
+def pojo_scores(lib, X32, n_out):
+    import ctypes
+
+    out = np.zeros((X32.shape[0], n_out))
+    buf = np.zeros(n_out, dtype=np.float64)
+    for i in range(X32.shape[0]):
+        row = np.ascontiguousarray(X32[i], dtype=np.float32)
+        lib.score(row.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                  buf.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+        out[i] = buf
+    return out
+
+
+def surface_phase(model, drf_model, frame, n_rows, dev="cuda", sub_rows=300_000,
+                  shap_rows=2_000, export_rows=10_000):
+    """The scoring surface on ``dev``, on the f32 XGBoost fit (and the f32
+    DRF fit for the MOJO): batched scoring, thresholds, make_metrics,
+    TreeSHAP, variable importances, save/load, MOJO, C POJO, and the entry
+    step against the CPU's. Every check raises; returns the record with
+    each time."""
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch.entry import entry
+    from h2o3_tpu_torch.genmodel import load_mojo
+    from h2o3_tpu_torch.models import metrics as M
+    from h2o3_tpu_torch.models import persist
+    from h2o3_tpu_torch.models.tree.common import tree_matrix
+
+    rec = {"rows": n_rows, "sub_rows": sub_rows}
+    sub = frame.rows(slice(0, sub_rows))
+
+    # one scoring pass for [frame, frame, sub]: each caller gets the bits of
+    # a pass over its frame alone
+    t0 = time.time()
+    batched = model.predict_raw_batched([frame, frame, sub])
+    rec["batched_s"] = time.time() - t0
+    t0 = time.time()
+    alone = [model._predict_raw(f) for f in (frame, frame, sub)]
+    rec["three_passes_s"] = time.time() - t0
+    for i, ((raw, _), want) in enumerate(zip(batched, alone)):
+        if not np.array_equal(raw, want):
+            raise AssertionError(f"surface: batched caller {i} is not its own pass's bits")
+    raw = batched[0][0]
+
+    # thresholds move the labels; make_metrics on the raw scores is
+    # model_performance
+    thr = model.default_threshold()
+    labels = model.prediction_from_raw(raw).col("predict").data
+    new_thr = 0.5 if abs(thr - 0.5) > 0.05 else 0.3
+    if model.reset_threshold(new_thr) != thr:
+        raise AssertionError("surface: reset_threshold did not return the old threshold")
+    moved = model.prediction_from_raw(raw).col("predict").data
+    if not np.array_equal(moved, (raw[:, 1] >= new_thr).astype(np.int32)):
+        raise AssertionError("surface: labels do not follow the reset threshold")
+    n_moved = int(np.sum(moved != labels))
+    if n_moved == 0:
+        raise AssertionError("surface: reset_threshold moved no label")
+    model.reset_threshold(thr)
+    rec.update(threshold=thr, reset_threshold=new_thr, labels_moved=n_moved)
+    y = frame.col("y").data.astype(np.float64)
+    t0 = time.time()
+    made = M.make_metrics(raw, y, domain=["0", "1"])
+    rec["make_metrics_s"] = time.time() - t0
+    t0 = time.time()
+    perf = model.model_performance(frame)
+    rec["model_performance_s"] = time.time() - t0
+    for key in ("auc", "pr_auc", "logloss", "mse", "max_f1_threshold", "nobs"):
+        if getattr(made, key) != getattr(perf, key):
+            raise AssertionError(f"surface: make_metrics {key} {getattr(made, key)} "
+                                 f"!= model_performance {getattr(perf, key)}")
+
+    # TreeSHAP on the first rows, over the training frame as background (its
+    # rows reach every node, so no cover is zero): each row sums to its margin
+    shap_frame = frame.rows(slice(0, shap_rows))
+    t0 = time.time()
+    contrib = model.predict_contributions(shap_frame, background_frame=frame)
+    rec["contributions_s"] = time.time() - t0
+    rec["contributions_rows_per_s"] = shap_rows / rec["contributions_s"]
+    phi = np.stack([contrib.col(c).data for c in contrib.names], 1)
+    margin = model.booster.predict_margin(
+        tree_matrix(model.data_info, shap_frame, model.tree_encoding))[:, 0]
+    if not np.all(np.isfinite(phi)) or not np.allclose(phi.sum(1), margin,
+                                                       rtol=1e-5, atol=1e-5):
+        raise AssertionError("surface: contributions do not sum to the margin "
+                             f"(worst {np.max(np.abs(phi.sum(1) - margin))})")
+    rec["contributions_max_abs_err"] = float(np.max(np.abs(phi.sum(1) - margin)))
+    imp = model.variable_importances()
+    if abs(sum(imp.values()) - 1.0) > 1e-9:
+        raise AssertionError(f"surface: importances sum to {sum(imp.values())}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # save and load on the card
+        path = f"{tmp}/model.bin"
+        t0 = time.time()
+        persist.save_model(model, path)
+        rec["save_s"] = time.time() - t0
+        t0 = time.time()
+        loaded = persist.load_model(path, key=f"{model.key}_loaded", device=dev)
+        rec["load_s"] = time.time() - t0
+        want_dev = torch.device(dev).type
+        if loaded.device.type != want_dev or loaded.booster.device.type != want_dev:
+            raise AssertionError(f"surface: the loaded model is not on {dev}")
+        if not np.array_equal(loaded._predict_raw(sub), alone[2]):
+            raise AssertionError("surface: the loaded model scores other bits")
+        t0 = time.time()
+        blob = persist.dumps_model(model)
+        rec["dumps_s"] = time.time() - t0
+        if persist.dumps_model(model) != blob:
+            raise AssertionError("surface: dumps_model gave other bytes the second time")
+        rec["archive_bytes"] = len(blob)
+
+        # MOJO (XGBoost and DRF) through the numpy scorer
+        export = frame.rows(slice(0, export_rows))
+        cols = {name: export.col(name).data for name in export.names if name != "y"}
+        rec["mojo"] = {}
+        for label, m in (("xgboost", model), ("drf", drf_model)):
+            want = m._predict_raw(export)
+            t0 = time.time()
+            m.download_mojo(f"{tmp}/{label}.zip")
+            got = load_mojo(f"{tmp}/{label}.zip").score(cols)
+            err = float(np.max(np.abs(got - want)))
+            if not np.allclose(got, want, rtol=1e-4, atol=1e-5):
+                raise AssertionError(f"surface: {label} MOJO scores differ ({err})")
+            rec["mojo"][label] = {"s": time.time() - t0, "max_abs_err": err}
+
+        # the C POJO, compiled and called through ctypes, against predict
+        t0 = time.time()
+        lib = compile_pojo(model.pojo("c"), tmp)
+        rec["pojo_build_s"] = time.time() - t0
+        X32 = tree_matrix(model.data_info, export, model.tree_encoding)
+        out = pojo_scores(lib, X32, 3)
+        pred = model.predict(export)
+        want = np.stack([pred.col("p0").data, pred.col("p1").data], 1)
+        if not np.allclose(out[:, 1:], want, rtol=1e-5, atol=1e-6):
+            raise AssertionError("surface: the C POJO differs from predict")
+        rec["pojo_max_abs_err"] = float(np.max(np.abs(out[:, 1:] - want)))
+
+    # the entry step on the card against the same step on the CPU
+    fn, args = entry(dev)
+    on_card = fn(*args).cpu()
+    fn_cpu, args_cpu = entry("cpu")
+    on_cpu = fn_cpu(*args_cpu)
+    if not torch.allclose(on_card, on_cpu, rtol=0, atol=1e-6):
+        raise AssertionError("surface: the entry step on the card differs from the CPU")
+    rec["entry_bit_identical"] = bool(torch.equal(on_card, on_cpu))
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -1106,9 +1291,11 @@ def main() -> int:
         return {"hist_nodematmul": nodematmul, "hist_sorted": sorted_,
                 "hist_factorized": factorized}
 
+    xgb_rec, xgb_model = run_fit(XGBoost, frame, n, expect(args.base_trees * 6),
+                                 "xgboost", small_frame, keys,
+                                 ntrees=args.base_trees, seed=seed)
     fits = [
-        run_fit(XGBoost, frame, n, expect(args.base_trees * 6), "xgboost",
-                small_frame, keys, ntrees=args.base_trees, seed=seed)[0],
+        xgb_rec,
         run_fit(GBM, frame, n, expect(args.base_trees * 5), "gbm", small_frame,
                 keys, ntrees=args.base_trees, seed=seed)[0],
     ]
@@ -1118,8 +1305,11 @@ def main() -> int:
     # level makes the row-major codes there, once: the entry grows by them
     gbm_entry = frame_entry(frame, 20)
     entry_bytes = [gbm_entry.nbytes]
-    fits.append(run_fit(DRF, frame, n, expect(args.drf_trees * 8, args.drf_trees * 4),
-                        "drf", small_frame, keys, ntrees=args.drf_trees, seed=seed)[0])
+    drf_rec, drf_model = run_fit(DRF, frame, n,
+                                 expect(args.drf_trees * 8, args.drf_trees * 4),
+                                 "drf", small_frame, keys, ntrees=args.drf_trees,
+                                 seed=seed)
+    fits.append(drf_rec)
     codes_rm = gbm_entry.value.arrays["codes_rm"]
     entry_bytes.append(gbm_entry.nbytes)
     if codes_rm is None or entry_bytes[1] - entry_bytes[0] != codes_rm.nbytes:
@@ -1171,6 +1361,11 @@ def main() -> int:
         raise AssertionError("drf_bf16: GBM's entry changed after its first DRF fit")
     cv = cv_phase(keys, XGBoost, wide_frame, wide_n, seed, args.cv_trees)
     cache_stats = check_no_evictions()
+    t0 = time.time()
+    surface = surface_phase(xgb_model, drf_model, frame, n, dev,
+                            sub_rows=min(300_000, n))
+    surface["phase_s"] = time.time() - t0
+    print(json.dumps({"surface": surface}), flush=True)
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
@@ -1197,6 +1392,7 @@ def main() -> int:
                        "build_s": build_s, "kernel_checks": checks,
                        "cross_check": cross, "jrandom": rand, "binning": binning,
                        "fits": fits, "cv": cv, "devcache": cache_stats,
+                       "surface": surface,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

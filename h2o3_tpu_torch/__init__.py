@@ -7,14 +7,14 @@ CUDA card unless the caller asks for the CPU (``device="cpu"`` or
 ``use_device("cpu")``); the TPU's Pallas kernels are hand-written CUDA
 kernels here (``h2o3_tpu_torch/csrc``), built with ``nvcc`` at first use.
 
-So far: Frames, and XGBoost/GBM/DRF fit + score on the histogram tree core.
-"""
+So far: Frames; XGBoost/GBM/DRF fit, cross-validate and score on the
+histogram tree core; batched scoring, thresholds, ``make_metrics``, TreeSHAP
+contributions, variable importances, binary save/load, MOJO and POJO export
+and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``.
 
-from h2o3_tpu_torch.device import resolve_device, use_device
-from h2o3_tpu_torch.frame.frame import ColType, Column, Frame
-from h2o3_tpu_torch.models.tree.drf import DRF
-from h2o3_tpu_torch.models.tree.gbm import GBM
-from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+The top-level names load on first use (PEP 562), so importing
+``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.
+"""
 
 __version__ = "0.1.0"
 
@@ -28,3 +28,30 @@ __all__ = [
     "resolve_device",
     "use_device",
 ]
+
+_LAZY = {
+    "ColType": ("h2o3_tpu_torch.frame.frame", "ColType"),
+    "Column": ("h2o3_tpu_torch.frame.frame", "Column"),
+    "Frame": ("h2o3_tpu_torch.frame.frame", "Frame"),
+    "DRF": ("h2o3_tpu_torch.models.tree.drf", "DRF"),
+    "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
+    "XGBoost": ("h2o3_tpu_torch.models.tree.xgboost", "XGBoost"),
+    "resolve_device": ("h2o3_tpu_torch.device", "resolve_device"),
+    "use_device": ("h2o3_tpu_torch.device", "use_device"),
+}
+
+
+def __getattr__(name):
+    try:
+        mod_name, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(mod_name), attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -6,11 +6,12 @@ codes with -1 for CAT, object for STR). The model builders move what they
 need to the device themselves, so the frame itself holds no tensors.
 
 Kept from the JAX package: ``Column``, ``Frame``, ``from_dict``, row
-selection (``Frame.rows``), the column version stamps the device frame
-cache keys on, and the rollups that trees need (min/max/mean/sigma),
-computed in numpy. CSV parsing, the native tokenizer, the chunk codecs and
-the rest of the munging surface (column selection, binds) are not part of
-this package yet.
+selection (``Frame.rows``), ``Frame.rbind`` (categorical domains merged
+in first-seen order, as the JAX package merges them), the column version
+stamps the device frame cache keys on, and the rollups that trees need
+(min/max/mean/sigma), computed in numpy. CSV parsing, the native
+tokenizer, the chunk codecs and the rest of the munging surface (column
+selection, ``cbind``) are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -287,6 +288,43 @@ class Frame:
             idx = np.asarray(sel, dtype=np.int64)
         return Frame([c.select(idx) for c in self._cols])
 
+    def rbind(self, other: "Frame") -> "Frame":
+        """The rows of ``self`` then ``other``, as new Columns. A column that
+        is categorical in either frame becomes categorical in both, and the
+        two domains merge: ``self``'s levels keep their codes, ``other``'s
+        new levels follow in their order."""
+        if self.names != other.names:
+            raise ValueError("rbind requires identical column names")
+        out = []
+        for a, b in zip(self._cols, other._cols):
+            if a.type is ColType.CAT or b.type is ColType.CAT:
+                a, b = _unify_cat(a), _unify_cat(b)
+                domain, bmap = _merge_domains(a.domain, b.domain)
+                bd = np.where(b.data >= 0, bmap[np.clip(b.data, 0, None)], NA_CAT)
+                out.append(Column(a.name, np.concatenate([a.data, bd.astype(np.int32)]),
+                                  ColType.CAT, domain))
+            else:
+                out.append(Column(a.name, np.concatenate([a.data, b.data]), a.type))
+        return Frame(out)
+
     def __repr__(self) -> str:
         more = "..." if self.ncols > 8 else ""
         return f"<Frame {self.nrows}x{self.ncols} {self.names[:8]}{more}>"
+
+
+def _unify_cat(c: Column) -> Column:
+    return c if c.type is ColType.CAT else c.as_factor()
+
+
+def _merge_domains(a: List[str], b: List[str]) -> Tuple[List[str], np.ndarray]:
+    """The merged domain (``a``'s levels, then ``b``'s new ones) and the map
+    from ``b``'s codes to merged codes."""
+    index = {lv: i for i, lv in enumerate(a)}
+    merged = list(a)
+    bmap = np.empty(len(b), dtype=np.int32)
+    for j, lv in enumerate(b):
+        if lv not in index:
+            index[lv] = len(merged)
+            merged.append(lv)
+        bmap[j] = index[lv]
+    return merged, bmap

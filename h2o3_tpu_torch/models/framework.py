@@ -7,8 +7,16 @@ compute metrics. ``ModelBuilder.train`` resolves the device the build runs
 on once (``device.resolve_device``) and the model keeps it, so scoring runs
 where training ran; the fold fits run there too.
 
-Not part of this package yet: the telemetry spans, job cancellation and
-homing a finished model on a cluster's serving ring.
+A trained ``Model`` scores one frame (``predict``, ``model_performance``)
+or several in one pass (``predict_raw_batched``: identical frames once,
+distinct frames of one schema row-stacked into one scoring pass on the
+device), resets its binomial threshold, and is exported through
+``models/persist.py`` (binary), ``models/mojo_export.py`` (MOJO) and
+``models/pojo.py`` (C or Java source).
+
+Not part of this package yet: the telemetry spans, the preprocessors a
+model may carry (AutoML's target encoding) and homing a finished model on a
+cluster's serving ring.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ from __future__ import annotations
 import copy
 import time
 from dataclasses import dataclass, field as dataclass_field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +67,7 @@ class ModelParameters:
 
 
 class Job:
-    """Progress-reporting handle (water/Job.java)."""
+    """Cancellable, progress-reporting handle (water/Job.java)."""
 
     def __init__(self, description: str = "") -> None:
         self.key = DKV.make_key("job")
@@ -69,6 +77,7 @@ class Job:
         self.start_time: Optional[float] = None
         self.end_time: Optional[float] = None
         self.exception: Optional[BaseException] = None
+        self._cancel_requested = False
         DKV.put(self.key, self)
 
     def start(self) -> "Job":
@@ -79,15 +88,27 @@ class Job:
     def update(self, progress: float) -> None:
         self.progress = min(max(progress, 0.0), 1.0)
 
+    def cancel(self) -> None:
+        self._cancel_requested = True
+
+    @property
+    def stop_requested(self) -> bool:
+        return self._cancel_requested
+
     def done(self) -> None:
         self.end_time = time.time()
         self.progress = 1.0
-        self.status = "DONE"
+        self.status = "DONE" if not self._cancel_requested else "CANCELLED"
 
     def fail(self, e: BaseException) -> None:
         self.end_time = time.time()
         self.exception = e
         self.status = "FAILED"
+
+    @property
+    def run_time(self) -> float:
+        end = self.end_time if self.end_time is not None else time.time()
+        return (end - self.start_time) if self.start_time else 0.0
 
 
 def prediction_frame(raw: np.ndarray, domain, threshold: float = 0.5) -> Frame:
@@ -144,22 +165,93 @@ class Model:
     def _predict_raw(self, frame: Frame) -> np.ndarray:
         raise NotImplementedError
 
+    def _apply_preprocessors(self, frame: Frame) -> Frame:
+        """The scoring frame as the model's preprocessors would give it. No
+        model of this package carries preprocessors yet (AutoML's target
+        encoding is not ported), so every frame passes through."""
+        return frame
+
     def default_threshold(self) -> float:
-        """Binomial label threshold: the training max-F1
-        (Model._output.defaultThreshold())."""
+        """Binomial label threshold: an explicit reset wins, else the
+        training max-F1 (Model._output.defaultThreshold())."""
+        override = getattr(self, "_threshold_override", None)
+        if override is not None:
+            return override
         return getattr(self.training_metrics, "max_f1_threshold", 0.5) or 0.5
+
+    def reset_threshold(self, threshold: float) -> float:
+        """Set the classification threshold used by predict; returns the
+        previous effective threshold (Model.resetThreshold)."""
+        old = self.default_threshold()
+        self._threshold_override = float(threshold)
+        return old
 
     def predict(self, frame: Frame) -> Frame:
         """Predictions frame: 'predict' (+ per-class probability columns)."""
-        raw = self._predict_raw(frame)
+        frame = self._apply_preprocessors(frame)
+        return self.prediction_from_raw(self._predict_raw(frame))
+
+    def prediction_from_raw(self, raw: np.ndarray) -> Frame:
+        """Raw scores -> the predictions frame (the second half of
+        ``predict``, for raw scores computed once for several callers)."""
         if not self.is_classifier:
             return prediction_frame(raw, None)
         return prediction_frame(raw, self.data_info.response_domain,
                                 self.default_threshold())
 
+    def predict_raw_batched(
+        self, frames: Sequence[Frame]
+    ) -> List[Tuple[np.ndarray, Frame]]:
+        """One raw-score pass over several frames. Returns ``(raw,
+        preprocessed_frame)`` per input, aligned. Identical frames (same
+        object, or equal (names, types, version) stamps) score once and
+        share the result; distinct frames of one schema are row-stacked
+        (``Frame.rbind``) into one ``_predict_raw``, one binning and tree
+        walk on the device, and split back per caller. The walk scores each
+        row alone, so each caller's raw scores are the bits of a
+        ``_predict_raw`` of its frame alone; frames of different schemas
+        score one pass each."""
+        pres = [self._apply_preprocessors(f) for f in frames]
+        uniq: List[Frame] = []
+        which: List[int] = []
+        seen: Dict[Any, int] = {}
+        for f in pres:
+            sig = (tuple(f.names), tuple(c.type for c in f.columns), f.version)
+            i = seen.get(sig)
+            if i is None:
+                i = seen[sig] = len(uniq)
+                uniq.append(f)
+            which.append(i)
+        if len(uniq) == 1:
+            raws = [self._predict_raw(uniq[0])]
+        else:
+            head = uniq[0]
+            same_schema = all(
+                u.names == head.names
+                and [c.type for c in u.columns] == [c.type for c in head.columns]
+                for u in uniq[1:]
+            )
+            if same_schema:
+                stacked = head
+                for u in uniq[1:]:
+                    stacked = stacked.rbind(u)
+                raw_all = self._predict_raw(stacked)
+                raws, off = [], 0
+                for u in uniq:
+                    raws.append(raw_all[off:off + u.nrows])
+                    off += u.nrows
+            else:
+                raws = [self._predict_raw(u) for u in uniq]
+        return [(raws[i], pres[k]) for k, i in enumerate(which)]
+
     def model_performance(self, frame: Frame) -> Any:
         """Score a frame and build its ModelMetrics."""
-        raw = self._predict_raw(frame)
+        frame = self._apply_preprocessors(frame)
+        return self._metrics_from_raw(frame, self._predict_raw(frame))
+
+    def _metrics_from_raw(self, frame: Frame, raw: np.ndarray) -> Any:
+        """ModelMetrics from raw scores already computed over an already
+        preprocessed frame: ``model_performance`` without its scoring pass."""
         y = response_vector(self.data_info, frame)
         w = (
             frame.col(self.params.weights_column).numeric_view()
@@ -173,6 +265,21 @@ class Model:
         return M.multinomial_metrics(
             y.astype(np.int64), raw, self.data_info.response_domain, weights=w
         )
+
+    def pojo(self, lang: str = "c") -> str:
+        """Standalone scoring source (TreeJCodeGen, water/codegen): C, which
+        compiles with any C99 compiler, or Java in the genmodel ``score0``
+        shape. Tree models only so far."""
+        from h2o3_tpu_torch.models.pojo import pojo_source
+
+        return pojo_source(self, lang)
+
+    def download_mojo(self, path: str) -> str:
+        """Export as a MOJO zip (Model.getMojo), scored offline by the
+        numpy-only ``h2o3_tpu_torch.genmodel`` package."""
+        from h2o3_tpu_torch.models.mojo_export import write_mojo
+
+        return write_mojo(self, path)
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.key} metrics={self.training_metrics!r}>"

@@ -6,8 +6,10 @@ JAX package's definitions: ``hex/ModelMetrics*.java``, exact AUC as
 ``AUC2.perfectAUC`` (``nbins=0``) or the 400-bin approximation of
 ``AUC2.java:36``, the max-F1 threshold of ``AUC2.defaultThreshold``.
 
-Not part of this package yet: the DKV scoring records and ``make_metrics``,
-whose non-gaussian regression path needs the GLM deviances.
+Also the scoring record a REST route keeps (``ScoringRecord``) and
+``make_metrics``, metrics from raw predictions and actuals with no model;
+its non-gaussian regression deviance is this module's copy of the JAX
+package's GLM ``deviance`` (the GLM is not ported yet).
 """
 
 from __future__ import annotations
@@ -375,3 +377,106 @@ def stop_early(
         return bool(not np.isnan(ratio) and ratio <= 1 + stopping_tolerance)
     ratio = min_in / last_before
     return bool(not np.isnan(ratio) and ratio >= 1 - stopping_tolerance)
+
+
+# ---------------------------------------------------------------------------
+# scoring records + makeMetrics
+
+
+@dataclass
+class ScoringRecord:
+    """A cached scoring result (``hex/ModelMetrics.java`` ``buildKey``):
+    scoring a frame with a model leaves its metrics keyed by (model,
+    frame), which the ModelMetrics routes fetch, filter and delete."""
+
+    model_id: str
+    frame_id: str
+    metrics: object
+    model_category: str
+    scoring_time: float
+
+    @staticmethod
+    def key_for(model_id: str, frame_id: str) -> str:
+        return f"modelmetrics_{model_id}@{frame_id}"
+
+
+#: GLMParameters.tweedie_variance_power's default, which make_metrics uses
+TWEEDIE_VARIANCE_POWER = 1.5
+
+
+def deviance(family: str, y: np.ndarray, mu: np.ndarray) -> np.ndarray:
+    """Per-row unit deviance (hex/Distribution.java; the GLM's definitions),
+    tweedie at the GLM's default variance power."""
+    eps = 1e-10
+    if family == "gaussian":
+        return (y - mu) ** 2
+    if family in ("binomial", "quasibinomial"):
+        mu = np.clip(mu, eps, 1 - eps)
+        return -2 * (y * np.log(mu) + (1 - y) * np.log(1 - mu))
+    if family == "poisson":
+        mu = np.maximum(mu, eps)
+        t = np.where(y > 0, y * np.log(np.where(y > 0, y, 1.0) / mu), 0.0)
+        return 2 * (t - (y - mu))
+    if family == "gamma":
+        mu = np.maximum(mu, eps)
+        ys = np.maximum(y, eps)
+        return -2 * (np.log(ys / mu) - (ys - mu) / mu)
+    if family == "tweedie":
+        vp = TWEEDIE_VARIANCE_POWER
+        mu = np.maximum(mu, eps)
+        ys = np.maximum(y, 0.0)
+        a = np.where(ys > 0, np.power(np.maximum(ys, eps), 2 - vp) / ((1 - vp) * (2 - vp)), 0.0)
+        b = ys * np.power(mu, 1 - vp) / (1 - vp)
+        c = np.power(mu, 2 - vp) / (2 - vp)
+        return 2 * (a - b + c)
+    raise ValueError(f"unknown family {family}")
+
+
+def make_metrics(
+    predictions: np.ndarray,
+    actuals: np.ndarray,
+    domain: Optional[List[str]] = None,
+    distribution: str = "gaussian",
+    weights: Optional[np.ndarray] = None,
+):
+    """Metrics from raw predictions and actuals with no model
+    (``ModelMetricsHandler.make``, the ``h2o.make_metrics`` call): a domain
+    means classification (binomial for 2 levels, multinomial above),
+    otherwise regression under ``distribution``.
+
+    Column conventions are the reference's: regression takes one column;
+    binomial takes p1, [p0 p1] or [predict p0 p1]; multinomial K or 1+K
+    columns (a leading label column is dropped)."""
+    P = np.asarray(predictions, dtype=np.float64)
+    if P.ndim == 1:
+        P = P[:, None]
+    if domain is None:
+        if P.shape[1] != 1:
+            raise ValueError(
+                f"regression expects 1 prediction column, got {P.shape[1]}")
+        y = np.asarray(actuals, dtype=np.float64)
+        dev = None
+        if distribution and distribution != "gaussian":
+            dev = deviance(distribution, y, P[:, 0])
+        return regression_metrics(y, P[:, 0], weights=weights, deviance=dev)
+    K = len(domain)
+    if K == 2:
+        if P.shape[1] == 1:
+            p1 = P[:, 0]
+        elif P.shape[1] == 2:
+            p1 = P[:, 1]
+        elif P.shape[1] == 3:
+            p1 = P[:, 2]
+        else:
+            raise ValueError(
+                f"binomial expects 1, 2 or 3 prediction columns, got {P.shape[1]}")
+        return binomial_metrics(np.asarray(actuals, dtype=np.float64), p1,
+                                weights=weights)
+    if P.shape[1] == K + 1:
+        P = P[:, 1:]
+    if P.shape[1] != K:
+        raise ValueError(
+            f"multinomial expects {K} or {K + 1} prediction columns, "
+            f"got {P.shape[1]}")
+    return multinomial_metrics(np.asarray(actuals).astype(np.int64), P,
+                               domain, weights=weights)

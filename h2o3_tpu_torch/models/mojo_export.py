@@ -1,0 +1,107 @@
+"""MOJO writer — the port of ``h2o3_tpu/models/mojo_export.py``.
+
+Reference: ``hex/ModelMojoWriter.java`` (a zip of ``model.ini`` and
+per-algo blobs). The archive is the JAX package's: ``model.ini`` (a
+readable summary), ``meta.json`` (algo scalars), ``data_info.json`` (the
+design-matrix layout, ``dataclasses.asdict`` of ``DataInfo``) and
+``arrays.npz`` (the trees), read back by the numpy-only
+``h2o3_tpu_torch.genmodel`` package (or the JAX package's ``genmodel``,
+which reads the same layout).
+
+Tree models (GBM, XGBoost, DRF) are exported; the other algorithms raise
+until their model families are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+import zipfile
+from typing import Any, Dict, Tuple
+
+import numpy as np
+
+from h2o3_tpu_torch.models.framework import Model
+
+Payload = Tuple[Dict[str, Any], Dict[str, np.ndarray]]
+
+
+def _info_dict(model: Model) -> Dict[str, Any]:
+    return dataclasses.asdict(model.data_info)
+
+
+def _payload(model: Model) -> Payload:
+    """The per-algo payload (the *MojoWriter analogue)."""
+    from h2o3_tpu_torch.models.tree.common import TreeModelBase
+    from h2o3_tpu_torch.models.tree.drf import DRFModel
+
+    if not isinstance(model, TreeModelBase):
+        raise ValueError(f"MOJO export not supported for {type(model).__name__}")
+    b = model.booster
+    t0 = b.trees_per_class[0]
+    if isinstance(model, DRFModel):
+        # DRF classification averages votes, clipped and normalized
+        # (DRFModel._raw_from_margin), not a link function
+        transform = "drf_votes" if model.is_classifier else "identity"
+    elif model.distribution in ("bernoulli", "multinomial"):
+        transform = model.distribution
+    elif model.distribution in ("poisson", "gamma", "tweedie"):
+        transform = "exp"  # log link: margin -> response scale
+    else:
+        transform = "identity"
+    meta = {
+        "algo": model.algo_name,
+        "distribution": model.distribution,
+        "transform": transform,
+        "n_bins1": int(t0.n_bins1),
+        "max_depth": int(t0.max_depth),
+        "average": bool(b.average),
+        "tree_encoding": getattr(model, "tree_encoding", "label_encoder"),
+        # an offset model shifts the margin by the scoring frame's offset
+        # column (Model.java offset handling); so must the MOJO
+        "offset_column": getattr(model.params, "offset_column", None),
+    }
+    arrays: Dict[str, np.ndarray] = {
+        "edges": np.asarray(t0.edges, dtype=np.float64),
+        "init_margin": np.asarray(b.init_margin, dtype=np.float64),
+    }
+    for c, trees in enumerate(b.trees_per_class):
+        arrays[f"feat_{c}"] = np.stack(trees.feat).astype(np.int32)
+        arrays[f"split_bin_{c}"] = np.stack(trees.split_bin).astype(np.int32)
+        arrays[f"default_left_{c}"] = np.stack(trees.default_left).astype(bool)
+        arrays[f"is_split_{c}"] = np.stack(trees.is_split).astype(bool)
+        arrays[f"leaf_{c}"] = np.stack(trees.leaf).astype(np.float32)
+    return meta, arrays
+
+
+def write_mojo(model: Model, path: str) -> str:
+    """Model.getMojo / ModelMojoWriter.writeTo: serialize to a .mojo zip."""
+    meta, arrays = _payload(model)
+    info = _info_dict(model)
+    # binomial label threshold: offline labels must match Model.predict's,
+    # so an explicit reset_threshold wins over the training max-F1 point
+    thr = getattr(model, "_threshold_override", None)
+    if thr is None:
+        thr = getattr(model.training_metrics, "max_f1_threshold", None)
+    if thr is not None and np.isfinite(thr):
+        meta["default_threshold"] = float(thr)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    ini_lines = [
+        "[info]",
+        f"algo = {meta['algo']}",
+        "mojo_version = 1.0",
+        f"model_key = {model.key}",
+        f"nclasses = {model.nclasses}",
+        f"n_predictors = {len(model.data_info.predictor_names)}",
+        "",
+        "[columns]",
+        *model.data_info.predictor_names,
+    ]
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("model.ini", "\n".join(ini_lines) + "\n")
+        z.writestr("meta.json", json.dumps(meta, indent=1))
+        z.writestr("data_info.json", json.dumps(info, indent=1))
+        z.writestr("arrays.npz", buf.getvalue())
+    return path

@@ -1,0 +1,376 @@
+"""POJO-style standalone scoring source — the port of the tree parts of
+``h2o3_tpu/models/pojo.py``.
+
+Reference: ``hex/tree/TreeJCodeGen.java`` + ``water/codegen/``: a trained
+model as dependency-free scoring source that runs without the cluster.
+
+  * C: compiles with any C99 compiler and needs no runtime; the tests
+    compile it with the host's gcc and hold it to the model's predictions.
+  * Java: the same trees as one class with a ``score0(double[] row,
+    double[] preds)`` in the genmodel shape.
+
+A tree scorer takes the model's tree-feature vector (``tree_feature_names``
+order: label-encoded category codes, or the one-hot block under
+``one_hot_explicit``) as ``float`` values: training binned float32
+features, so scoring in float keeps each threshold comparison the one the
+device path makes. The GLM and GAM generators wait for those models
+(ROADMAP A8): ``pojo_source`` refuses them.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+
+def _c_float(v: float) -> str:
+    if np.isnan(v):
+        return "NAN"
+    if np.isinf(v):
+        return "INFINITY" if v > 0 else "-INFINITY"
+    return repr(float(v))
+
+
+def _c_arr(name: str, vals, ctype: str, fmt=str) -> str:
+    body = ", ".join(fmt(v) for v in vals)
+    return f"static const {ctype} {name}[] = {{{body}}};\n"
+
+
+# ---------------------------------------------------------------------------
+# tree models (GBM / DRF / XGBoost-style)
+
+
+def _tree_tables(model):
+    """Flatten the booster into per-class per-tree node tables with raw
+    float thresholds (bin edge at the split bin; +inf when the split only
+    separates NA from non-NA)."""
+    b = model.booster
+    out = []
+    for trees in b.trees_per_class:
+        edges = trees.edges  # [F, B-1]
+        cls_trees = []
+        for t in range(trees.ntrees):
+            feat = trees.feat[t].astype(np.int32)
+            sb = trees.split_bin[t].astype(np.int64)
+            # thresholds stay float64: the framework compares float32
+            # features against float64 edges, and rounding the edge to
+            # f32 would flip rows landing exactly on the rounded value
+            thr = np.where(
+                sb >= edges.shape[1],
+                np.inf,
+                edges[feat, np.clip(sb, 0, edges.shape[1] - 1)],
+            ).astype(np.float64)
+            cls_trees.append({
+                "feat": feat,
+                "thr": thr,
+                "default_left": trees.default_left[t].astype(np.int32),
+                "is_split": trees.is_split[t].astype(np.int32),
+                "leaf": trees.leaf[t].astype(np.float64),
+            })
+        out.append(cls_trees)
+    return out
+
+
+def tree_pojo_c(model) -> str:
+    from h2o3_tpu_torch.models.tree.common import tree_feature_names
+
+    b = model.booster
+    names = tree_feature_names(model.data_info, model.tree_encoding)
+    tables = _tree_tables(model)
+    K = len(tables)
+    T = len(tables[0])
+    M = tables[0][0]["feat"].shape[0]
+    depth = int(np.log2(M + 1)) - 1
+    dist = model.distribution
+    nclasses = model.nclasses
+
+    chunks: List[str] = []
+    chunks.append(
+        f"""/* GENERATED standalone scorer — do not edit.
+ * Model: {model.key} ({model.algo_name}, distribution={dist})
+ * Emitted by h2o3_tpu_torch.models.pojo (TreeJCodeGen/water-codegen analogue).
+ *
+ * double out[{max(nclasses, 1) + (1 if nclasses > 1 else 0)}];
+ * score(x, out);
+ *   x: float[{len(names)}] tree features, order: {", ".join(names)}
+ *      (categorical columns: label-encoded level index; NAN = missing)
+ *   classifier out: [predicted_class, p0, p1, ...]; regression out: [mu]
+ */
+#include <math.h>
+
+#define N_FEAT {len(names)}
+#define N_CLASS_SETS {K}
+#define N_TREES {T}
+#define N_NODES {M}
+#define MAX_DEPTH {depth}
+
+""")
+    for c, cls_trees in enumerate(tables):
+        for t, tb in enumerate(cls_trees):
+            p = f"c{c}_t{t}"
+            chunks.append(_c_arr(f"feat_{p}", tb["feat"], "int"))
+            chunks.append(_c_arr(f"thr_{p}", tb["thr"], "double", _c_float))
+            chunks.append(_c_arr(f"dl_{p}", tb["default_left"], "int"))
+            chunks.append(_c_arr(f"sp_{p}", tb["is_split"], "int"))
+            chunks.append(_c_arr(f"leaf_{p}", tb["leaf"], "double", _c_float))
+    chunks.append(_c_arr("init_margin", np.asarray(b.init_margin, np.float64),
+                         "double", _c_float))
+    chunks.append("""
+static double walk(const float *x, const int *feat, const double *thr,
+                   const int *dl, const int *sp, const double *leaf) {
+  int idx = 0;
+  for (int d = 0; d < MAX_DEPTH; d++) {
+    if (!sp[idx]) break;
+    double v = (double)x[feat[idx]];  /* f32 feature vs f64 edge, as trained */
+    int left = isnan(v) ? dl[idx] : (v < thr[idx]);
+    idx = 2 * idx + (left ? 1 : 2);
+  }
+  return leaf[idx];
+}
+
+""")
+    # per-class margin accumulators
+    chunks.append("static double margin_class(const float *x, int c) {\n"
+                  "  double s = 0.0;\n  switch (c) {\n")
+    for c, cls_trees in enumerate(tables):
+        chunks.append(f"  case {c}:\n")
+        for t in range(len(cls_trees)):
+            p = f"c{c}_t{t}"
+            chunks.append(
+                f"    s += walk(x, feat_{p}, thr_{p}, dl_{p}, sp_{p}, "
+                f"leaf_{p});\n")
+        chunks.append("    break;\n")
+    chunks.append("  }\n")
+    if getattr(b, "average", False):
+        chunks.append("  s /= (double)N_TREES;\n")
+    chunks.append("  return init_margin[c] + s;\n}\n\n")
+
+    averaged = bool(getattr(b, "average", False))
+    if averaged and nclasses == 2:
+        # DRF: the single tree set predicts P(class 1) directly
+        chunks.append("""void score(const float *x, double *out) {
+  double p1 = margin_class(x, 0);
+  if (p1 < 0.0) p1 = 0.0;
+  if (p1 > 1.0) p1 = 1.0;
+  out[1] = 1.0 - p1; out[2] = p1;
+  out[0] = (p1 >= 0.5) ? 1.0 : 0.0;  /* threshold tuned server-side */
+}
+""")
+    elif averaged and nclasses > 2:
+        chunks.append("""void score(const float *x, double *out) {
+  double s = 0.0;
+  int best = 0;
+  for (int c = 0; c < N_CLASS_SETS; c++) {
+    double p = margin_class(x, c);
+    if (p < 1e-9) p = 1e-9;
+    out[1 + c] = p; s += p;
+  }
+  for (int c = 0; c < N_CLASS_SETS; c++) {
+    out[1 + c] /= s;
+    if (out[1 + c] > out[1 + best]) best = c;
+  }
+  out[0] = (double)best;
+}
+""")
+    elif nclasses == 2 and dist == "bernoulli":
+        chunks.append("""void score(const float *x, double *out) {
+  double m = margin_class(x, 0);
+  double p1 = 1.0 / (1.0 + exp(-m));
+  out[1] = 1.0 - p1; out[2] = p1;
+  out[0] = (p1 >= 0.5) ? 1.0 : 0.0;  /* threshold tuned server-side */
+}
+""")
+    elif nclasses > 2:
+        chunks.append("""void score(const float *x, double *out) {
+  double m[N_CLASS_SETS], mx = -INFINITY, s = 0.0;
+  for (int c = 0; c < N_CLASS_SETS; c++) {
+    m[c] = margin_class(x, c);
+    if (m[c] > mx) mx = m[c];
+  }
+  for (int c = 0; c < N_CLASS_SETS; c++) { m[c] = exp(m[c] - mx); s += m[c]; }
+  int best = 0;
+  for (int c = 0; c < N_CLASS_SETS; c++) {
+    out[1 + c] = m[c] / s;
+    if (out[1 + c] > out[1 + best]) best = c;
+  }
+  out[0] = (double)best;
+}
+""")
+    else:
+        link = ("exp(m)" if dist.partition(":")[0] in
+                ("poisson", "gamma", "tweedie") else "m")
+        chunks.append(f"""void score(const float *x, double *out) {{
+  double m = margin_class(x, 0);
+  out[0] = {link};
+}}
+""")
+    return "".join(chunks)
+
+
+def tree_pojo_java(model) -> str:
+    """Reference-shaped Java source: one class, score0(double[], double[])."""
+    from h2o3_tpu_torch.models.tree.common import tree_feature_names
+
+    b = model.booster
+    names = tree_feature_names(model.data_info, model.tree_encoding)
+    tables = _tree_tables(model)
+    dist = model.distribution
+    nclasses = model.nclasses
+    cls_name = f"POJO_{model.key}".replace("-", "_").replace(".", "_")
+
+    def jarr(vals, jt, fmt):
+        return "{" + ", ".join(fmt(v) for v in vals) + "}"
+
+    def jdouble(v):
+        if np.isnan(v):
+            return "Double.NaN"
+        if np.isinf(v):
+            return ("Double.POSITIVE_INFINITY" if v > 0
+                    else "Double.NEGATIVE_INFINITY")
+        return repr(float(v))
+
+    out = [f"""// GENERATED standalone scorer — do not edit.
+// Model: {model.key} ({model.algo_name}); features: {", ".join(names)}
+public class {cls_name} {{
+"""]
+    for c, cls_trees in enumerate(tables):
+        for t, tb in enumerate(cls_trees):
+            p = f"c{c}_t{t}"
+            out.append(f"  static final int[] FEAT_{p} = "
+                       f"{jarr(tb['feat'], 'int', str)};\n")
+            out.append(f"  static final double[] THR_{p} = "
+                       f"{jarr(tb['thr'], 'double', jdouble)};\n")
+            out.append(f"  static final boolean[] DL_{p} = "
+                       f"{jarr(tb['default_left'], 'boolean', lambda v: 'true' if v else 'false')};\n")
+            out.append(f"  static final boolean[] SP_{p} = "
+                       f"{jarr(tb['is_split'], 'boolean', lambda v: 'true' if v else 'false')};\n")
+            out.append(f"  static final double[] LEAF_{p} = "
+                       f"{jarr(tb['leaf'], 'double', jdouble)};\n")
+    out.append(f"  static final double[] INIT = "
+               f"{jarr(np.asarray(b.init_margin, np.float64), 'double', jdouble)};\n")
+    M = tables[0][0]["feat"].shape[0]
+    depth = int(np.log2(M + 1)) - 1
+    out.append(f"""
+  static double walk(float[] x, int[] feat, double[] thr, boolean[] dl,
+                     boolean[] sp, double[] leaf) {{
+    int idx = 0;
+    for (int d = 0; d < {depth}; d++) {{
+      if (!sp[idx]) break;
+      double v = (double) x[feat[idx]];  // f32 feature vs f64 edge
+      boolean left = Double.isNaN(v) ? dl[idx] : (v < thr[idx]);
+      idx = 2 * idx + (left ? 1 : 2);
+    }}
+    return leaf[idx];
+  }}
+
+  static double marginClass(float[] x, int c) {{
+    double s = 0.0;
+    switch (c) {{
+""")
+    for c, cls_trees in enumerate(tables):
+        out.append(f"      case {c}:\n")
+        for t in range(len(cls_trees)):
+            p = f"c{c}_t{t}"
+            out.append(f"        s += walk(x, FEAT_{p}, THR_{p}, DL_{p}, "
+                       f"SP_{p}, LEAF_{p});\n")
+        out.append("        break;\n")
+    out.append("    }\n")
+    if getattr(b, "average", False):
+        out.append(f"    s /= {len(tables[0])}.0;\n")
+    out.append("    return INIT[c] + s;\n  }\n")
+    averaged = bool(getattr(b, "average", False))
+    if averaged and nclasses == 2:
+        out.append("""
+  public static double[] score0(double[] row, double[] preds) {
+    float[] x = new float[row.length];
+    for (int i = 0; i < row.length; i++) x[i] = (float) row[i];
+    double p1 = marginClass(x, 0);
+    p1 = Math.min(1.0, Math.max(0.0, p1));
+    preds[1] = 1.0 - p1; preds[2] = p1; preds[0] = p1 >= 0.5 ? 1 : 0;
+    return preds;
+  }
+}
+""")
+    elif averaged and nclasses > 2:
+        K = len(tables)
+        out.append(f"""
+  public static double[] score0(double[] row, double[] preds) {{
+    float[] x = new float[row.length];
+    for (int i = 0; i < row.length; i++) x[i] = (float) row[i];
+    double s = 0.0;
+    int best = 0;
+    for (int c = 0; c < {K}; c++) {{
+      double p = Math.max(1e-9, marginClass(x, c));
+      preds[1 + c] = p; s += p;
+    }}
+    for (int c = 0; c < {K}; c++) {{
+      preds[1 + c] /= s;
+      if (preds[1 + c] > preds[1 + best]) best = c;
+    }}
+    preds[0] = best;
+    return preds;
+  }}
+}}
+""")
+    elif nclasses == 2 and dist == "bernoulli":
+        out.append("""
+  public static double[] score0(double[] row, double[] preds) {
+    float[] x = new float[row.length];
+    for (int i = 0; i < row.length; i++) x[i] = (float) row[i];
+    double p1 = 1.0 / (1.0 + Math.exp(-marginClass(x, 0)));
+    preds[1] = 1.0 - p1; preds[2] = p1; preds[0] = p1 >= 0.5 ? 1 : 0;
+    return preds;
+  }
+}
+""")
+    elif nclasses > 2:
+        K = len(tables)
+        out.append(f"""
+  public static double[] score0(double[] row, double[] preds) {{
+    float[] x = new float[row.length];
+    for (int i = 0; i < row.length; i++) x[i] = (float) row[i];
+    double[] m = new double[{K}];
+    double mx = Double.NEGATIVE_INFINITY, s = 0.0;
+    for (int c = 0; c < {K}; c++) {{ m[c] = marginClass(x, c); if (m[c] > mx) mx = m[c]; }}
+    for (int c = 0; c < {K}; c++) {{ m[c] = Math.exp(m[c] - mx); s += m[c]; }}
+    int best = 0;
+    for (int c = 0; c < {K}; c++) {{
+      preds[1 + c] = m[c] / s;
+      if (preds[1 + c] > preds[1 + best]) best = c;
+    }}
+    preds[0] = best;
+    return preds;
+  }}
+}}
+""")
+    else:
+        expo = dist.partition(":")[0] in ("poisson", "gamma", "tweedie")
+        expr = "Math.exp(m)" if expo else "m"
+        out.append(f"""
+  public static double[] score0(double[] row, double[] preds) {{
+    float[] x = new float[row.length];
+    for (int i = 0; i < row.length; i++) x[i] = (float) row[i];
+    double m = marginClass(x, 0);
+    preds[0] = {expr};
+    return preds;
+  }}
+}}
+""")
+    return "".join(out)
+
+
+def pojo_source(model, lang: str = "c") -> str:
+    from h2o3_tpu_torch.models.tree.common import TreeModelBase
+
+    if getattr(model.params, "offset_column", None):
+        # predict adds the scoring frame's offset to the margin; an exported
+        # scorer has no offset input, and refusing beats dropping the term
+        raise ValueError(
+            "POJO export does not support offset_column models")
+    if isinstance(model, TreeModelBase):
+        if model.booster is None:
+            raise ValueError("model has no trained trees")
+        return tree_pojo_c(model) if lang == "c" else tree_pojo_java(model)
+    raise ValueError(
+        f"POJO export supports tree models and GLM, not {model.algo_name}")

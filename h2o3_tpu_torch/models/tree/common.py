@@ -8,8 +8,12 @@ label-encoded ordinals by default or one-hot indicators with
 ``tree_cache_token`` is the device frame cache's identity of a fit's bin
 codes, so repeat fits on an unmutated frame reuse them.
 
-Not part of this package yet: SHAP contributions, variable importances,
-chunk-homed frames and the custom distribution.
+``TreeModelBase`` adds to ``Model`` the tree models' exact SHAP
+contributions (``models/tree/shap.py``) and split-count variable
+importances.
+
+Not part of this package yet: chunk-homed frames and the custom
+distribution.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.frame import devcache
-from h2o3_tpu_torch.frame.frame import Frame
+from h2o3_tpu_torch.frame.frame import Column, ColType, Frame
 from h2o3_tpu_torch.keyed import DKV
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.data_info import (
@@ -517,3 +521,32 @@ class TreeModelBase(Model):
             return margin_to_probs(self.distribution, margin)
         return link_inverse(self.distribution, margin[:, 0])
 
+
+    def predict_contributions(self, frame: Frame, background_frame=None) -> Frame:
+        """Exact per-feature SHAP contributions on the margin scale
+        (Model.scoreContributions / TreeSHAPPredictor): one column per tree
+        feature plus BiasTerm; rows sum to the raw margin."""
+        from h2o3_tpu_torch.models.tree.shap import predict_contributions as _pc
+
+        contribs = _pc(self, frame, background_frame=background_frame)
+        names = tree_feature_names(self.data_info, self.tree_encoding)
+        cols = [
+            Column(names[j], contribs[:, j], ColType.NUM)
+            for j in range(len(names))
+        ]
+        cols.append(Column("BiasTerm", contribs[:, -1], ColType.NUM))
+        return Frame(cols)
+
+    def variable_importances(self) -> dict:
+        """Relative split counts per tree feature, summing to 1 (the
+        SharedTree varimp analogue)."""
+        names = tree_feature_names(self.data_info, self.tree_encoding)
+        imp = np.zeros(len(names))
+        for trees in self.booster.trees_per_class:
+            for t in range(trees.ntrees):
+                sp = trees.is_split[t]
+                feats = trees.feat[t][sp]
+                np.add.at(imp, feats, 1.0)
+        total = imp.sum()
+        rel = imp / total if total > 0 else imp
+        return dict(zip(names, rel.tolist()))

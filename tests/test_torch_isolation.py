@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: ``h2o3_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of ``h2o3_tpu``, and the port's entry
-points refuse to run quietly on the CPU when no card is present.
+import neither ``jax`` nor anything of ``h2o3_tpu``, its MOJO scorer
+``h2o3_tpu_torch.genmodel`` imports numpy and not even ``torch``, and the
+port's entry points refuse to run quietly on the CPU when no card is
+present.
 
 Mind the prefix: ``h2o3_tpu_torch`` starts with ``h2o3_tpu``, so the
 import check matches ``h2o3_tpu`` only when a ``.``, a space or the end of
@@ -98,6 +100,21 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "ISOLATED-OK" in proc.stdout
 
+    # the MOJO scorer needs numpy alone: importing it loads no torch either
+    code = textwrap.dedent("""
+        import sys
+        import h2o3_tpu_torch.genmodel
+        from h2o3_tpu_torch.genmodel import EasyPredictModelWrapper, load_mojo
+        leaked = [k for k in sys.modules
+                  if k.split(".")[0] in ("torch", "jax", "jaxlib", "h2o3_tpu")]
+        assert not leaked, leaked
+        print("GENMODEL-NUMPY-ONLY")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, cwd=str(ROOT), env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "GENMODEL-NUMPY-ONLY" in proc.stdout
+
 
 def test_entry_points_refuse_the_cpu_unless_asked():
     if torch.cuda.is_available():
@@ -111,6 +128,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         ht.DRF(ntrees=1, response_column="y").train(fr)
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.resolve_device("cuda")
+    from h2o3_tpu_torch.entry import entry
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
     m = ht.GBM(ntrees=1, max_depth=2, response_column="y", device="cpu").train(fr)
     assert m.device == torch.device("cpu")
 

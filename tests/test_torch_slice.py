@@ -17,9 +17,9 @@ the port side (``tree_subtract``) and on the JAX side
 features, so the best split gains are well separated and tree arrays must
 be equal; leaf values and predictions agree at rtol 1e-4 / atol 1e-5 (the
 packages add float32 histograms in different orders) and metrics within
-1e-6. Also: an ensemble trained by the JAX package, carried across as
-numpy arrays (``h2o3_tpu_torch.convert.ensemble_from_numpy``), scores
-held-out rows as the JAX package does.
+1e-6. A model with one tree set per class refuses ``predict_contributions``
+with the JAX package's error. (Ensembles carried across as numpy arrays,
+and the rest of the scoring surface, are held in ``test_torch_surface.py``.)
 
 GBM and XGBoost with ``monotone_constraints``, and GBM, XGBoost and DRF
 continued from a checkpoint (k trees, then k more), give the JAX package's
@@ -40,10 +40,12 @@ Cross-validation: four of the fit cases also cross-validate, with
 ``fold_column``, on classifier and regression responses: the CV metrics
 within 1e-6, the holdout predictions at the tolerance above and each fold
 model's trees equal to the JAX package's; the ``nfolds=1`` and "both
-``nfolds`` and ``fold_column``" errors are the JAX package's. No DRF case
-cross-validates: at depth 8 its fold fits, on two thirds of the rows, meet
-the ties of ROADMAP C2 on the NA-bearing feature, where the two packages
-keep different splits of equal gain.
+``nfolds`` and ``fold_column``" errors are the JAX package's. A DRF
+classifier cross-validates in the body of one DRF case, at depth 4 (the
+same checks): the case's own depth-8 fit is not cross-validated, because on
+two thirds of the rows its fold fits meet the ties of ROADMAP C2 on the
+NA-bearing feature, where the two packages keep different splits of equal
+gain; at depth 4 the fixture has no such tie.
 """
 
 import contextlib
@@ -57,14 +59,12 @@ from h2o3_tpu.keyed import DKV as JDKV
 from h2o3_tpu.models.tree import DRF as JDRF, GBM as JGBM, XGBoost as JXGBoost
 from h2o3_tpu.models.tree import booster as jb
 from h2o3_tpu.ops.pallas_histogram import _resolve_hist_dtype
-from h2o3_tpu.models.tree.common import init_margin as j_init_margin
 from h2o3_tpu.models.tree.common import tree_matrix as j_tree_matrix
 from h2o3_tpu.ops.histogram import apply_bins as j_apply_bins
 import h2o3_tpu_torch as ht
 from h2o3_tpu_torch.models.tree.common import tree_matrix as p_tree_matrix
 from h2o3_tpu_torch.ops.histogram import build_histogram
 from h2o3_tpu_torch.keyed import DKV as PDKV
-from h2o3_tpu_torch.convert import ensemble_from_numpy
 
 torch.set_num_threads(1)
 
@@ -231,61 +231,25 @@ def test_fit_predict_score_match_jax(algo, dist, subtract, aux, monkeypatch):
         kw.pop("fold_column")
         with ht.use_device("cpu"):
             assert _cv_errors(pcls, pfr, **kw) == _cv_errors(jcls, jfr, **kw)
-
-
-def test_ensemble_carried_across_scores_like_jax():
-    rng = np.random.default_rng(21)
-    n, F = 2000, 5
-    X = rng.normal(size=(n, F)).astype(np.float32)
-    X[rng.random((n, F)) < 0.05] = np.nan
-    y = (np.nan_to_num(X[:, 0]) > 0).astype(np.float64) + (np.nan_to_num(X[:, 1]) > 0.5)
-    p = jb.TreeParams(ntrees=4, max_depth=3, nbins=16, seed=2)
-    f0 = j_init_margin("multinomial", y, 3)
-    jens = jb.train_boosted(X, "multinomial", y, 3, f0, p)
-    d = {
-        "edges": jens.trees_per_class[0].edges,
-        "init_margin": jens.init_margin,
-        "max_depth": jens.trees_per_class[0].max_depth,
-        "n_bins1": jens.trees_per_class[0].n_bins1,
-        "average": jens.average,
-    }
-    for field in ("feat", "split_bin", "default_left", "is_split", "leaf"):
-        d[field] = [np.stack(getattr(t, field)) for t in jens.trees_per_class]
-    pens = ensemble_from_numpy(d, device="cpu")
-
-    Xh = rng.normal(size=(500, F)).astype(np.float32)
-    Xh[rng.random((500, F)) < 0.05] = np.nan
-    np.testing.assert_allclose(pens.predict_margin(Xh), jens.predict_margin(Xh),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_drf_ensemble_carried_across_scores_like_jax():
-    # a JAX-trained forest (averaged, fixed indicator targets, sampled)
-    # through ensemble_from_numpy(average=True)
-    rng = np.random.default_rng(23)
-    n, F, C = 1500, 6, 3
-    X = rng.normal(size=(n, F)).astype(np.float32)
-    X[rng.random((n, F)) < 0.05] = np.nan
-    cls = (np.nan_to_num(X[:, 0]) > 0).astype(np.int64) + (np.nan_to_num(X[:, 1]) > 0.5)
-    targets = np.eye(C)[cls]
-    p = jb.TreeParams(ntrees=3, max_depth=6, nbins=20, learn_rate=1.0,
-                      reg_lambda=0.0, sample_rate=0.632, mtries=2, seed=9)
-    jens = jb.train_boosted(X, "fixed", targets, C, np.zeros(C), p, average=True)
-    d = {
-        "edges": jens.trees_per_class[0].edges,
-        "init_margin": jens.init_margin,
-        "max_depth": p.max_depth,
-        "n_bins1": p.nbins + 1,
-        "average": jens.average,
-    }
-    for field in ("feat", "split_bin", "default_left", "is_split", "leaf"):
-        d[field] = [np.stack(getattr(t, field)) for t in jens.trees_per_class]
-    pens = ensemble_from_numpy(d, device="cpu")
-    assert pens.average
-    Xh = rng.normal(size=(400, F)).astype(np.float32)
-    Xh[rng.random((400, F)) < 0.05] = np.nan
-    np.testing.assert_allclose(pens.predict_margin(Xh), jens.predict_margin(Xh),
-                               rtol=1e-5, atol=1e-6)
+    if dist == "multinomial":
+        # one tree set per class: no TreeSHAP, with the JAX package's error
+        with pytest.raises(ValueError) as jerr:
+            jmodel.predict_contributions(jho)
+        with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
+            pmodel.predict_contributions(pho)
+        assert str(perr.value) == str(jerr.value)
+    if (algo, dist, aux) == ("drf", "bernoulli", None):
+        # DRF cross-validation (ROADMAP C2's port-side check) at depth 4,
+        # where the fixture has no mirror-image tie
+        cv_kw = dict(kw, max_depth=4, nfolds=3, fold_assignment="modulo",
+                     keep_cross_validation_predictions=True)
+        jcv = jcls(**cv_kw).train(jfr)
+        for m in [jcv] + jcv.cv_models:
+            JDKV.remove(m.key)
+        with ht.use_device("cpu"):
+            pcv = pcls(tree_subtract=subtract, **cv_kw, **port_kw).train(pfr)
+        _assert_trees_equal(jcv, pcv)
+        _assert_cv_matches_jax(jcv, pcv)
 
 
 def test_drf_checkpoint_raises():
@@ -458,15 +422,6 @@ def test_checkpoint_errors_match_jax(case):
             "nbins": "nbins=20", "algo": "cannot continue it as 'xgboost'",
             "features": "4 tree features", "classes": "class count"}[case]
     assert want in msgs[1]
-
-
-def test_ensemble_from_numpy_rejects_bad_shapes():
-    d = {"edges": np.zeros((2, 6)), "init_margin": np.zeros(1), "max_depth": 2,
-         "n_bins1": 8, "feat": [np.zeros((1, 5))], "split_bin": [np.zeros((1, 7))],
-         "default_left": [np.zeros((1, 7))], "is_split": [np.zeros((1, 7))],
-         "leaf": [np.zeros((1, 7))]}
-    with pytest.raises(ValueError, match="feat"):
-        ensemble_from_numpy(d, device="cpu")
 
 
 def test_early_stopping_matches_jax():

@@ -115,16 +115,47 @@ Run from the root of a checkout. Phases, each of which must pass:
    with the host's C compiler against ``predict`` at rtol 1e-5 / atol 1e-6;
    the entry step (``h2o3_tpu_torch.entry``) on the card against the CPU's
    at atol 1e-6. It prints a ``{"surface": {...}}`` line with each time;
-17. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+17. the GLM (``glm_phase``): binomial IRLSM at lambda 0 on the N x 28
+   frame (coefficients finite) and again at lambda 1e-4 (its design a
+   ``glm_design`` cache hit), L-BFGS at lambda 1e-4 within 1e-3 of that
+   IRLSM fit, IRLSM on the first 200,000 rows on the card and on the CPU
+   (coefficients rtol 1e-4, AUC within 1e-4, equal iterations), a gaussian
+   lambda search (10 lambdas, alpha 0.5: ADMM) on the frame's logit plus
+   noise whose training deviance never rises along the path, multinomial
+   IRLSM and L-BFGS at lambda 1e-3 on an MNIST-shaped frame
+   (``--mnist-rows`` x 784 in [0, 1], 10% of the columns zero, 10 classes;
+   the L-BFGS fit below the constant predictor's logloss), a
+   prostate-shaped binomial (380 rows, ``standardize=False``, p-values,
+   3-fold CV) on the card and the CPU (coefficients rtol 1e-3, p-values
+   1e-2, beside the CPU's own spread on permuted rows), and the binomial
+   model's MOJO (numpy ``genmodel``) and C POJO against ``predict`` on
+   10,000 rows (1e-6). Each fit prints ``train_s``, its Gram passes and
+   their mean ms (CUDA events), its iterations and its GLM cache hits and
+   misses, and the phase a ``{"glm": ...}`` line;
+18. DeepLearning (``deeplearning_phase``) on the MNIST-shaped frame at
+   hidden [200, 200], rectifier, mini-batch 256: the init and the first
+   step's dropout masks bit-identical to the CPU's, one ADADELTA step of
+   256 rows within 1e-5 of the CPU's, a ``--dl-epochs`` ADADELTA fit
+   (logloss below the constant predictor's, misclassification below
+   0.5), continued from its checkpoint by one epoch and equal to a
+   straight fit (bit for bit, or each weight within 1e-6, said in the
+   line), a dropout epoch (input 0.2, hidden 0.5), an SGD epoch with the
+   momentum ramp 0.5 -> 0.99, an autoencoder (hidden [14]) on 100,000
+   rows of the N x 28 frame with a finite ``anomaly``, and the MOJO
+   against ``predict`` (1e-5); samples/s and ms per step of each epoch,
+   ``predict_s``, and a ``{"deeplearning": ...}`` line. No histogram
+   kernel launches in 17 and 18;
+19. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15; phase 16 launches no histogram kernel), then
+those of phases 8-15; phases 16-18 launch no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
-nothing of JAX.
+nothing of JAX. Matmuls stay true float32: the port never enables TF32,
+and phase 17 checks that it is off.
 """
 
 from __future__ import annotations
@@ -153,13 +184,14 @@ def smi_line() -> str:
 
 
 def synth_higgs(n_rows: int, n_feat: int, seed: int):
-    """HIGGS-shaped binary data: N(0,1) features, a logistic response."""
+    """HIGGS-shaped binary data: N(0,1) features, a logistic response, and
+    the logit it was drawn from."""
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
     w = rng.normal(size=n_feat) / np.sqrt(n_feat)
     logit = X @ w + 0.5 * X[:, 0] * X[:, 1]
     y = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int32)
-    return X, y
+    return X, y, logit
 
 
 def make_frame(X, y):
@@ -964,12 +996,15 @@ def profile_fit(builder_cls, frame, label, **kw):
     return rec
 
 
-def compile_pojo(src, workdir):
+def compile_pojo(src, workdir, row_type=None):
     """The C POJO as a shared library, built with the host's C compiler
-    (the one nvcc itself needs)."""
+    (the one nvcc itself needs); a tree POJO reads float rows, a GLM's
+    double rows (``row_type``)."""
     import ctypes
     import os
     import shutil
+
+    row_type = row_type or ctypes.c_float
 
     cc = shutil.which("gcc") or shutil.which("cc")
     if cc is None:
@@ -980,18 +1015,19 @@ def compile_pojo(src, workdir):
     subprocess.run([cc, "-O2", "-shared", "-fPIC", "-o", so_path, c_path, "-lm"],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so_path)
-    lib.score.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_double)]
+    lib.score.argtypes = [ctypes.POINTER(row_type), ctypes.POINTER(ctypes.c_double)]
     return lib
 
 
-def pojo_scores(lib, X32, n_out):
+def pojo_scores(lib, X, n_out, dtype=np.float32):
     import ctypes
 
-    out = np.zeros((X32.shape[0], n_out))
+    row_type = ctypes.c_float if dtype == np.float32 else ctypes.c_double
+    out = np.zeros((X.shape[0], n_out))
     buf = np.zeros(n_out, dtype=np.float64)
-    for i in range(X32.shape[0]):
-        row = np.ascontiguousarray(X32[i], dtype=np.float32)
-        lib.score(row.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    for i in range(X.shape[0]):
+        row = np.ascontiguousarray(X[i], dtype=dtype)
+        lib.score(row.ctypes.data_as(ctypes.POINTER(row_type)),
                   buf.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
         out[i] = buf
     return out
@@ -1134,6 +1170,418 @@ def surface_phase(model, drf_model, frame, n_rows, dev="cuda", sub_rows=300_000,
     return rec
 
 
+def synth_mnist(n_rows: int, seed: int):
+    """MNIST-shaped data: 784 pixel columns in [0, 1] from 10 class
+    templates plus noise, a 10-class label, and 78 pixels (10%: the first
+    39 and the last 39, MNIST's top and bottom border) zero in every row."""
+    rng = np.random.default_rng(seed)
+    common = rng.random(784).astype(np.float32)
+    templates = np.float32(0.7) * common + np.float32(0.3) * rng.random((10, 784)).astype(
+        np.float32)
+    label = rng.integers(0, 10, n_rows)
+    X = templates[label] + np.float32(0.5) * rng.standard_normal(
+        (n_rows, 784), dtype=np.float32)
+    np.clip(X, 0.0, 1.0, out=X)
+    X[:, :39] = 0.0
+    X[:, -39:] = 0.0
+    return X, label.astype(np.int32)
+
+
+def mnist_frame(X, label):
+    from h2o3_tpu_torch import ColType, Column, Frame
+
+    cols = [Column(f"p{j}", X[:, j], ColType.NUM) for j in range(X.shape[1])]
+    cols.append(Column("label", label, ColType.CAT, [str(k) for k in range(10)]))
+    return Frame(cols)
+
+
+def synth_prostate(n_rows: int, seed: int):
+    """prostate.csv-shaped data (hex.glm's binomial example): AGE, RACE (3
+    levels), DPROS (4 levels), DCAPS, PSA, VOL, GLEASON and the CAPSULE
+    response, with the real file's ranges."""
+    from h2o3_tpu_torch import ColType, Column, Frame
+
+    rng = np.random.default_rng(seed)
+    age = np.clip(np.round(rng.normal(66, 6.5, n_rows)), 43, 79)
+    race = rng.choice(3, n_rows, p=[0.01, 0.9, 0.09]).astype(np.int32)
+    dpros = rng.choice(4, n_rows, p=[0.26, 0.36, 0.25, 0.13]).astype(np.int32)
+    dcaps = np.where(rng.random(n_rows) < 0.1, 2.0, 1.0)
+    psa = np.round(np.exp(rng.normal(2.2, 1.0, n_rows)), 1)
+    vol = np.where(rng.random(n_rows) < 0.45, 0.0, np.round(rng.gamma(2.0, 12.0, n_rows), 1))
+    gleason = np.clip(np.round(rng.normal(6.4, 1.0, n_rows)), 0, 9)
+    eta = (-0.7 + 0.5 * dpros + 0.05 * psa + 0.9 * (gleason - 6) + 0.6 * (dcaps - 1)
+           - 0.01 * vol + 0.02 * (age - 66))
+    capsule = (rng.random(n_rows) < 1 / (1 + np.exp(-eta))).astype(np.float64)
+    num = lambda name, v: Column(name, v, ColType.NUM)  # noqa: E731
+    return Frame([num("AGE", age), Column("RACE", race, ColType.CAT, ["0", "1", "2"]),
+                  Column("DPROS", dpros, ColType.CAT, ["1", "2", "3", "4"]),
+                  num("DCAPS", dcaps), num("PSA", psa), num("VOL", vol),
+                  num("GLEASON", gleason), num("CAPSULE", capsule)])
+
+
+class GramTimer:
+    """Counts the GLM's Gram passes (``glm._gram``) and times each on the
+    card with CUDA events, uploads and downloads included."""
+
+    def __init__(self, dev):
+        from h2o3_tpu_torch.models import glm
+
+        self.glm, self.orig, self.dev = glm, glm._gram, dev
+        self.ms = []
+
+    def __enter__(self):
+        import torch
+
+        def timed(Xd, wz, w):
+            if Xd.device.type != "cuda":
+                t0 = time.perf_counter()
+                out = self.orig(Xd, wz, w)
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(Xd, wz, w)
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+            return out
+
+        self.glm._gram = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.glm._gram = self.orig
+
+    def take(self):
+        ms, self.ms = self.ms, []
+        return {"gram_calls": len(ms), "gram_ms": float(np.mean(ms)) if ms else None}
+
+
+def glm_design_counts():
+    from h2o3_tpu_torch.frame.devcache import DEVCACHE
+
+    kinds = DEVCACHE.stats()["kinds"]
+    return {k: (v["hits"], v["misses"]) for k, v in kinds.items() if k.startswith("glm_")}
+
+
+def glm_fit(label, frame, dev, timer, valid=None, **kw):
+    """One GLM fit on ``dev``, with its record: train_s, the Gram passes
+    and their mean ms, the iterations, and the device frame cache's hits
+    and misses by GLM placement kind."""
+    from h2o3_tpu_torch import GLM
+
+    before = glm_design_counts()
+    timer.take()
+    t0 = time.time()
+    model = GLM(device=str(dev), **kw).train(frame, valid)
+    rec = {"fit": label, "device": str(dev), "train_s": time.time() - t0,
+           "iterations": model.iterations, **timer.take()}
+    after = glm_design_counts()
+    rec["devcache"] = {k: [after[k][0] - before.get(k, (0, 0))[0],
+                           after[k][1] - before.get(k, (0, 0))[1]]
+                       for k in after if after[k] != before.get(k)}
+    coefs = np.array(list(model.coefficients.values()))
+    if not np.all(np.isfinite(coefs)):
+        raise AssertionError(f"glm {label}: coefficients not finite")
+    m = model.training_metrics
+    for key in ("auc", "logloss", "mse", "mean_residual_deviance"):
+        if hasattr(m, key):
+            rec[key] = float(getattr(m, key))
+    print(f"glm fit: {json.dumps(rec)}", flush=True)
+    return model, rec
+
+
+def _close(a, b, rtol, atol=0.0):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return bool(np.allclose(a, b, rtol=rtol, atol=atol)), float(np.max(np.abs(a - b)))
+
+
+def glm_phase(frame, X, y, logit, mnist, prostate, dev, seed, sub_rows=200_000,
+              export_rows=10_000, mnist_rows=60_000):
+    """The GLM on ``dev``: binomial IRLSM on the HIGGS-shaped frame (and on
+    its first ``sub_rows`` rows on the card and on the CPU: coefficients
+    rtol 1e-4, AUC 1e-4, equal iterations), binomial L-BFGS against IRLSM
+    at lambda 1e-4 (1e-3), a gaussian lambda search with ADMM (10 entries,
+    training deviance never rising), multinomial IRLSM and L-BFGS fits on
+    the MNIST-shaped frame, a prostate-shaped fit with p-values and 3-fold
+    CV on the card and the CPU (coefficients rtol 1e-3, p-values 1e-2),
+    and the binomial model's MOJO (numpy ``genmodel``) and C POJO against
+    predict (1e-6). Every check raises."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch.genmodel import load_mojo
+    from h2o3_tpu_torch.models.data_info import expand_matrix
+
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("glm: float32 matmuls must not run in TF32")
+    n = len(y)
+    rec = {"rows": n, "fits": []}
+    with GramTimer(dev) as timer:
+        # binomial IRLSM, lambda 0, on every row
+        irlsm, r = glm_fit("binomial_irlsm", frame, dev, timer, family="binomial",
+                           lambda_=0.0, response_column="y")
+        rec["fits"].append(r)
+        # the same design again at lambda 1e-4: the device design is a hit
+        irlsm_l2, r = glm_fit("binomial_irlsm_l2", frame, dev, timer, family="binomial",
+                              lambda_=1e-4, alpha=0.0, response_column="y")
+        if r["devcache"].get("glm_design") != [1, 0]:
+            raise AssertionError(f"glm: the second fit's design was not a cache hit: {r}")
+        rec["fits"].append(r)
+        lbfgs, r = glm_fit("binomial_lbfgs", frame, dev, timer, family="binomial",
+                           solver="lbfgs", lambda_=1e-4, alpha=0.0, response_column="y")
+        ok, err = _close(list(lbfgs.coefficients.values()),
+                         list(irlsm_l2.coefficients.values()), 0.0, 1e-3)
+        r["vs_irlsm_max_abs_err"] = err
+        if not ok:
+            raise AssertionError(f"glm: L-BFGS is {err} from IRLSM at lambda 1e-4")
+        rec["fits"].append(r)
+
+        # the card against the CPU on the first rows
+        sub = make_frame(X[:sub_rows], y[:sub_rows])
+        pair = []
+        for d in (dev, "cpu"):
+            m, r = glm_fit(f"binomial_irlsm_{sub_rows}_rows", sub, d, timer,
+                           family="binomial", lambda_=0.0, response_column="y")
+            pair.append(m)
+            rec["fits"].append(r)
+        a, b = pair
+        ok, err = _close(list(a.coefficients.values()), list(b.coefficients.values()), 1e-4)
+        auc_err = abs(a.training_metrics.auc - b.training_metrics.auc)
+        rec["card_vs_cpu"] = {"coef_max_abs_err": err, "auc_err": auc_err,
+                              "iterations": [a.iterations, b.iterations]}
+        if not ok or auc_err > 1e-4 or a.iterations != b.iterations:
+            raise AssertionError(f"glm: card and CPU fits differ: {rec['card_vs_cpu']}")
+
+        # gaussian lambda search with ADMM on the HIGGS logit plus noise
+        noise = np.random.default_rng(seed + 7).normal(size=n).astype(np.float32)
+        from h2o3_tpu_torch import ColType, Column
+
+        gframe = frame.add_column(Column("yg", logit + noise, ColType.NUM))
+        search, r = glm_fit("gaussian_lambda_search", gframe, dev, timer,
+                            family="gaussian", lambda_search=True, nlambdas=10,
+                            alpha=0.5, response_column="yg", ignored_columns=["y"])
+        dev_path = [e["deviance_train"] for e in search.lambda_path]
+        r["lambda_path_deviance"] = dev_path
+        if len(dev_path) != 10 or any(b > a * (1 + 1e-9) for a, b in zip(dev_path, dev_path[1:])):
+            raise AssertionError(f"glm: lambda path {dev_path}")
+        rec["fits"].append(r)
+
+        # multinomial on the MNIST-shaped frame, by IRLSM and by L-BFGS. The
+        # reference's cyclic per-class IRLSM, which the port follows, has
+        # no step control and diverges on this frame (its probabilities
+        # clipped at 1e-15; ROADMAP C6), so only the L-BFGS fit is held to
+        # have learned
+        mX, mlabel = mnist
+        mframe = mnist_frame(mX[:mnist_rows], mlabel[:mnist_rows])
+        priors = np.bincount(mlabel[:mnist_rows], minlength=10) / mnist_rows
+        constant_logloss = float(-(priors * np.log(priors)).sum())
+        for solver in ("irlsm", "lbfgs"):
+            multi, r = glm_fit(f"multinomial_mnist_{solver}", mframe, dev, timer,
+                               family="multinomial", solver=solver, lambda_=1e-3,
+                               alpha=0.0, response_column="label")
+            r.update(rows=mnist_rows, constant_logloss=constant_logloss)
+            rec["fits"].append(r)
+            if not np.isfinite(multi.training_metrics.logloss):
+                raise AssertionError(f"glm: multinomial {solver} logloss not finite")
+        if not multi.training_metrics.logloss < constant_logloss:
+            raise AssertionError(f"glm: the multinomial L-BFGS fit did not learn: {r}")
+
+        # prostate-shaped: p-values and 3-fold CV, the card against the CPU,
+        # and the CPU against itself on the rows permuted: unstandardized,
+        # AGE (mean 66) and the rare RACE level lie near the intercept, so
+        # the float32 Gram's summation order moves coefficients by 1e-4 of
+        # themselves (2.4e-4 at seed 0), and the normal tail multiplies a
+        # z-value's relative error by z * phi(z) / sf(z) in its p-value
+        # (about 5 at z = 2.2; 1.5e-3 at seed 0): card and CPU are held at
+        # rtol 1e-3 on coefficients and 1e-2 on p-values, the permuted CPU
+        # fit's spread printed beside them
+        pair = []
+        kw = dict(family="binomial", standardize=False, compute_p_values=True,
+                  response_column="CAPSULE")
+        for d in (dev, "cpu"):
+            m, r = glm_fit("prostate_binomial", prostate, d, timer, nfolds=3, seed=seed, **kw)
+            r["cv_auc"] = float(m.cross_validation_metrics.auc)
+            pair.append(m)
+            rec["fits"].append(r)
+        perm = np.random.default_rng(seed).permutation(prostate.nrows)
+        pair.append(glm_fit("prostate_binomial_permuted", prostate.rows(perm), "cpu",
+                            timer, **kw)[0])
+
+        def rel(m1, m2, what):
+            x1, x2 = getattr(m1, what), getattr(m2, what)
+            return max(abs(x1[k] - x2[k]) / abs(x2[k]) for k in x2)
+
+        a, b, c = pair
+        rec["prostate_card_vs_cpu"] = {
+            "coef_max_rel_err": rel(a, b, "coefficients"),
+            "p_value_max_rel_err": rel(a, b, "p_values"),
+            "cpu_permuted_coef_max_rel_err": rel(c, b, "coefficients"),
+            "cpu_permuted_p_value_max_rel_err": rel(c, b, "p_values")}
+        names = sorted(b.coefficients)
+        ok1, _ = _close([a.coefficients[k] for k in names], [b.coefficients[k] for k in names],
+                        1e-3)
+        ok2, _ = _close([a.p_values[k] for k in names], [b.p_values[k] for k in names],
+                        1e-2)
+        if not (ok1 and ok2):
+            raise AssertionError(f"glm: prostate card and CPU differ: {rec['prostate_card_vs_cpu']}")
+
+    # the binomial model's MOJO and C POJO against predict
+    export = frame.rows(slice(0, export_rows))
+    pred = irlsm.predict(export)
+    want = np.stack([pred.col("p0").data, pred.col("p1").data], 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        irlsm.download_mojo(f"{tmp}/glm.zip")
+        got = load_mojo(f"{tmp}/glm.zip").score(
+            {name: export.col(name).data for name in export.names if name != "y"})
+        ok, err = _close(got, want, 0.0, 1e-6)
+        rec["mojo"] = {"s": time.time() - t0, "max_abs_err": err}
+        if not ok:
+            raise AssertionError(f"glm: MOJO scores differ ({err})")
+        lib = compile_pojo(irlsm.pojo("c"), tmp, ctypes.c_double)
+        Xd, _ = expand_matrix(irlsm.data_info, export, dtype=np.float64)
+        out = pojo_scores(lib, Xd, 3, np.float64)
+        ok, err = _close(out[:, 1:], want, 0.0, 1e-6)
+        rec["pojo_max_abs_err"] = err
+        if not ok:
+            raise AssertionError(f"glm: the C POJO differs from predict ({err})")
+    return rec
+
+
+def deeplearning_phase(mnist, higgs_frame, dev, seed, epochs=2, ae_rows=100_000,
+                       export_rows=10_000):
+    """DeepLearning on ``dev`` on the MNIST-shaped frame at the package's
+    defaults (hidden [200, 200], rectifier, mini-batch 256): the init and a
+    step's dropout masks bit-identical to the CPU's, one ADADELTA step
+    within 1e-5 of the CPU's, an ``epochs``-epoch fit (logloss below the
+    constant predictor's, misclassification below 0.5), continued to
+    ``epochs + 1`` and equal to a straight fit, a dropout epoch, an SGD
+    epoch with momentum, an autoencoder (hidden [14]) on ``ae_rows`` rows
+    of the HIGGS-shaped frame, and the MOJO against predict (1e-5). Prints
+    samples/s and ms per step of each epoch. Every check raises."""
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch import DeepLearning
+    from h2o3_tpu_torch.genmodel import load_mojo
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.models import deeplearning as dl
+    from h2o3_tpu_torch.util import jrandom as jr
+
+    mX, mlabel = mnist
+    frame = mnist_frame(mX, mlabel)
+    n = len(mlabel)
+    rec = {"rows": n, "fits": []}
+    sizes = [784, 200, 200, 10]
+    key = jr.split(jr.PRNGKey(seed))[1]
+    on_dev = dl._init_params(key, sizes, dev)
+    on_cpu = dl._init_params(key, sizes, "cpu")
+    for (a, _), (b, _) in zip(on_dev, on_cpu):
+        if not torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)):
+            raise AssertionError("deeplearning: the init on the card is not the CPU's bits")
+    # the first step's masks (epoch 0, step 0): input 0.2, hidden 0.5
+    dk = jr.fold_in(jr.fold_in(jr.PRNGKey(seed), 1), 0)
+    for shape, p in (((256, 784), 0.8), ((256, 200), 0.5), ((256, 200), 0.5)):
+        dk, sub = jr.split(dk)
+        if not torch.equal(jr.bernoulli(sub, p, shape, dev).cpu(),
+                           jr.bernoulli(sub, p, shape, "cpu")):
+            raise AssertionError("deeplearning: a dropout mask differs on the card")
+    rec["init_and_masks_bit_identical"] = True
+
+    base = dict(response_column="label", seed=seed, hidden=[200, 200], mini_batch_size=256)
+    # one ADADELTA step of 256 rows on the card and on the CPU
+    step_frame = frame.rows(slice(0, 256))
+    one = [DeepLearning(device=str(d), epochs=1, **base).train(step_frame)
+           for d in (dev, "cpu")]
+    err = max(float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+              for (Wa, ba), (Wb, bb) in zip(one[0].net_params, one[1].net_params)
+              for a, b in ((Wa, Wb), (ba, bb)))
+    rec["one_step_max_abs_err"] = err
+    if err > 1e-5:
+        raise AssertionError(f"deeplearning: one step on the card is {err} from the CPU's")
+
+    def fit(label, on=frame, **kw):
+        t0 = time.time()
+        model = DeepLearning(device=str(dev), **dict(base, **kw)).train(on)
+        r = {"fit": label, "train_s": time.time() - t0,
+             "epochs_trained": model.epochs_trained}
+        t = model.timings
+        rows = int(t["steps_per_epoch"]) * int(t["batch"])
+        r["samples_per_s"] = [rows / s for s in t["epoch_s"]]
+        r["ms_per_step"] = [1e3 * s / t["steps_per_epoch"] for s in t["epoch_s"]]
+        leaves = [np.asarray(w) for layer in model.net_params for w in layer]
+        if not all(np.all(np.isfinite(w)) for w in leaves):
+            raise AssertionError(f"deeplearning {label}: weights not finite")
+        print(f"deeplearning fit: {json.dumps(r)}", flush=True)
+        rec["fits"].append(r)
+        return model, r
+
+    main, r = fit("adadelta", epochs=epochs)
+    m = main.training_metrics
+    priors = np.bincount(mlabel, minlength=10) / n
+    constant_logloss = float(-(priors * np.log(priors)).sum())
+    t0 = time.time()
+    pred = main.predict(frame)
+    r["predict_s"] = time.time() - t0
+    miss = float(np.mean(pred.col("predict").data != mlabel))
+    r.update(logloss=float(m.logloss), constant_logloss=constant_logloss,
+             misclassification=miss)
+    if not (np.isfinite(m.logloss) and m.logloss < constant_logloss and miss < 0.5):
+        raise AssertionError(f"deeplearning: the fit did not learn: {r}")
+
+    # checkpoint-continue to epochs + 1 against a straight fit
+    cont, r = fit("adadelta_continued", epochs=epochs + 1, checkpoint=main.key)
+    straight, r2 = fit("adadelta_straight", epochs=epochs + 1)
+    diffs = [float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
+             for (Wa, ba), (Wb, bb) in zip(cont.net_params, straight.net_params)
+             for a, b in ((Wa, Wb), (ba, bb))]
+    bits = all(d == 0.0 for d in diffs) and all(
+        np.array_equal(a, b) for a, b in zip(cont.opt_leaves, straight.opt_leaves))
+    rec["continue"] = {"bit_identical": bits, "max_abs_err": max(diffs)}
+    if not bits and max(diffs) > 1e-6:
+        raise AssertionError(f"deeplearning: the continued fit differs: {rec['continue']}")
+    print(f"deeplearning continue: {json.dumps(rec['continue'])}", flush=True)
+
+    drop, r = fit("dropout", epochs=1, input_dropout_ratio=0.2, hidden_dropout_ratios=[0.5, 0.5])
+    r["logloss"] = float(drop.training_metrics.logloss)
+    sgd, r = fit("sgd_momentum", epochs=1, adaptive_rate=False, momentum_start=0.5,
+                 momentum_stable=0.99, rate_annealing=1e-6)
+    r["logloss"] = float(sgd.training_metrics.logloss)
+    if not (np.isfinite(r["logloss"]) and np.isfinite(rec["fits"][-2]["logloss"])):
+        raise AssertionError("deeplearning: the dropout or SGD fit's logloss is not finite")
+
+    # the autoencoder on the HIGGS-shaped frame
+    ae_frame = higgs_frame.rows(slice(0, ae_rows))
+    ae, r = fit("autoencoder", on=ae_frame, epochs=1, autoencoder=True, hidden=[14],
+                response_column=None, ignored_columns=["y"])
+    t0 = time.time()
+    score = ae.anomaly(ae_frame)
+    r["anomaly_s"] = time.time() - t0
+    r["anomaly_mean"] = float(np.mean(score))
+    if score.shape != (ae_rows,) or not np.all(np.isfinite(score)):
+        raise AssertionError("deeplearning: anomaly is not finite")
+
+    # the MOJO against predict
+    export = frame.rows(slice(0, export_rows))
+    want = main._predict_raw(export)
+    with tempfile.TemporaryDirectory() as tmp:
+        main.download_mojo(f"{tmp}/dl.zip")
+        got = load_mojo(f"{tmp}/dl.zip").score(
+            {name: export.col(name).data for name in export.names if name != "label"})
+    ok, err = _close(got, want, 0.0, 1e-5)
+    rec["mojo_max_abs_err"] = err
+    if not ok:
+        raise AssertionError(f"deeplearning: MOJO scores differ ({err})")
+    for model in one + [main, cont, straight, drop, sgd, ae]:
+        DKV.remove(model.key)
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -1175,6 +1623,12 @@ def main() -> int:
                     help="trees of the bf16 DRF fit")
     ap.add_argument("--cv-trees", type=int, default=4,
                     help="trees of each fit of the 3-fold XGBoost cross-validation")
+    ap.add_argument("--mnist-rows", type=int, default=60_000,
+                    help="rows of the MNIST-shaped frame of the GLM and "
+                         "DeepLearning phases")
+    ap.add_argument("--dl-epochs", type=int, default=2,
+                    help="epochs of the main DeepLearning fit (one more "
+                         "for its continuation)")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--parent", default=None, metavar="CHECKOUT",
                     help="another checkout of the repository (e.g. the parent "
@@ -1279,11 +1733,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     rand = jrandom_check(dev)
 
-    X, y = synth_higgs(n, 28, seed)
+    X, y, logit = synth_higgs(n, 28, seed)
     binning = binning_phase(X, seed, dev)
     keys = CacheKeys()
     frame = keys.name(make_frame(X, y), "higgs")
-    small_frame = keys.name(make_frame(*synth_higgs(20_000, 28, seed + 1)), "small")
+    small_frame = keys.name(make_frame(*synth_higgs(20_000, 28, seed + 1)[:2]), "small")
     wide_n = min(args.wide_rows, n)
     wide_frame = keys.name(make_frame(X[:wide_n], y[:wide_n]), "wide")
 
@@ -1367,6 +1821,24 @@ def main() -> int:
     surface["phase_s"] = time.time() - t0
     print(json.dumps({"surface": surface}), flush=True)
 
+    # the dense-design models: no histogram kernel runs in them
+    launches_before = dict(cuda_build.LAUNCHES)
+    mnist = synth_mnist(args.mnist_rows, seed + 11)
+    t0 = time.time()
+    glm_rec = glm_phase(frame, X, y, logit.astype(np.float32), mnist,
+                        synth_prostate(380, seed + 12), dev, seed,
+                        sub_rows=min(200_000, n), mnist_rows=args.mnist_rows)
+    glm_rec["phase_s"] = time.time() - t0
+    print(json.dumps({"glm": glm_rec}), flush=True)
+    t0 = time.time()
+    dl_rec = deeplearning_phase(mnist, frame, dev, seed, epochs=args.dl_epochs,
+                                ae_rows=min(100_000, n))
+    dl_rec["phase_s"] = time.time() - t0
+    print(json.dumps({"deeplearning": dl_rec}), flush=True)
+    if cuda_build.LAUNCHES != launches_before:
+        raise AssertionError(f"a histogram kernel ran in the GLM or DeepLearning phase: "
+                             f"{cuda_build.LAUNCHES} (before: {launches_before})")
+
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
              profile_fit(XGBoost, frame, "xgboost_monotone", ntrees=args.trees,
@@ -1392,7 +1864,7 @@ def main() -> int:
                        "build_s": build_s, "kernel_checks": checks,
                        "cross_check": cross, "jrandom": rand, "binning": binning,
                        "fits": fits, "cv": cv, "devcache": cache_stats,
-                       "surface": surface,
+                       "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,10 @@ kernels here (``h2o3_tpu_torch/csrc``), built with ``nvcc`` at first use.
 So far: Frames; XGBoost/GBM/DRF fit, cross-validate and score on the
 histogram tree core; batched scoring, thresholds, ``make_metrics``, TreeSHAP
 contributions, variable importances, binary save/load, MOJO and POJO export
-and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``.
+and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``; GLM (every
+family, IRLSM with the Gram on the device, L-BFGS, lambda search) and the
+DeepLearning MLP (ADADELTA or SGD, dropout, autoencoder) on the dense
+design matrix.
 
 The top-level names load on first use (PEP 562), so importing
 ``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.
@@ -22,8 +25,12 @@ __all__ = [
     "ColType",
     "Column",
     "DRF",
+    "DeepLearning",
+    "DeepLearningParameters",
     "Frame",
     "GBM",
+    "GLM",
+    "GLMParameters",
     "XGBoost",
     "resolve_device",
     "use_device",
@@ -34,6 +41,11 @@ _LAZY = {
     "Column": ("h2o3_tpu_torch.frame.frame", "Column"),
     "Frame": ("h2o3_tpu_torch.frame.frame", "Frame"),
     "DRF": ("h2o3_tpu_torch.models.tree.drf", "DRF"),
+    "DeepLearning": ("h2o3_tpu_torch.models.deeplearning", "DeepLearning"),
+    "DeepLearningParameters": ("h2o3_tpu_torch.models.deeplearning",
+                               "DeepLearningParameters"),
+    "GLM": ("h2o3_tpu_torch.models.glm", "GLM"),
+    "GLMParameters": ("h2o3_tpu_torch.models.glm", "GLMParameters"),
     "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
     "XGBoost": ("h2o3_tpu_torch.models.tree.xgboost", "XGBoost"),
     "resolve_device": ("h2o3_tpu_torch.device", "resolve_device"),

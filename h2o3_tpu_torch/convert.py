@@ -1,4 +1,4 @@
-"""Carry a trained tree ensemble into the port from plain numpy arrays.
+"""Carry trained models into the port from plain numpy arrays.
 
 ``ensemble_from_numpy(d)`` builds the port's ``BoostedTrees`` from a dict
 of numpy arrays, so an ensemble trained elsewhere (for instance by the JAX
@@ -11,6 +11,20 @@ here without this package ever seeing the other package's objects:
   array (M = 2^(max_depth+1) - 1);
 - ``init_margin``: [C]; ``max_depth``; ``n_bins1`` (= nbins + 1);
 - ``average``: optional, True for averaged (DRF) ensembles.
+
+``glm_from_numpy(arrays, data_info, params)`` and
+``deeplearning_from_numpy(arrays, data_info, params)`` build a GLM or
+DeepLearning model from its fitted arrays, the fields of its ``DataInfo``
+(``dataclasses.asdict`` of the JAX package's) and the fields of its
+parameters, as plain dicts:
+
+- GLM ``arrays``: ``beta_std`` ([P+1], the intercept last; [P] for the
+  ordinal family, with ``ordinal_thresholds`` [K-1]) or ``beta_multi``
+  ([P+1, K]), and ``coefficients`` (the raw-scale dict);
+- DeepLearning ``arrays``: ``net_params`` ([(W, b)] per layer),
+  ``opt_leaves`` (optax's state leaves, in optax's order) and
+  ``epochs_trained``. Such a model scores as the model it came from and
+  continues training (``checkpoint=``) as that model would.
 """
 
 from __future__ import annotations
@@ -19,6 +33,8 @@ from typing import Any, Mapping
 
 import numpy as np
 
+from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.models.data_info import DataInfo
 from h2o3_tpu_torch.models.tree.booster import BoostedTrees, TreeParams, Trees
 
 _FIELDS = (
@@ -55,3 +71,56 @@ def ensemble_from_numpy(d: Mapping[str, Any], device=None) -> BoostedTrees:
                         nbins=n_bins1 - 1)
     return BoostedTrees(trees_per_class, init, params,
                         average=bool(d.get("average", False)), device=device)
+
+
+def glm_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                   params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.glm import GLMModel, GLMParameters
+
+    p = GLMParameters(**params)
+    info = DataInfo(**data_info)
+    model = GLMModel(p, info, resolve_device(device if device is not None else p.device))
+    P = len(info.coef_names)
+    if p.family == "multinomial":
+        B = np.asarray(arrays["beta_multi"], dtype=np.float64)
+        K = len(info.response_domain or ())
+        if B.shape != (P + 1, K):
+            raise ValueError(f"beta_multi must be [P + 1, K] = [{P + 1}, {K}], got {B.shape}")
+        model.beta_multi = B
+    else:
+        beta = np.asarray(arrays["beta_std"], dtype=np.float64)
+        want = P if p.family == "ordinal" else P + 1
+        if beta.shape != (want,):
+            raise ValueError(f"beta_std must be [{want}], got {beta.shape}")
+        model.beta_std = beta
+        if p.family == "ordinal":
+            model.ordinal_thresholds = np.asarray(arrays["ordinal_thresholds"],
+                                                  dtype=np.float64)
+    model.coefficients = dict(arrays["coefficients"])
+    return model
+
+
+def deeplearning_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                            params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.deeplearning import (
+        DeepLearningModel, DeepLearningParameters, loss_kind)
+
+    p = DeepLearningParameters(**params)
+    info = DataInfo(**data_info)
+    net = [(np.asarray(W, dtype=np.float32), np.asarray(b, dtype=np.float32))
+           for W, b in arrays["net_params"]]
+    d_in = len(info.coef_names)
+    nclasses = len(info.response_domain) if info.response_domain else 1
+    d_out = d_in if p.autoencoder else nclasses
+    sizes = [d_in] + list(p.hidden) + [d_out]
+    shapes = [(W.shape, b.shape) for W, b in net]
+    want = [((sizes[i], sizes[i + 1]), (sizes[i + 1],)) for i in range(len(sizes) - 1)]
+    if shapes != want:
+        raise ValueError(f"net_params shapes {shapes} are not the layout {want}")
+    model = DeepLearningModel(p, info, loss_kind(p, nclasses),
+                              resolve_device(device if device is not None else p.device))
+    model.net_params = net
+    leaves = arrays.get("opt_leaves")
+    model.opt_leaves = None if leaves is None else [np.asarray(x) for x in leaves]
+    model.epochs_trained = float(arrays.get("epochs_trained", 0.0))
+    return model

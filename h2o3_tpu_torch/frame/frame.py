@@ -277,6 +277,15 @@ class Frame:
                 return c
         raise KeyError(f"no column {name_or_idx!r} in {self.names}")
 
+    def add_column(self, col: Column) -> "Frame":
+        """A new Frame with ``col`` in place of the column of its name, or
+        appended (the GLM's response conversion)."""
+        if col.name in self.names:
+            cols = [col if c.name == col.name else c for c in self._cols]
+        else:
+            cols = self._cols + [col]
+        return Frame(cols)
+
     def rows(self, sel: Any) -> "Frame":
         """The rows a slice, a boolean mask or an index array selects, as a
         new Frame of new Columns (new version stamps)."""

@@ -4,14 +4,17 @@ The design-matrix layout every builder learns from its training frame
 (``hex/DataInfo.java:23``): predictor order, categorical domains, numeric
 moments and the response domain, so a scoring frame is adapted exactly as
 the training frame was. The trees of this package need the layout and the
-response vector; the expanded (one-hot, standardized) matrix of the linear
-models is not part of it yet.
+response vector; the GLM and DeepLearning train on the dense design matrix
+``expand_matrix`` makes from it (one-hot categoricals, standardized
+numerics, NA imputation), host numpy as in the JAX package, and the GLM
+maps its coefficients back to the input scale with
+``destandardize_coefs``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -78,6 +81,50 @@ def build_data_info(
     return info
 
 
+def expand_matrix(
+    info: DataInfo,
+    frame: Frame,
+    dtype=np.float32,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Frame -> dense [N, P] design matrix per the learned layout.
+
+    Returns (X, skip_mask): skip_mask marks the rows dropped under
+    ``missing_values_handling="skip"``. Unseen categorical levels map to NA
+    (adaptTestForTrain) and then follow ``missing_values_handling`` like any
+    other NA: the training mode under ``mean_imputation``, a dropped row
+    under ``skip``. Numerics are NA-imputed with the training mean and
+    standardized with the training mean and sd (``num_sds`` holds 1 for a
+    constant column, so a zero-sd column stays finite)."""
+    n = frame.nrows
+    blocks: List[np.ndarray] = []
+    any_na = np.zeros(n, dtype=bool)
+    for name in info.predictor_names:
+        if name in info.cat_domains:
+            dom = info.cat_domains[name]
+            codes = _align_codes(frame.col(name), dom)
+            na = codes < 0
+            any_na |= na
+            if info.missing_values_handling == "mean_imputation":
+                codes = np.where(na, info.cat_mode[name], codes)
+            start = 0 if info.use_all_factor_levels else 1
+            block = np.zeros((n, len(dom) - start), dtype=dtype)
+            sel = codes - start
+            rows = np.nonzero(sel >= 0)[0]
+            block[rows, sel[rows]] = 1.0
+            blocks.append(block)
+        else:
+            x = frame.col(name).numeric_view().astype(np.float64)
+            na = np.isnan(x)
+            any_na |= na
+            x = np.where(na, info.num_means[name], x)
+            if info.standardize:
+                x = (x - info.num_means[name]) / info.num_sds[name]
+            blocks.append(x.astype(dtype)[:, None])
+    X = np.concatenate(blocks, axis=1) if blocks else np.zeros((n, 0), dtype=dtype)
+    skip = any_na if info.missing_values_handling == "skip" else np.zeros(n, dtype=bool)
+    return X, skip
+
+
 def response_vector(info: DataInfo, frame: Frame) -> np.ndarray:
     """Response as float64: class codes for CAT (aligned to training domain)."""
     if info.response_name is None:
@@ -87,6 +134,26 @@ def response_vector(info: DataInfo, frame: Frame) -> np.ndarray:
         codes = _align_codes(col, info.response_domain)
         return np.where(codes >= 0, codes.astype(np.float64), np.nan)
     return col.numeric_view().astype(np.float64)
+
+
+def destandardize_coefs(
+    info: DataInfo, beta_std: np.ndarray, intercept_std: float
+) -> Tuple[np.ndarray, float]:
+    """Standardized-space coefficients mapped back to the input scale
+    (GLMModel beta against beta_std)."""
+    beta = beta_std.copy().astype(np.float64)
+    intercept = float(intercept_std)
+    i = 0
+    for name in info.predictor_names:
+        if name in info.cat_domains:
+            start = 0 if info.use_all_factor_levels else 1
+            i += len(info.cat_domains[name]) - start
+        else:
+            if info.standardize:
+                beta[i] = beta_std[i] / info.num_sds[name]
+                intercept -= beta[i] * info.num_means[name]
+            i += 1
+    return beta, intercept
 
 
 def _align_codes(col: Column, domain: List[str]) -> np.ndarray:

@@ -8,8 +8,8 @@ JAX package's definitions: ``hex/ModelMetrics*.java``, exact AUC as
 
 Also the scoring record a REST route keeps (``ScoringRecord``) and
 ``make_metrics``, metrics from raw predictions and actuals with no model;
-its non-gaussian regression deviance is this module's copy of the JAX
-package's GLM ``deviance`` (the GLM is not ported yet).
+its non-gaussian regression deviance is the GLM's ``deviance``
+(``models/glm.py``) at the GLM's default parameters.
 """
 
 from __future__ import annotations
@@ -400,38 +400,6 @@ class ScoringRecord:
         return f"modelmetrics_{model_id}@{frame_id}"
 
 
-#: GLMParameters.tweedie_variance_power's default, which make_metrics uses
-TWEEDIE_VARIANCE_POWER = 1.5
-
-
-def deviance(family: str, y: np.ndarray, mu: np.ndarray) -> np.ndarray:
-    """Per-row unit deviance (hex/Distribution.java; the GLM's definitions),
-    tweedie at the GLM's default variance power."""
-    eps = 1e-10
-    if family == "gaussian":
-        return (y - mu) ** 2
-    if family in ("binomial", "quasibinomial"):
-        mu = np.clip(mu, eps, 1 - eps)
-        return -2 * (y * np.log(mu) + (1 - y) * np.log(1 - mu))
-    if family == "poisson":
-        mu = np.maximum(mu, eps)
-        t = np.where(y > 0, y * np.log(np.where(y > 0, y, 1.0) / mu), 0.0)
-        return 2 * (t - (y - mu))
-    if family == "gamma":
-        mu = np.maximum(mu, eps)
-        ys = np.maximum(y, eps)
-        return -2 * (np.log(ys / mu) - (ys - mu) / mu)
-    if family == "tweedie":
-        vp = TWEEDIE_VARIANCE_POWER
-        mu = np.maximum(mu, eps)
-        ys = np.maximum(y, 0.0)
-        a = np.where(ys > 0, np.power(np.maximum(ys, eps), 2 - vp) / ((1 - vp) * (2 - vp)), 0.0)
-        b = ys * np.power(mu, 1 - vp) / (1 - vp)
-        c = np.power(mu, 2 - vp) / (2 - vp)
-        return 2 * (a - b + c)
-    raise ValueError(f"unknown family {family}")
-
-
 def make_metrics(
     predictions: np.ndarray,
     actuals: np.ndarray,
@@ -457,7 +425,10 @@ def make_metrics(
         y = np.asarray(actuals, dtype=np.float64)
         dev = None
         if distribution and distribution != "gaussian":
-            dev = deviance(distribution, y, P[:, 0])
+            from h2o3_tpu_torch.models.glm import GLMParameters, deviance
+
+            dev = deviance(distribution, y, P[:, 0],
+                           GLMParameters(response_column=""))
         return regression_metrics(y, P[:, 0], weights=weights, deviance=dev)
     K = len(domain)
     if K == 2:

@@ -8,8 +8,10 @@ design-matrix layout, ``dataclasses.asdict`` of ``DataInfo``) and
 ``h2o3_tpu_torch.genmodel`` package (or the JAX package's ``genmodel``,
 which reads the same layout).
 
-Tree models (GBM, XGBoost, DRF) are exported; the other algorithms raise
-until their model families are ported.
+Tree models (GBM, XGBoost, DRF), GLM (standardized betas; the
+multinomial block; the ordinal betas and thresholds) and DeepLearning
+(each layer's W and b) are exported; the other algorithms raise until
+their model families are ported.
 """
 
 from __future__ import annotations
@@ -33,9 +35,43 @@ def _info_dict(model: Model) -> Dict[str, Any]:
 
 def _payload(model: Model) -> Payload:
     """The per-algo payload (the *MojoWriter analogue)."""
+    from h2o3_tpu_torch.models.deeplearning import DeepLearningModel
+    from h2o3_tpu_torch.models.glm import GLMModel
     from h2o3_tpu_torch.models.tree.common import TreeModelBase
     from h2o3_tpu_torch.models.tree.drf import DRFModel
 
+    if isinstance(model, GLMModel):
+        p = model.params
+        meta = {
+            "algo": "glm",
+            "family": p.family,
+            "link": p.actual_link(),
+            "tweedie_link_power": p.tweedie_link_power,
+            "offset_column": p.offset_column,
+        }
+        if p.family == "multinomial":
+            return meta, {"beta_multi": np.asarray(model.beta_multi, dtype=np.float64)}
+        if p.family == "ordinal":
+            return meta, {
+                # the ordinal beta_std is [P] (no intercept slot; the
+                # thresholds play that role), as GLMModel._predict_raw reads it
+                "beta_std": np.asarray(model.beta_std, dtype=np.float64),
+                "thresholds": np.asarray(model.ordinal_thresholds, dtype=np.float64),
+            }
+        return meta, {"beta_std": np.asarray(model.beta_std, dtype=np.float64)}
+    if isinstance(model, DeepLearningModel):
+        p = model.params
+        arrays = {}
+        for i, (W, bia) in enumerate(model.net_params):
+            arrays[f"W_{i}"] = np.asarray(W, dtype=np.float32)
+            arrays[f"b_{i}"] = np.asarray(bia, dtype=np.float32)
+        meta = {
+            "algo": "deeplearning",
+            "activation": p.activation.lower(),
+            "n_layers": len(model.net_params),
+            "autoencoder": bool(p.autoencoder),
+        }
+        return meta, arrays
     if not isinstance(model, TreeModelBase):
         raise ValueError(f"MOJO export not supported for {type(model).__name__}")
     b = model.booster

@@ -1,5 +1,5 @@
-"""POJO-style standalone scoring source — the port of the tree parts of
-``h2o3_tpu/models/pojo.py``.
+"""POJO-style standalone scoring source — the port of the tree and GLM
+parts of ``h2o3_tpu/models/pojo.py``.
 
 Reference: ``hex/tree/TreeJCodeGen.java`` + ``water/codegen/``: a trained
 model as dependency-free scoring source that runs without the cluster.
@@ -13,8 +13,13 @@ A tree scorer takes the model's tree-feature vector (``tree_feature_names``
 order: label-encoded category codes, or the one-hot block under
 ``one_hot_explicit``) as ``float`` values: training binned float32
 features, so scoring in float keeps each threshold comparison the one the
-device path makes. The GLM and GAM generators wait for those models
-(ROADMAP A8): ``pojo_source`` refuses them.
+device path makes.
+
+A GLM scorer (``glm_pojo_c``, ``glm_multinomial_pojo_c``; C only) takes
+the model's standardized design vector (``expand_matrix`` order) as
+``double`` values and applies the standardized betas and the link; the
+ordinal family is refused, as in the JAX package. The GAM generator waits
+for the GAM (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -360,6 +365,115 @@ public class {cls_name} {{
     return "".join(out)
 
 
+# ---------------------------------------------------------------------------
+# GLM
+
+
+def glm_pojo_c(model) -> str:
+    """Linear scorer over the model's design vector.
+
+    The design vector is exactly what ``expand_matrix`` produces at
+    predict time (NA-imputed, one-hot expanded, standardized numerics),
+    scored with the standardized betas — so the emitted source computes
+    the same eta bit-for-bit as the in-framework ``_eta``."""
+    names = list(model.data_info.coef_names)
+    beta_full = np.asarray(model.beta_std, dtype=np.float64)
+    beta, icpt = beta_full[:-1], float(beta_full[-1])
+    family = model.params.family
+    nclasses = model.nclasses
+    chunks = [f"""/* GENERATED standalone GLM scorer — do not edit.
+ * Model: {model.key} (family={family})
+ * x: double[{len(names)}] standardized design vector (expand_matrix
+ * order: numerics (v - train_mean) / train_sd, NA mean-imputed,
+ * categoricals one-hot): {", ".join(names)}
+ */
+#include <math.h>
+
+"""]
+    chunks.append(_c_arr("beta", beta, "double", _c_float))
+    chunks.append(f"static const double intercept = {_c_float(icpt)};\n\n")
+    # exact _linkinv replication per resolved link (glm._linkinv) — used
+    # for BOTH branches: a binomial model with a non-canonical link must
+    # score through its actual link, not a hardcoded sigmoid
+    link = model.params.actual_link()
+    if link == "identity":
+        inv = "mu = eta;"
+    elif link == "log":
+        inv = "mu = exp(eta);"
+    elif link == "inverse":
+        inv = ("{ double d = eta; if (fabs(d) < 1e-10) "
+               "d = (d + 1e-30 >= 0.0 ? 1e-10 : -1e-10); mu = 1.0 / d; }")
+    elif link == "tweedie":
+        lp = float(model.params.tweedie_link_power)
+        inv = ("mu = exp(eta);" if lp == 0 else
+               f"mu = pow(eta > 1e-10 ? eta : 1e-10, {1.0 / lp!r});")
+    elif link == "logit":
+        inv = "mu = 1.0 / (1.0 + exp(-eta));"
+    else:
+        raise ValueError(f"unsupported link {link!r} for POJO export")
+    if nclasses == 2:
+        chunks.append(f"""void score(const double *x, double *out) {{
+  double eta = intercept;
+  for (int i = 0; i < {len(beta)}; i++) eta += beta[i] * x[i];
+  double mu;
+  {inv}
+  out[1] = 1.0 - mu; out[2] = mu; out[0] = (mu >= 0.5) ? 1.0 : 0.0;
+}}
+""")
+    else:
+        chunks.append(f"""void score(const double *x, double *out) {{
+  double eta = intercept;
+  for (int i = 0; i < {len(beta)}; i++) eta += beta[i] * x[i];
+  double mu;
+  {inv}
+  out[0] = mu;
+}}
+""")
+    return "".join(chunks)
+
+
+def glm_multinomial_pojo_c(model) -> str:
+    """Multinomial GLM scorer: K etas over the standardized design
+    vector (class-major beta_multi layout, intercept row last) +
+    numerically-stable softmax — matching ``_predict_raw``'s
+    ``_softmax(X @ B[:-1] + B[-1])`` exactly."""
+    names = list(model.data_info.coef_names)
+    B = np.asarray(model.beta_multi, dtype=np.float64)  # [P+1, K]
+    P, K = B.shape[0] - 1, B.shape[1]
+    chunks = [f"""/* GENERATED standalone multinomial GLM scorer — do not edit.
+ * Model: {model.key} (K={K} classes)
+ * x: double[{P}] standardized design vector (expand_matrix order):
+ * {", ".join(names)}
+ * out: [label, p_0..p_{K - 1}]
+ */
+#include <math.h>
+
+"""]
+    chunks.append(_c_arr("beta", B[:-1].ravel(), "double", _c_float))
+    chunks.append(_c_arr("icpt", B[-1], "double", _c_float))
+    chunks.append(f"""
+void score(const double *x, double *out) {{
+  double eta[{K}];
+  double mx = -1e308;
+  for (int k = 0; k < {K}; k++) {{
+    double e = icpt[k];
+    for (int i = 0; i < {P}; i++) e += beta[i * {K} + k] * x[i];
+    eta[k] = e;
+    if (e > mx) mx = e;
+  }}
+  double tot = 0.0;
+  for (int k = 0; k < {K}; k++) {{ eta[k] = exp(eta[k] - mx); tot += eta[k]; }}
+  int best = 0;
+  for (int k = 0; k < {K}; k++) {{
+    out[k + 1] = eta[k] / tot;
+    if (out[k + 1] > out[best + 1]) best = k;
+  }}
+  out[0] = (double) best;
+}}
+""")
+    return "".join(chunks)
+
+
 def pojo_source(model, lang: str = "c") -> str:
     from h2o3_tpu_torch.models.tree.common import TreeModelBase
 
@@ -372,5 +486,19 @@ def pojo_source(model, lang: str = "c") -> str:
         if model.booster is None:
             raise ValueError("model has no trained trees")
         return tree_pojo_c(model) if lang == "c" else tree_pojo_java(model)
+    if hasattr(model, "coefficients") and isinstance(
+            getattr(model, "coefficients", None), dict):
+        if lang != "c":
+            raise ValueError("GLM POJO is emitted as C only")
+        if getattr(model.params, "family", "") == "multinomial":
+            if getattr(model, "beta_multi", None) is None:
+                raise ValueError("multinomial GLM has no trained betas")
+            return glm_multinomial_pojo_c(model)
+        if getattr(model.params, "family", "") == "ordinal" \
+                or getattr(model, "beta_std", None) is None:
+            raise ValueError(
+                "GLM POJO export does not cover the ordinal family "
+                "(thresholded cumulative etas)")
+        return glm_pojo_c(model)
     raise ValueError(
         f"POJO export supports tree models and GLM, not {model.algo_name}")

@@ -16,7 +16,12 @@ rows and features as the JAX package:
   flat index) hashes the counter (j >> 32, j mod 2**32), XORs the two words,
   keeps the top 23 bits as the mantissa of a float in [1, 2) and subtracts
   1. A draw of n values is therefore the first n values of any longer draw
-  with the same key, and a (K, F) draw is the (K*F,) draw reshaped.
+  with the same key, and a (K, F) draw is the (K*F,) draw reshaped. With
+  ``minval``/``maxval`` (DeepLearning's weight init) the draw u becomes
+  ``max(minval, u * (maxval - minval) + minval)`` in float32, the product
+  and the sum fused into one rounding as XLA fuses them (``addcmul``);
+- ``bernoulli(key, p, shape, device)``: ``uniform(key, shape) < p`` with p
+  rounded to float32 (DeepLearning's dropout masks).
 
 A key is a pair of Python ints (the two uint32 words), so deriving keys
 costs no device work and no synchronisation; only ``uniform`` touches a
@@ -85,10 +90,23 @@ def random_bits(key: Key, shape: Sequence[int],
     return (y0 ^ y1).reshape(tuple(shape))
 
 
-def uniform(key: Key, shape: Sequence[int],
-            device: Union[str, torch.device]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1) on ``device``."""
+def uniform(key: Key, shape: Sequence[int], device: Union[str, torch.device],
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` on
+    ``device``: float32 in [0, 1) by default."""
     bits = random_bits(key, shape, device)
     # < 2**31, so the int32 cast keeps every bit
     one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return one_to_two - 1.0
+    u = one_to_two - 1.0
+    if minval == 0.0 and maxval == 1.0:
+        return u  # u * 1 + 0 and max(0, u) give u's bits
+    lo = torch.tensor(minval, dtype=torch.float32, device=u.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=u.device)
+    return torch.maximum(lo, torch.addcmul(lo.expand_as(u), u, hi - lo))
+
+
+def bernoulli(key: Key, p: float, shape: Sequence[int],
+              device: Union[str, torch.device]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: bool, True with probability
+    p (p is a Python float, float32 in JAX with x64 off)."""
+    return uniform(key, shape, device) < torch.tensor(p, dtype=torch.float32)

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: ``h2o3_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of ``h2o3_tpu``, its MOJO scorer
+import neither ``jax`` nor ``optax`` (an H100 host without JAX has no
+optax; the port keeps its own copy of the updates DeepLearning uses, in
+``util/optim.py``) nor anything of ``h2o3_tpu``, its MOJO scorer
 ``h2o3_tpu_torch.genmodel`` imports numpy and not even ``torch``, and the
 port's entry points refuse to run quietly on the CPU when no card is
 present.
@@ -24,7 +26,7 @@ import torch
 import h2o3_tpu_torch as ht
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = re.compile(r"^(jax|jaxlib|h2o3_tpu)(\.|\s|$)")
+FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|h2o3_tpu)(\.|\s|$)")
 
 
 def _port_files():
@@ -47,9 +49,11 @@ def _imported_modules(path: Path):
 
 
 def test_matcher_minds_the_prefix():
-    for bad in ("jax", "jax.numpy", "h2o3_tpu", "h2o3_tpu.ops.histogram", "jaxlib"):
+    for bad in ("jax", "jax.numpy", "h2o3_tpu", "h2o3_tpu.ops.histogram", "jaxlib",
+                "optax", "optax.schedules"):
         assert FORBIDDEN.match(bad), bad
-    for ok in ("h2o3_tpu_torch", "h2o3_tpu_torch.ops", "jaxtyping", "torch"):
+    for ok in ("h2o3_tpu_torch", "h2o3_tpu_torch.ops", "jaxtyping", "torch",
+               "optaxx", "h2o3_tpu_torch.util.optim"):
         assert not FORBIDDEN.match(ok), ok
 
 
@@ -58,7 +62,8 @@ def test_no_jax_or_reference_imports_in_the_port():
     assert len(files) > 10
     names = {str(p.relative_to(ROOT)) for p in files}
     for module in ("util/jrandom.py", "ops/cuda_sorted_histogram.py",
-                   "ops/cuda_build.py", "models/tree/drf.py"):
+                   "ops/cuda_build.py", "models/tree/drf.py", "models/glm.py",
+                   "models/deeplearning.py", "util/optim.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
@@ -69,6 +74,7 @@ def test_port_runs_with_jax_and_reference_blocked():
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["optax"] = None
         sys.modules["h2o3_tpu"] = None
         import numpy as np
         import torch
@@ -86,10 +92,23 @@ def test_port_runs_with_jax_and_reference_blocked():
             f = ht.DRF(ntrees=2, max_depth=8, response_column="y", seed=1,
                        hist_impl="kernel").train(fr)
             f.predict(fr)
+            g = ht.GLM(family="binomial", response_column="y").train(fr)
+            g.predict(fr)
+            g2 = ht.GLM(family="binomial", solver="lbfgs", lambda_=1e-3, alpha=0,
+                        response_column="y").train(fr)
+            d = ht.DeepLearning(hidden=[4], epochs=2, mini_batch_size=32, seed=1,
+                                input_dropout_ratio=0.1, response_column="y").train(fr)
+            d.predict(fr)
+            s = ht.DeepLearning(hidden=[4], epochs=1, mini_batch_size=32, seed=1,
+                                adaptive_rate=False, momentum_start=0.5,
+                                momentum_stable=0.9, response_column="y").train(fr)
         assert m.training_metrics.auc > 0.9
         assert f.training_metrics.auc > 0.9
+        assert g.training_metrics.auc > 0.9 and g2.training_metrics.auc > 0.9
+        assert np.isfinite(d.training_metrics.logloss)
+        assert len(s.opt_leaves) == 3 + 4 + 1
         leaked = [k for k in sys.modules
-                  if k.split(".")[0] in ("jax", "jaxlib", "h2o3_tpu")
+                  if k.split(".")[0] in ("jax", "jaxlib", "optax", "h2o3_tpu")
                   and sys.modules[k] is not None]
         assert not leaked, leaked
         print("ISOLATED-OK")
@@ -127,6 +146,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.DRF(ntrees=1, response_column="y").train(fr)
     with pytest.raises(RuntimeError, match="CUDA"):
+        ht.GLM(response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.DeepLearning(hidden=[2], epochs=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
         ht.resolve_device("cuda")
     from h2o3_tpu_torch.entry import entry
 
@@ -134,6 +157,10 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         entry()
     m = ht.GBM(ntrees=1, max_depth=2, response_column="y", device="cpu").train(fr)
     assert m.device == torch.device("cpu")
+    for builder in (ht.GLM(response_column="y", device="cpu"),
+                    ht.DeepLearning(hidden=[2], epochs=1, response_column="y",
+                                    device="cpu")):
+        assert builder.train(fr).device == torch.device("cpu")
 
 
 def test_use_device_nests_and_restores():

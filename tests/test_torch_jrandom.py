@@ -2,10 +2,14 @@
 
 The JAX package draws every sampled row, column and per-node feature set of
 a tree fit through ``jax.random`` (threefry2x32, partitionable mode, x64
-off). The port reproduces ``PRNGKey``, ``split``, ``fold_in`` and
-``uniform`` with torch integer ops; here the uint32 words of every key and
-the float32 uniforms (viewed as int32) must equal JAX's exactly, over a grid
-of seeds that covers the 32-bit wrap (2^31 - 1, 2^31 + 3, 2^32 + 9, -1).
+off). The port reproduces ``PRNGKey``, ``split``, ``fold_in``, ``uniform``
+(also scaled to DeepLearning's init range) and ``bernoulli`` with torch
+integer ops; here the uint32 words of every key, the float32 uniforms
+(viewed as int32) and the masks must equal JAX's exactly, over a grid of
+seeds that covers the 32-bit wrap (2^31 - 1, 2^31 + 3, 2^32 + 9, -1).
+``test_fold_in`` and ``test_uniform_prefix_property`` are held in
+``tests/test_torch_deeplearning.py``, which also derives DeepLearning's
+keys.
 """
 
 import numpy as np
@@ -13,6 +17,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from h2o3_tpu_torch.util import jrandom as jr
 
@@ -48,13 +53,6 @@ def test_split(seed, num):
     assert jr.split(jr.PRNGKey(seed), num) == want
 
 
-@pytest.mark.parametrize("seed", SEEDS)
-def test_fold_in(seed):
-    key = jax.random.PRNGKey(seed)
-    for data in (0, 1, 7, 49, 123_456, 2**31 + 5):
-        assert jr.fold_in(jr.PRNGKey(seed), data) == _words(jax.random.fold_in(key, data))
-
-
 @pytest.mark.parametrize("shape", [(1,), (8,), (1001,), (4096,), (3, 5), (64, 28), (1024, 11)])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_uniform(seed, shape):
@@ -63,15 +61,18 @@ def test_uniform(seed, shape):
     got = jr.uniform(_words(key), shape, "cpu")
     assert got.dtype == torch.float32 and tuple(got.shape) == shape
     np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
-
-
-def test_uniform_prefix_property():
-    # the JAX booster draws row masks at its padded row count; the port
-    # draws at the real one and must see the same first values
-    key = jr.fold_in(jr.PRNGKey(7), 11)
-    long = jr.uniform(key, (1008,), "cpu")
-    assert torch.equal(jr.uniform(key, (1001,), "cpu"), long[:1001])
-    assert torch.equal(jr.uniform(key, (3, 5), "cpu"), long[:15].reshape(3, 5))
+    # DeepLearning's draws: the He-uniform init's U(-b, b) with b a float32
+    # square root, and the dropout masks, bernoulli(1 - ratio)
+    bound = jnp.sqrt(6.0 / (shape[0] + shape[-1] + 1))
+    want = np.asarray(jax.random.uniform(key, shape, jnp.float32, -bound, bound))
+    b = float(np.sqrt(np.float32(6.0 / (shape[0] + shape[-1] + 1))))
+    got = jr.uniform(_words(key), shape, "cpu", -b, b)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    for p in (0.8, 0.5, 0.1):
+        want = np.asarray(jax.random.bernoulli(key, p, shape))
+        got = jr.bernoulli(_words(key), p, shape, "cpu")
+        assert got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_booster_key_chain_matches_jax():

@@ -145,13 +145,41 @@ Run from the root of a checkout. Phases, each of which must pass:
    against ``predict`` (1e-5); samples/s and ms per step of each epoch,
    ``predict_s``, and a ``{"deeplearning": ...}`` line. No histogram
    kernel launches in 17 and 18;
-19. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+19. AutoML (``automl_phase``) on an airlines-shaped frame
+   (``--air-rows`` rows of the airlines demo frame's columns: 8 numeric,
+   UniqueCarrier with 20 levels, Origin and Dest with 300, NAs, the
+   IsDepDelayed response): ``AutoML(max_models=10, nfolds=3, seed=1,
+   preprocessing=["target_encoding"])`` with its default plan unchanged
+   (XGBoost, GLM, DRF, GBM, DeepLearning, XGBoost, the random GBM grid,
+   exploitation, both stacked ensembles): no failed step, failed target
+   encoding or failed grid cell (the run logs and carries on by design, so
+   the phase reads the event log and every grid), every planned step built,
+   every model and encoder on the card, the leader's metric finite and
+   above 0.5 with both ensembles on the leaderboard, the leader scoring the
+   raw frame through its encoder as the encoded frame, the leader and the
+   best-of-family ensemble through save and load on the card with the same
+   prediction bits, and B1 and B2 launched; then the same AutoML with
+   ``include_algos=["xgboost", "gbm", "glm", "stackedensemble"]``,
+   ``max_models=3``, ``nfolds=2`` on the first 10,000 rows on the card and
+   twice on the CPU, with the card's level flow and with its own (the same
+   steps in the same order; each CV AUC within 1e-4 of the nearer CPU
+   run's or, where the CPU's two runs lie further apart, within ten times
+   their distance; leaderboard ranks equal where the gap exceeds that);
+   then a
+   4-cell GBM
+   grid with ``parallelism=2`` and with 1 (equal trees and leaves). It
+   prints each step's CV AUC, ``train_s`` and seconds, the leaderboard, the
+   leader's predict rows/s, the device frame cache's hits, misses and
+   evictions and the kernel launches of the run, in an ``{"automl": ...}``
+   line;
+20. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15; phases 16-18 launch no histogram kernel), then
+those of phases 8-15 and of phase 19's main AutoML run; phases 16-18
+launch no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -1582,6 +1610,357 @@ def deeplearning_phase(mnist, higgs_frame, dev, seed, epochs=2, ae_rows=100_000,
     return rec
 
 
+def synth_airlines(n_rows: int, seed: int):
+    """A frame with the columns of H2O-3's airlines demo frame
+    (allyears2k_headers / airlines 1987-2008): numeric Year, Month,
+    DayofMonth, DayOfWeek, CRSDepTime, CRSArrTime (hhmm), FlightNum and
+    Distance; categorical UniqueCarrier (20 levels), Origin and Dest (300
+    levels each, Zipf-skewed like airport traffic), with about 0.5% NAs in
+    each categorical and in Distance; the response IsDepDelayed (NO/YES,
+    about 45% YES) drawn from a logistic model with per-carrier and
+    per-origin effects, the hour of departure, the month and the distance."""
+    from h2o3_tpu_torch import ColType, Column, Frame
+
+    rng = np.random.default_rng(seed)
+    n = n_rows
+
+    def zipf_codes(levels, power):
+        p = 1.0 / np.arange(1, levels + 1) ** power
+        codes = rng.choice(levels, n, p=p / p.sum()).astype(np.int32)
+        codes[rng.random(n) < 0.005] = -1
+        return codes
+
+    def names(levels, width):
+        out = []
+        for i in range(levels):
+            s = ""
+            for _ in range(width):
+                s = chr(65 + i % 26) + s
+                i //= 26
+            out.append(s)
+        return out
+
+    year = rng.integers(1987, 2009, n).astype(np.float64)
+    month = rng.integers(1, 13, n).astype(np.float64)
+    day = rng.integers(1, 32, n).astype(np.float64)
+    dow = rng.integers(1, 8, n).astype(np.float64)
+    hour_p = np.array([1, 1, 1, 1, 2, 8, 14, 14, 13, 12, 12, 12, 12, 12, 12, 12, 12,
+                       12, 11, 10, 8, 6, 4, 2], dtype=np.float64)
+    dep_h = rng.choice(24, n, p=hour_p / hour_p.sum())
+    dep_min = dep_h * 60 + 5 * rng.integers(0, 12, n)
+    distance = np.clip(np.round(np.exp(rng.normal(6.3, 0.7, n))), 30, 4983)
+    arr_min = (dep_min + 30 + distance / 8 + rng.integers(-10, 30, n)).astype(np.int64) % 1440
+    carrier = zipf_codes(20, 0.8)
+    origin = zipf_codes(300, 0.9)
+    dest = zipf_codes(300, 0.9)
+    carrier_eff = rng.normal(0, 0.5, 20)
+    origin_eff = rng.normal(0, 0.6, 300)
+    eta = (np.where(carrier >= 0, carrier_eff[np.maximum(carrier, 0)], 0.0)
+           + np.where(origin >= 0, origin_eff[np.maximum(origin, 0)], 0.0)
+           + 0.09 * (dep_h - 12) + 0.3 * np.isin(month, (6, 7, 12))
+           + 0.15 * (dow == 5) + 0.2 * (distance > 1500))
+    lo, hi = -5.0, 5.0  # the intercept that makes 45% of flights late
+    for _ in range(60):
+        mid = (lo + hi) / 2
+        if np.mean(1 / (1 + np.exp(-(eta + mid)))) < 0.45:
+            lo = mid
+        else:
+            hi = mid
+    late = (rng.random(n) < 1 / (1 + np.exp(-(eta + lo)))).astype(np.int32)
+    distance[rng.random(n) < 0.005] = np.nan
+    num = lambda name, v: Column(name, v.astype(np.float64), ColType.NUM)  # noqa: E731
+    airports = names(300, 3)
+    return Frame([
+        num("Year", year), num("Month", month), num("DayofMonth", day),
+        num("DayOfWeek", dow),
+        num("CRSDepTime", (dep_min // 60) * 100 + dep_min % 60),
+        num("CRSArrTime", (arr_min // 60) * 100 + arr_min % 60),
+        Column("UniqueCarrier", carrier, ColType.CAT, names(20, 2)),
+        num("FlightNum", rng.integers(1, 7500, n).astype(np.float64)),
+        Column("Origin", origin, ColType.CAT, airports),
+        Column("Dest", dest, ColType.CAT, list(airports)),
+        num("Distance", distance),
+        Column("IsDepDelayed", late, ColType.CAT, ["NO", "YES"]),
+    ])
+
+
+def automl_steps(aml):
+    """The event log without keys, times and metric values: what happened
+    to each step, in order."""
+    out = []
+    for e in aml.event_log.events:
+        msg = e["message"]
+        if " -> " in msg:
+            msg = msg.split(" -> ")[0] + " -> model"
+        elif msg.startswith(("AutoML build", "target encoding applied",
+                             "exploitation: refining")):
+            msg = msg.split(":")[0]
+        out.append(msg)
+    return out
+
+
+def automl_models_by_step(aml):
+    """{step id: [models]} from the event log (a grid step adds several)."""
+    by_key = {m.key: m for m in aml.leaderboard.models}
+    out = {}
+    for e in aml.event_log.events:
+        msg = e["message"]
+        if " -> " in msg and " metric=" in msg:
+            step, rest = msg.split(" -> ")
+            out.setdefault(step, []).append(by_key[rest.split(" ")[0]])
+    return out
+
+
+def automl_step_seconds(aml):
+    """Wall seconds of each step, from its "starting" event to the event of
+    its last model."""
+    start, out = {}, {}
+    for e in aml.event_log.events:
+        msg = e["message"]
+        if msg.startswith("step ") and msg.endswith(" starting"):
+            start[msg[5:-9]] = e["timestamp"]
+        elif " -> " in msg and msg.split(" -> ")[0] in start:
+            out[msg.split(" -> ")[0]] = e["timestamp"] - start[msg.split(" -> ")[0]]
+    return out
+
+
+def automl_failures(aml, grids):
+    """Every failure the run swallowed by design: failed steps and target
+    encoding in the event log, failed grid cells."""
+    bad = [e["message"] for e in aml.event_log.events if "failed" in e["message"]]
+    bad += [f"grid {g.grid_id}: {hp}: {err}" for g in grids for hp, err in g.failures]
+    return bad
+
+
+class tree_subtract_default:
+    """Within the block, a GBM, XGBoost or DRF fit whose ``tree_subtract``
+    is unset takes ``flow`` (None: the package's default, on for cuda and
+    off for the CPU), as ``run_fit``'s small CPU fits take the card's flow
+    with ``tree_subtract=True``; AutoML builds its models itself, so the
+    default is set where the builders call the booster."""
+
+    def __init__(self, flow):
+        from h2o3_tpu_torch.models.tree import drf, gbm, xgboost
+
+        self.flow, self.mods = flow, (drf, gbm, xgboost)
+        self.orig = gbm.train_boosted
+
+    def __enter__(self):
+        if self.flow is not None:
+            orig, flow = self.orig, self.flow
+
+            def train_boosted(*a, subtract=None, **kw):
+                return orig(*a, subtract=flow if subtract is None else subtract, **kw)
+
+            for m in self.mods:
+                m.train_boosted = train_boosted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.mods:
+            m.train_boosted = self.orig
+
+
+def automl_phase(frame, dev, seed, sub_rows=10_000, grid_trees=20):
+    """AutoML on ``dev`` through the port's entry points: the default plan
+    (``max_models=10``, ``nfolds=3``, ``seed=1``, target encoding) on the
+    airlines-shaped frame, then the same run's card against the CPU on its
+    first ``sub_rows`` rows, then a 4-cell GBM grid with two worker threads
+    against one. Every check raises: a failed step, failed target encoding
+    or a failed grid cell; a planned step that built no model; a model or
+    encoder off ``dev``; the leader's metric not finite and above 0.5, or
+    an ensemble missing; the leader scoring a raw frame other than the
+    encoded one; save and load on ``dev`` changing a prediction bit; B1 or
+    B2 not launched; the card's steps or their order against the CPU's,
+    run once with the card's level flow (histogram subtraction) and once
+    with the CPU's own (none); a card CV AUC further from the nearer CPU
+    run's than 1e-4 or, where it is larger, than ten times the distance
+    between the CPU's two runs (a depth-6 XGBoost with ``min_rows=1``
+    meets near ties at every level and the order of its float sums
+    decides them, ROADMAP C2 and C3, so its CV AUC moves by 4e-4 to 4e-3
+    between the CPU's two runs; an ensemble over it inherits that; GLM and
+    GBM stay within 1e-4), or leaderboard ranks
+    apart where the gap exceeds that tolerance; the threaded grid's trees
+    or leaves against the serial grid's. Returns the phase's record, with the main run's kernel
+    launches under ``launches``."""
+    import torch
+
+    from h2o3_tpu_torch import GBM, AutoML, GridSearch
+    from h2o3_tpu_torch.frame.devcache import DEVCACHE
+    from h2o3_tpu_torch.models import grid as grid_mod
+    from h2o3_tpu_torch.models import persist
+    from h2o3_tpu_torch.ops import cuda_build
+
+    y = "IsDepDelayed"
+    grids = []
+    orig_train = grid_mod.GridSearch.train
+
+    def recording_train(self, *a, **kw):  # keeps every grid the runs build
+        g = orig_train(self, *a, **kw)
+        grids.append(g)
+        return g
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    grid_mod.GridSearch.train = recording_train
+    try:
+        cache0 = DEVCACHE.stats()["kinds"]
+        cuda_build.reset_launch_counts()
+        t0 = time.time()
+        aml = AutoML(max_models=10, nfolds=3, seed=1, preprocessing=["target_encoding"],
+                     device=str(dev))
+        leader = aml.train(y=y, training_frame=frame)
+        sync()
+        run_s = time.time() - t0
+        launches = dict(cuda_build.LAUNCHES)
+        cache1 = DEVCACHE.stats()["kinds"]
+    finally:
+        grid_mod.GridSearch.train = orig_train
+
+    rec = {"rows": frame.nrows, "run_s": run_s, "launches": launches}
+    bad = automl_failures(aml, grids)
+    if bad:
+        raise AssertionError(f"automl: failures in the run: {bad}")
+    by_step = automl_models_by_step(aml)
+    planned = [s.id for s in aml._default_plan()]
+    missing = [s for s in planned if s not in by_step]
+    if missing:
+        raise AssertionError(f"automl: planned steps built no model: {missing}")
+    models = aml.leaderboard.models
+    nested = [aml._te_model] + [m.metalearner for m in models if m.algo_name ==
+                                "stackedensemble"]
+    off = [m.key for m in models + nested if m.device.type != dev.type]
+    if off:
+        raise AssertionError(f"automl: models off {dev}: {off}")
+    metric = grid_mod.metric_value(leader)[0]
+    algos = [m.algo_name for m in models]
+    if not (np.isfinite(metric) and metric > 0.5) or algos.count("stackedensemble") != 2:
+        raise AssertionError(f"automl: leader metric {metric}, leaderboard {algos}")
+    if dev.type == "cuda" and not (launches["hist_nodematmul"] and launches["hist_sorted"]):
+        raise AssertionError(f"automl: B1 and B2 must both launch, got {launches}")
+    seconds = automl_step_seconds(aml)
+    rec["steps"] = [
+        {"step": step, "algo": m.algo_name, "model": m.key,
+         "cv_auc": float(grid_mod.metric_value(m)[0]) if m.algo_name != "stackedensemble"
+         else None,
+         "training_auc": float(m.training_metrics.auc), "train_s": float(m.run_time),
+         "step_s": float(seconds.get(step, float("nan")))}
+        for step in planned for m in by_step[step]]
+    rec["leaderboard"] = [{"algo": r["algo"], "metric": float(r["metric"]),
+                           "model": r["model_id"]} for r in aml.leaderboard.as_table()]
+    rec["events"] = automl_steps(aml)
+    rec["devcache"] = {
+        k: {c: v[c] - cache0.get(k, {}).get(c, 0) for c in ("hits", "misses", "evictions")}
+        for k, v in cache1.items()}
+
+    # the leader scores the raw frame through its target encoder, as the
+    # encoded frame; predict rows/s of the raw frame
+    encoded = aml._te_model.transform(frame)
+    t0 = time.time()
+    raw_pred = leader.predict(frame).col("pYES").data
+    predict_s = time.time() - t0
+    preds = {leader.key: raw_pred}
+    if not np.array_equal(raw_pred, leader.predict(encoded).col("pYES").data):
+        raise AssertionError("automl: the leader scores the raw frame differently")
+    rec.update(leader=leader.key, leader_algo=leader.algo_name, leader_metric=metric,
+               predict_s=predict_s, predict_rows_per_s=frame.nrows / predict_s)
+    # the leader and the best-of-family ensemble survive save and load on dev
+    best_of_family = by_step["stackedensemble_best_of_family"][0]
+    rec["save_load"] = []
+    for m in dict.fromkeys([leader, best_of_family]):
+        t0 = time.time()
+        blob = persist.dumps_model(m)
+        back = persist.loads_model(blob, device=dev)
+        want = preds[m.key] if m.key in preds else m.predict(frame).col("pYES").data
+        if not np.array_equal(back.predict(frame).col("pYES").data, want):
+            raise AssertionError(f"automl: {m.key} predicts differently after save/load")
+        rec["save_load"].append({"model": m.key, "bytes": len(blob),
+                                 "s": time.time() - t0})
+    print(f"automl run ok: {json.dumps(rec)}", flush=True)
+
+    # the card against the CPU on the first rows: the CPU once with the
+    # card's level flow (histogram subtraction) and once with its own
+    # default (none); the second tells how far this run's CV AUCs move
+    # when only the order of the float sums changes
+    sub = frame.rows(slice(0, sub_rows))
+    kw = dict(max_models=3, nfolds=2, seed=1, preprocessing=["target_encoding"],
+              include_algos=["xgboost", "gbm", "glm", "stackedensemble"])
+    runs = {}
+    for label, where, flow in (("card", dev, None), ("cpu", torch.device("cpu"), True),
+                               ("cpu_no_subtraction", torch.device("cpu"), None)):
+        grids.clear()
+        grid_mod.GridSearch.train = recording_train
+        try:
+            with tree_subtract_default(flow):
+                t0 = time.time()
+                a = AutoML(device=str(where), **kw)
+                a.train(y=y, training_frame=sub)
+                sync()
+                runs[label] = (a, time.time() - t0)
+        finally:
+            grid_mod.GridSearch.train = orig_train
+        bad = automl_failures(a, grids)
+        if bad:
+            raise AssertionError(f"automl {label}: failures: {bad}")
+        if automl_steps(a) != automl_steps(runs["card"][0]):
+            raise AssertionError(f"automl: steps {label} {automl_steps(a)} against the "
+                                 f"card's {automl_steps(runs['card'][0])}")
+    by = {label: automl_models_by_step(a) for label, (a, _) in runs.items()}
+    value = {label: {step: grid_mod.metric_value(ms[0])[0] for step, ms in b.items()}
+             for label, b in by.items()}
+    # the card's CV AUC lies within 1e-4 of the nearer CPU run's or, for a
+    # step whose two CPU runs part by more, within ten times their distance
+    diffs = {step: min(abs(value["card"][step] - value[cpu][step])
+                       for cpu in ("cpu", "cpu_no_subtraction")) for step in value["card"]}
+    spread = {step: abs(value["cpu"][step] - value["cpu_no_subtraction"][step])
+              for step in value["card"]}
+    tol = {step: max(1e-4, 10 * spread[step]) for step in value["card"]}
+    step_of = {m.key: st for b in by.values() for st, ms in b.items() for m in ms}
+    card_rank = [step_of[m.key] for m in runs["card"][0].leaderboard.models]
+    cpu_rank = [step_of[m.key] for m in runs["cpu"][0].leaderboard.models]
+    cpu_v = [value["cpu"][st] for st in cpu_rank]
+    apart = [(cpu_rank[i], cpu_rank[k]) for i in range(len(cpu_rank))
+             for k in range(i + 1, len(cpu_rank))
+             if cpu_v[i] - cpu_v[k] > max(tol[cpu_rank[i]], tol[cpu_rank[k]])]
+    swapped = [p for p in apart if card_rank.index(p[0]) > card_rank.index(p[1])]
+    rec["card_vs_cpu"] = {"rows": sub.nrows,
+                          **{f"{label}_s": s_ for label, (_, s_) in runs.items()},
+                          "metric": value, "abs_diff": diffs, "cpu_spread": spread,
+                          "card_rank": card_rank, "cpu_rank": cpu_rank, "swapped": swapped}
+    over = {st: d for st, d in diffs.items() if d > tol[st]}
+    if over or swapped:
+        raise AssertionError(f"automl: card against CPU beyond max(1e-4, ten times the "
+                             f"CPU's own spread) at {over}: {rec['card_vs_cpu']}")
+    print(f"automl card vs cpu ok: {json.dumps(rec['card_vs_cpu'])}", flush=True)
+
+    # a 4-cell Cartesian GBM grid with two worker threads, then one
+    hyper = {"max_depth": [3, 5], "learn_rate": [0.1, 0.2]}
+    built = {}
+    for par in (2, 1):
+        t0 = time.time()
+        g = GridSearch(GBM, GBM(response_column=y, ntrees=grid_trees, seed=seed,
+                                device=str(dev)).params, hyper, parallelism=par).train(frame)
+        sync()
+        if g.failures or len(g.models) != 4:
+            raise AssertionError(f"automl: grid parallelism {par}: {g}, {g.failures}")
+        built[par] = (g, time.time() - t0)
+    (g2, s2), (g1, s1) = built[2], built[1]
+    same = g2.hyper_params == g1.hyper_params and all(
+        trees_equal(a, b) and all(np.array_equal(np.stack(ta.leaf), np.stack(tb.leaf))
+                                  for ta, tb in zip(a.booster.trees_per_class,
+                                                    b.booster.trees_per_class))
+        for a, b in zip(g2.models, g1.models))
+    rec["grid_threads"] = {"cells": len(g1.models), "trees": grid_trees,
+                           "parallelism_2_s": s2, "parallelism_1_s": s1,
+                           "equal": same}
+    if not same:
+        raise AssertionError("automl: the threaded grid's models differ from the serial grid's")
+    print(f"automl grid ok: {json.dumps(rec['grid_threads'])}", flush=True)
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -1629,6 +2008,9 @@ def main() -> int:
     ap.add_argument("--dl-epochs", type=int, default=2,
                     help="epochs of the main DeepLearning fit (one more "
                          "for its continuation)")
+    ap.add_argument("--air-rows", type=int, default=50_000,
+                    help="rows of the airlines-shaped frame of the AutoML phase "
+                         "(cut from 100,000 for the phase's time, PERF.md section 4)")
     ap.add_argument("--out", default=None, help="also write the records here (JSON)")
     ap.add_argument("--parent", default=None, metavar="CHECKOUT",
                     help="another checkout of the repository (e.g. the parent "
@@ -1838,6 +2220,11 @@ def main() -> int:
     if cuda_build.LAUNCHES != launches_before:
         raise AssertionError(f"a histogram kernel ran in the GLM or DeepLearning phase: "
                              f"{cuda_build.LAUNCHES} (before: {launches_before})")
+    t0 = time.time()
+    automl_rec = automl_phase(synth_airlines(args.air_rows, seed + 13), dev, seed,
+                              sub_rows=min(10_000, args.air_rows))
+    automl_rec["phase_s"] = time.time() - t0
+    print(json.dumps({"automl": automl_rec}), flush=True)
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
@@ -1846,7 +2233,8 @@ def main() -> int:
                          hist_fact_max_kc=32)]
             if args.profile else None)
 
-    total = {k: sum(f["launches"][k] for f in fits + [cv]) for k in cuda_build.KERNELS}
+    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec])
+             for k in cuda_build.KERNELS}
     kernels = [
         kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
                       "h2o3_tpu/ops/pallas_histogram.py:94", checks, checks[0],
@@ -1865,6 +2253,7 @@ def main() -> int:
                        "cross_check": cross, "jrandom": rand, "binning": binning,
                        "fits": fits, "cv": cv, "devcache": cache_stats,
                        "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
+                       "automl": automl_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,8 @@ contributions, variable importances, binary save/load, MOJO and POJO export
 and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``; GLM (every
 family, IRLSM with the Gram on the device, L-BFGS, lambda search) and the
 DeepLearning MLP (ADADELTA or SGD, dropout, autoencoder) on the dense
-design matrix.
+design matrix; grid search, target encoding, stacked ensembles and AutoML
+over those models.
 
 The top-level names load on first use (PEP 562), so importing
 ``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.
@@ -22,6 +23,7 @@ The top-level names load on first use (PEP 562), so importing
 __version__ = "0.1.0"
 
 __all__ = [
+    "AutoML",
     "ColType",
     "Column",
     "DRF",
@@ -31,12 +33,19 @@ __all__ = [
     "GBM",
     "GLM",
     "GLMParameters",
+    "GridSearch",
+    "SearchCriteria",
+    "StackedEnsemble",
+    "StackedEnsembleParameters",
+    "TargetEncoder",
+    "TargetEncoderParameters",
     "XGBoost",
     "resolve_device",
     "use_device",
 ]
 
 _LAZY = {
+    "AutoML": ("h2o3_tpu_torch.automl.automl", "AutoML"),
     "ColType": ("h2o3_tpu_torch.frame.frame", "ColType"),
     "Column": ("h2o3_tpu_torch.frame.frame", "Column"),
     "Frame": ("h2o3_tpu_torch.frame.frame", "Frame"),
@@ -47,6 +56,14 @@ _LAZY = {
     "GLM": ("h2o3_tpu_torch.models.glm", "GLM"),
     "GLMParameters": ("h2o3_tpu_torch.models.glm", "GLMParameters"),
     "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
+    "GridSearch": ("h2o3_tpu_torch.models.grid", "GridSearch"),
+    "SearchCriteria": ("h2o3_tpu_torch.models.grid", "SearchCriteria"),
+    "StackedEnsemble": ("h2o3_tpu_torch.models.stacked_ensemble", "StackedEnsemble"),
+    "StackedEnsembleParameters": ("h2o3_tpu_torch.models.stacked_ensemble",
+                                  "StackedEnsembleParameters"),
+    "TargetEncoder": ("h2o3_tpu_torch.models.target_encoder", "TargetEncoder"),
+    "TargetEncoderParameters": ("h2o3_tpu_torch.models.target_encoder",
+                                "TargetEncoderParameters"),
     "XGBoost": ("h2o3_tpu_torch.models.tree.xgboost", "XGBoost"),
     "resolve_device": ("h2o3_tpu_torch.device", "resolve_device"),
     "use_device": ("h2o3_tpu_torch.device", "use_device"),

@@ -1,0 +1,38 @@
+"""Algorithm registry — the port of ``h2o3_tpu/api/registry.py``:
+algo name -> (ModelBuilder, Parameters).
+
+Reference: ``hex/api/RegisterAlgos.java:16-34``, plus the extension
+registrations (xgboost, targetencoder). The map holds the algorithms this
+package has, in the JAX package's order; the others join it as they are
+ported (ROADMAP A8). ``AutoML._exploitation`` looks the leader's builder
+up here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+
+def algo_map() -> Dict[str, Tuple[type, type]]:
+    from h2o3_tpu_torch.models.deeplearning import DeepLearning, DeepLearningParameters
+    from h2o3_tpu_torch.models.glm import GLM, GLMParameters
+    from h2o3_tpu_torch.models.stacked_ensemble import (
+        StackedEnsemble,
+        StackedEnsembleParameters,
+    )
+    from h2o3_tpu_torch.models.target_encoder import TargetEncoder, TargetEncoderParameters
+    from h2o3_tpu_torch.models.tree.drf import DRF, DRFParameters
+    from h2o3_tpu_torch.models.tree.gbm import GBM, GBMParameters
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost, XGBoostParameters
+
+    return {
+        # hex/api/RegisterAlgos.java order
+        "deeplearning": (DeepLearning, DeepLearningParameters),
+        "drf": (DRF, DRFParameters),
+        "glm": (GLM, GLMParameters),
+        "gbm": (GBM, GBMParameters),
+        "stackedensemble": (StackedEnsemble, StackedEnsembleParameters),
+        # extensions
+        "xgboost": (XGBoost, XGBoostParameters),
+        "targetencoder": (TargetEncoder, TargetEncoderParameters),
+    }

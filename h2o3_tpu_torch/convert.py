@@ -25,11 +25,23 @@ parameters, as plain dicts:
   ``opt_leaves`` (optax's state leaves, in optax's order) and
   ``epochs_trained``. Such a model scores as the model it came from and
   continues training (``checkpoint=``) as that model would.
+
+``target_encoder_from_numpy(encodings, prior_mean, fold, params,
+data_info)`` builds a target encoder from its tables (``encodings``:
+``{column: (domain, numerator[L], denominator[L])}``), its prior mean, its
+training fold ids (or None) and, as plain dicts, its parameters and
+``DataInfo`` fields. ``stacked_ensemble_from_models(base_models,
+metalearner, levelone_names, data_info, params)`` assembles a stacked
+ensemble from port models that the converters above built, in the base
+models' order, with the level-one column names of the ensemble they come
+from; ``params`` are the ensemble's parameters but its base models. So an
+AutoML leader of the JAX package, with its target encoder set as each
+model's ``preprocessors``, scores here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -123,4 +135,53 @@ def deeplearning_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, A
     leaves = arrays.get("opt_leaves")
     model.opt_leaves = None if leaves is None else [np.asarray(x) for x in leaves]
     model.epochs_trained = float(arrays.get("epochs_trained", 0.0))
+    return model
+
+
+def target_encoder_from_numpy(encodings: Mapping[str, Any], prior_mean: float,
+                              fold: Optional[np.ndarray], params: Mapping[str, Any],
+                              data_info: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.target_encoder import (
+        TargetEncoderModel, TargetEncoderParameters)
+
+    p = TargetEncoderParameters(**params)
+    info = DataInfo(**data_info)
+    model = TargetEncoderModel(
+        p, info, resolve_device(device if device is not None else p.device))
+    for name, (dom, num, den) in encodings.items():
+        num = np.asarray(num, dtype=np.float64)
+        den = np.asarray(den, dtype=np.float64)
+        if num.shape != (len(dom),) or den.shape != (len(dom),):
+            raise ValueError(
+                f"encoding of {name!r}: numerator {num.shape} and denominator "
+                f"{den.shape} must be [{len(dom)}], one per level")
+        model.encodings[name] = (list(dom), num, den)
+    model.prior_mean = float(prior_mean)
+    model.fold = None if fold is None else np.asarray(fold, dtype=np.int64)
+    return model
+
+
+def stacked_ensemble_from_models(base_models: Sequence[Any], metalearner,
+                                 levelone_names: Sequence[str],
+                                 data_info: Mapping[str, Any],
+                                 params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.stacked_ensemble import (
+        StackedEnsembleModel, StackedEnsembleParameters)
+
+    want = sum(1 if bm.nclasses <= 2 else bm.nclasses for bm in base_models)
+    if len(levelone_names) != want:
+        raise ValueError(f"{len(levelone_names)} level-one names for base models "
+                         f"giving {want} columns")
+    if list(metalearner.data_info.predictor_names) != list(levelone_names):
+        raise ValueError(
+            f"the metalearner's predictors {metalearner.data_info.predictor_names} "
+            f"are not the level-one columns {list(levelone_names)}")
+    p = StackedEnsembleParameters(**params)
+    p.base_models = list(base_models)
+    info = DataInfo(**data_info)
+    model = StackedEnsembleModel(
+        p, info, resolve_device(device if device is not None else p.device))
+    model.base_models = list(base_models)
+    model.metalearner = metalearner
+    model.levelone_names = list(levelone_names)
     return model

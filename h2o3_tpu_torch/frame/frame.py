@@ -6,7 +6,7 @@ codes with -1 for CAT, object for STR). The model builders move what they
 need to the device themselves, so the frame itself holds no tensors.
 
 Kept from the JAX package: ``Column``, ``Frame``, ``from_dict``, row
-selection (``Frame.rows``), ``Frame.rbind`` (categorical domains merged
+selection (``Frame.rows``), ``Frame.drop``, ``Frame.rbind`` (categorical domains merged
 in first-seen order, as the JAX package merges them), the column version
 stamps the device frame cache keys on, and the rollups that trees need
 (min/max/mean/sigma), computed in numpy. CSV parsing, the native
@@ -19,7 +19,7 @@ from __future__ import annotations
 import enum
 import itertools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -296,6 +296,14 @@ class Frame:
         else:
             idx = np.asarray(sel, dtype=np.int64)
         return Frame([c.select(idx) for c in self._cols])
+
+    def drop(self, names: Union[str, Iterable[str]]) -> "Frame":
+        """A new Frame without the named columns (the target encoder's
+        ``keep_original_categorical_columns=False``)."""
+        if isinstance(names, str):
+            names = [names]
+        names = set(names)
+        return Frame([c for c in self._cols if c.name not in names])
 
     def rbind(self, other: "Frame") -> "Frame":
         """The rows of ``self`` then ``other``, as new Columns. A column that

@@ -14,9 +14,12 @@ device), resets its binomial threshold, and is exported through
 ``models/persist.py`` (binary), ``models/mojo_export.py`` (MOJO) and
 ``models/pojo.py`` (C or Java source).
 
-Not part of this package yet: the telemetry spans, the preprocessors a
-model may carry (AutoML's target encoding) and homing a finished model on a
-cluster's serving ring.
+A model trained on a preprocessed frame (AutoML's target encoding) carries
+its transformers in ``preprocessors``, and every scoring entry point
+passes a raw frame through them first (``_apply_preprocessors``).
+
+Not part of this package yet: the telemetry spans and homing a finished
+model on a cluster's serving ring.
 """
 
 from __future__ import annotations
@@ -166,9 +169,16 @@ class Model:
         raise NotImplementedError
 
     def _apply_preprocessors(self, frame: Frame) -> Frame:
-        """The scoring frame as the model's preprocessors would give it. No
-        model of this package carries preprocessors yet (AutoML's target
-        encoding is not ported), so every frame passes through."""
+        """The scoring frame as the model's preprocessors give it. A model
+        trained on a preprocessed frame (AutoML's target encoding) carries
+        its transformers in ``self.preprocessors``, so a raw frame scores
+        as the training frame did; a frame that already holds every
+        ``<col>_te`` column of a preprocessor passes it untouched."""
+        for pre in getattr(self, "preprocessors", None) or []:
+            outs = [f"{name}_te" for name in getattr(pre, "encodings", {})]
+            if outs and all(o in frame.names for o in outs):
+                continue
+            frame = pre.transform(frame)
         return frame
 
     def default_threshold(self) -> float:

@@ -413,6 +413,24 @@ def test_sorted_wrapper_on_cpu_tensors_is_the_plain_version():
     b = ch.hist_nodematmul_reference(*args, rw=t(rw))
     assert torch.equal(a[..., 2], b[..., 2])
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    # the wrapper checks the row-major codes it is handed
+    bins, nodes, g, h, _ = _mk(300, 5, 130, 21, seed=3, frac_inactive=0.2)
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 130, 21)
+    good = cs.row_major_codes(args[0], 21)
+    assert good.shape == (300, 16) and good.dtype == torch.uint8
+    assert torch.equal(cs.hist_sorted(*args, codes_rm=good), cs.hist_sorted(*args))
+    with pytest.raises(TypeError, match="codes_rm"):
+        cs.hist_sorted(*args, codes_rm=good.to(torch.int32))
+    with pytest.raises(TypeError, match="codes_rm"):
+        cs.hist_sorted(*args, codes_rm=cs.row_major_codes(args[0], 257))
+    with pytest.raises(ValueError, match="codes_rm has shape"):
+        cs.hist_sorted(*args, codes_rm=good[:-1])
+    with pytest.raises(ValueError, match="codes_rm has shape"):
+        cs.hist_sorted(*args, codes_rm=good[:, :8].contiguous())
+    with pytest.raises(ValueError, match="codes_rm must be contiguous"):
+        cs.hist_sorted(*args, codes_rm=torch.zeros(16, 300, dtype=torch.uint8).T)
+    with pytest.raises(ValueError, match="codes_rm is on meta"):
+        cs.hist_sorted(*args, codes_rm=good.to("meta"))
 
 
 def _kernel_by_loops(bins_fm, nodes, g, h, k, b1, rw, tile_rows):
@@ -548,27 +566,6 @@ def test_gather_twin_is_plain_indexing(weighted):
         assert rows.w is None
     else:
         assert torch.equal(rows.w[:m], t(rw)[order])
-
-
-def test_sorted_wrapper_rejects_a_wrong_codes_rm():
-    bins, nodes, g, h, _ = _mk(300, 5, 130, 21, seed=3, frac_inactive=0.2)
-    t = torch.from_numpy
-    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 130, 21)
-    good = cs.row_major_codes(args[0], 21)
-    assert good.shape == (300, 16) and good.dtype == torch.uint8
-    assert torch.equal(cs.hist_sorted(*args, codes_rm=good), cs.hist_sorted(*args))
-    with pytest.raises(TypeError, match="codes_rm"):
-        cs.hist_sorted(*args, codes_rm=good.to(torch.int32))
-    with pytest.raises(TypeError, match="codes_rm"):
-        cs.hist_sorted(*args, codes_rm=cs.row_major_codes(args[0], 257))
-    with pytest.raises(ValueError, match="codes_rm has shape"):
-        cs.hist_sorted(*args, codes_rm=good[:-1])
-    with pytest.raises(ValueError, match="codes_rm has shape"):
-        cs.hist_sorted(*args, codes_rm=good[:, :8].contiguous())
-    with pytest.raises(ValueError, match="codes_rm must be contiguous"):
-        cs.hist_sorted(*args, codes_rm=torch.zeros(16, 300, dtype=torch.uint8).T)
-    with pytest.raises(ValueError, match="codes_rm is on meta"):
-        cs.hist_sorted(*args, codes_rm=good.to("meta"))
 
 
 def test_dispatch_hands_codes_rm_to_the_sorted_kernel_alone(monkeypatch):
@@ -936,6 +933,25 @@ def test_factorized_wrapper_on_cpu_tensors_is_the_plain_version():
     b = ch.hist_nodematmul_reference(*args, rw=t(rw))
     assert torch.equal(a[..., 2], b[..., 2])
     torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    # the wrapper checks the row-major codes it is handed
+    bins, nodes, g, h, _ = _mk(300, 5, 130, 21, seed=3, frac_inactive=0.2)
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 130, 21)
+    good = cs.row_major_codes(args[0], 21)
+    assert good.shape == (300, 16) and good.dtype == torch.uint8
+    assert torch.equal(cs.hist_sorted(*args, codes_rm=good), cs.hist_sorted(*args))
+    with pytest.raises(TypeError, match="codes_rm"):
+        cs.hist_sorted(*args, codes_rm=good.to(torch.int32))
+    with pytest.raises(TypeError, match="codes_rm"):
+        cs.hist_sorted(*args, codes_rm=cs.row_major_codes(args[0], 257))
+    with pytest.raises(ValueError, match="codes_rm has shape"):
+        cs.hist_sorted(*args, codes_rm=good[:-1])
+    with pytest.raises(ValueError, match="codes_rm has shape"):
+        cs.hist_sorted(*args, codes_rm=good[:, :8].contiguous())
+    with pytest.raises(ValueError, match="codes_rm must be contiguous"):
+        cs.hist_sorted(*args, codes_rm=torch.zeros(16, 300, dtype=torch.uint8).T)
+    with pytest.raises(ValueError, match="codes_rm is on meta"):
+        cs.hist_sorted(*args, codes_rm=good.to("meta"))
 
 
 @pytest.mark.parametrize("fact_max_kc,want", [

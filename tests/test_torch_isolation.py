@@ -48,22 +48,22 @@ def _imported_modules(path: Path):
             yield str(node.args[0].value)
 
 
-def test_matcher_minds_the_prefix():
+def test_no_jax_or_reference_imports_in_the_port():
+    # the matcher minds the prefix
     for bad in ("jax", "jax.numpy", "h2o3_tpu", "h2o3_tpu.ops.histogram", "jaxlib",
                 "optax", "optax.schedules"):
         assert FORBIDDEN.match(bad), bad
     for ok in ("h2o3_tpu_torch", "h2o3_tpu_torch.ops", "jaxtyping", "torch",
                "optaxx", "h2o3_tpu_torch.util.optim"):
         assert not FORBIDDEN.match(ok), ok
-
-
-def test_no_jax_or_reference_imports_in_the_port():
     files = _port_files()
     assert len(files) > 10
     names = {str(p.relative_to(ROOT)) for p in files}
     for module in ("util/jrandom.py", "ops/cuda_sorted_histogram.py",
                    "ops/cuda_build.py", "models/tree/drf.py", "models/glm.py",
-                   "models/deeplearning.py", "util/optim.py"):
+                   "models/deeplearning.py", "util/optim.py", "automl/automl.py",
+                   "models/grid.py", "models/stacked_ensemble.py",
+                   "models/target_encoder.py", "api/registry.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
@@ -102,11 +102,16 @@ def test_port_runs_with_jax_and_reference_blocked():
             s = ht.DeepLearning(hidden=[4], epochs=1, mini_batch_size=32, seed=1,
                                 adaptive_rate=False, momentum_start=0.5,
                                 momentum_stable=0.9, response_column="y").train(fr)
+            aml = ht.AutoML(max_models=2, nfolds=2, seed=1,
+                            include_algos=["glm", "gbm"])
+            aml.train(y="y", training_frame=fr)
         assert m.training_metrics.auc > 0.9
         assert f.training_metrics.auc > 0.9
         assert g.training_metrics.auc > 0.9 and g2.training_metrics.auc > 0.9
         assert np.isfinite(d.training_metrics.logloss)
         assert len(s.opt_leaves) == 3 + 4 + 1
+        assert [m.algo_name for m in aml.leaderboard.models].count("glm") == 1
+        assert not [e for e in aml.event_log.events if "failed" in e["message"]]
         leaked = [k for k in sys.modules
                   if k.split(".")[0] in ("jax", "jaxlib", "optax", "h2o3_tpu")
                   and sys.modules[k] is not None]
@@ -136,6 +141,12 @@ def test_port_runs_with_jax_and_reference_blocked():
 
 
 def test_entry_points_refuse_the_cpu_unless_asked():
+    # use_device nests and restores
+    with ht.use_device("cpu") as dev:
+        assert ht.resolve_device() == dev == torch.device("cpu")
+        with ht.use_device("cpu"):
+            assert ht.resolve_device().type == "cpu"
+        assert ht.resolve_device().type == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     fr = ht.Frame.from_dict({"a": np.arange(20.0), "y": np.arange(20.0) % 3})
@@ -161,14 +172,20 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                     ht.DeepLearning(hidden=[2], epochs=1, response_column="y",
                                     device="cpu")):
         assert builder.train(fr).device == torch.device("cpu")
-
-
-def test_use_device_nests_and_restores():
-    with ht.use_device("cpu") as dev:
-        assert ht.resolve_device() == dev == torch.device("cpu")
-        with ht.use_device("cpu"):
-            assert ht.resolve_device().type == "cpu"
-        assert ht.resolve_device().type == "cpu"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            ht.resolve_device()
+    with pytest.raises(RuntimeError):
+        ht.resolve_device()
+    # the AutoML slice resolves its device where a run starts
+    cat = fr.add_column(ht.Column("c", np.arange(20) % 4, ht.ColType.CAT,
+                                  ["a", "b", "c", "d"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.AutoML(max_models=1, include_algos=["glm"]).train(y="y", training_frame=fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.TargetEncoder(response_column="y").train(cat)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.GridSearch(ht.GBM, ht.GBM(ntrees=1, response_column="y").params,
+                      {"max_depth": [2, 3]}).train(fr)
+    base = ht.GBM(ntrees=1, max_depth=2, response_column="y", nfolds=2, device="cpu",
+                  keep_cross_validation_predictions=True).train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.StackedEnsemble(base_models=[base], response_column="y").train(fr)
+    assert ht.TargetEncoder(response_column="y", device="cpu").train(cat).device.type == "cpu"

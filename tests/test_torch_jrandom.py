@@ -34,16 +34,14 @@ def test_jax_runs_the_configuration_ported():
     assert jax.config.jax_threefry_partitionable
     assert jax.config.jax_default_prng_impl == "threefry2x32"
     assert not jax.config.jax_enable_x64
+    # PRNGKey keeps the low 32 bits of the seed
+    assert jr.PRNGKey(-1) == (0, 4294967295)
+    assert jr.PRNGKey(2**32 + 9) == (0, 9)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_key(seed):
     assert jr.PRNGKey(seed) == _words(jax.random.PRNGKey(seed))
-
-
-def test_prng_key_keeps_the_low_32_bits():
-    assert jr.PRNGKey(-1) == (0, 4294967295)
-    assert jr.PRNGKey(2**32 + 9) == (0, 9)
 
 
 @pytest.mark.parametrize("num", [2, 3])

@@ -172,14 +172,40 @@ Run from the root of a checkout. Phases, each of which must pass:
    leader's predict rows/s, the device frame cache's hits, misses and
    evictions and the kernel launches of the run, in an ``{"automl": ...}``
    line;
-20. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+20. KMeans, PCA and SVD, GLRM, NaiveBayes and both isolation forests
+   (``breadth_phase``) at the full width of their frames, fitted on every
+   row and scored on 200,000 (the isolation forest on every row): on the
+   N x 28 features with 8 cluster centres added (``clustered_frame``)
+   KMeans k=10 (``plus_plus``, 10 iterations; ``estimate_k`` up to 10); on
+   the N x 28 frame PCA k=10 standardized, SVD nv=10, the isolation forest
+   at its defaults (50 trees, samples of 256, depth 8) and the extended one
+   (100 trees) at extension levels 0 and 27; on the MNIST-shaped frame PCA
+   k=50 demeaned, and on it with 3% of its cells NA GLRM k=10 with
+   quadratic loss (exact ALS) and with huber loss and l1 on X (the
+   proximal line search, 10 iterations: cut from 20 for the phase's time,
+   PERF.md section 4); on 1,000,000 airlines-shaped rows NaiveBayes with
+   ``laplace=1``. Each fit prints ``train_s``, predict rows/s, its
+   iterations, the device memory peak and its headline results (WSS, pve,
+   the objective, anomaly scores, AUC); the designs' ``kmeans_x`` and ``pca_x`` cache hits and
+   misses are exact. Card against CPU on the first 200,000 rows (the
+   MNIST-shaped frame whole): the forests' trees equal, the isolation
+   forest's path lengths ``torch.equal``, the extended forest's
+   ``mean_length`` rtol 1e-5 (the rows outside counted: none at level 0,
+   at most 20 at level 27, each within one tree's longest path over the
+   tree count), KMeans ``tot_withinss`` rtol 1e-4 (``estimate_k``'s k
+   equal), PCA and SVD eigenvalues rtol 1e-4, GLRM objectives rtol 1e-3,
+   NaiveBayes tables equal; the KMeans, PCA, isolation-forest and NaiveBayes MOJOs through
+   the port's ``genmodel`` against ``predict`` (rtol 1e-6; PCA also atol
+   1e-5), and every model saved and loaded on the card with the same bits.
+   It prints a ``{"breadth": ...}`` line and launches no histogram kernel;
+21. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15 and of phase 19's main AutoML run; phases 16-18
-launch no histogram kernel), then
+those of phases 8-15 and of phase 19's main AutoML run; phases 16-18 and
+20 launch no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -220,6 +246,27 @@ def synth_higgs(n_rows: int, n_feat: int, seed: int):
     logit = X @ w + 0.5 * X[:, 0] * X[:, 1]
     y = (rng.random(n_rows) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int32)
     return X, y, logit
+
+
+def clustered_frame(X, seed, k=8):
+    """The HIGGS-shaped features with one of ``k`` cluster centres added to
+    each row: centres N(0, 3^2) a coordinate, shares drawn from
+    Dirichlet(2). Returns a frame of the features alone."""
+    from h2o3_tpu_torch import ColType, Column, Frame
+
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(scale=3.0, size=(k, X.shape[1])).astype(np.float32)
+    share = rng.dirichlet(np.full(k, 2.0))
+    B = X + centres[rng.choice(k, len(X), p=share)]
+    return Frame([Column(f"x{j}", B[:, j], ColType.NUM) for j in range(B.shape[1])])
+
+
+def blank_cells(X, seed, share=0.03):
+    """A copy of ``X`` with ``share`` of its cells NA, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    X = X.copy()
+    X[rng.random(X.shape, dtype=np.float32) < share] = np.nan
+    return X
 
 
 def make_frame(X, y):
@@ -1286,11 +1333,11 @@ class GramTimer:
         return {"gram_calls": len(ms), "gram_ms": float(np.mean(ms)) if ms else None}
 
 
-def glm_design_counts():
+def devcache_counts(prefix):
     from h2o3_tpu_torch.frame.devcache import DEVCACHE
 
     kinds = DEVCACHE.stats()["kinds"]
-    return {k: (v["hits"], v["misses"]) for k, v in kinds.items() if k.startswith("glm_")}
+    return {k: (v["hits"], v["misses"]) for k, v in kinds.items() if k.startswith(prefix)}
 
 
 def glm_fit(label, frame, dev, timer, valid=None, **kw):
@@ -1299,13 +1346,13 @@ def glm_fit(label, frame, dev, timer, valid=None, **kw):
     and misses by GLM placement kind."""
     from h2o3_tpu_torch import GLM
 
-    before = glm_design_counts()
+    before = devcache_counts("glm_")
     timer.take()
     t0 = time.time()
     model = GLM(device=str(dev), **kw).train(frame, valid)
     rec = {"fit": label, "device": str(dev), "train_s": time.time() - t0,
            "iterations": model.iterations, **timer.take()}
-    after = glm_design_counts()
+    after = devcache_counts("glm_")
     rec["devcache"] = {k: [after[k][0] - before.get(k, (0, 0))[0],
                            after[k][1] - before.get(k, (0, 0))[1]]
                        for k in after if after[k] != before.get(k)}
@@ -1961,6 +2008,290 @@ def automl_phase(frame, dev, seed, sub_rows=10_000, grid_trees=20):
     return rec
 
 
+def breadth_fit(label, builder_cls, frame, dev, score=None, **kw):
+    """One fit on ``dev`` and one scoring pass over ``frame`` (or ``score``),
+    with its record: ``train_s``, predict rows/s and the device memory peak
+    of the two (``torch.cuda.max_memory_allocated``, bytes)."""
+    import torch
+
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = builder_cls(device=str(dev), **kw).train(frame)
+    if cuda:
+        torch.cuda.synchronize()
+    rec = {"fit": label, "device": str(dev), "rows": frame.nrows,
+           "train_s": time.time() - t0}
+    score = frame if score is None else score
+    t0 = time.time()
+    pred = model.predict(score)
+    predict_s = time.time() - t0
+    rec["predict_s"] = predict_s
+    rec["predict_rows_per_s"] = score.nrows / predict_s
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    if hasattr(model, "iterations"):
+        rec["iterations"] = int(model.iterations)
+    if model.device != torch.device(dev):
+        raise AssertionError(f"{label}: the model is on {model.device}, not {dev}")
+    return model, rec, pred
+
+
+def breadth_phase(higgs, blobs, mnist, airlines, dev, seed, sub_rows=200_000,
+                  export_rows=10_000):
+    """KMeans, PCA and SVD, GLRM, NaiveBayes and both isolation forests on
+    ``dev``, each fitted on every row of its frame at the frame's full
+    width and scored on its first ``sub_rows`` rows (the isolation forest
+    on every row). On ``blobs``, the HIGGS-shaped features with cluster
+    centres added (``clustered_frame``): KMeans k=10 by ``plus_plus`` (10
+    iterations) and by ``estimate_k`` up to k=10. On the HIGGS-shaped
+    frame (its 28 features): PCA k=10 standardized, SVD nv=10, the
+    isolation forest at its defaults (50 trees, samples of 256, depth 8),
+    the extended forest (100 trees, samples of 256) at extension levels 0
+    and 27. On the MNIST-shaped frame (784 pixels): PCA k=50 demeaned; on
+    it with 3% of its cells NA (``blank_cells``), GLRM k=10 with quadratic
+    loss (exact ALS with the NA mask, 30 iterations at most) and with huber
+    loss and l1 on X (the proximal line search, 10 iterations). On the
+    airlines-shaped frame: NaiveBayes with ``laplace=1``.
+
+    Then each family on the CPU against the card: on the first
+    ``sub_rows`` rows of the clustered, HIGGS-shaped and airlines-shaped
+    frames (fitted on both), and on the whole MNIST-shaped frames (the
+    card's fits above): the forests' trees equal, the isolation forest's
+    path lengths ``torch.equal``, the extended forest's ``mean_length``
+    within rtol 1e-5 (the rows outside counted and printed: a projection
+    within a float32 rounding of a threshold; at level 27 at most 20 rows,
+    each off by no more than one tree's longest path over the tree count),
+    KMeans ``tot_withinss`` rtol 1e-4 and ``estimate_k``'s k equal, PCA
+    and SVD eigenvalues rtol 1e-4, GLRM objectives rtol 1e-3, NaiveBayes
+    tables equal. The MOJOs of the KMeans, PCA, isolation-forest and NaiveBayes
+    models scored by the port's ``genmodel`` on ``export_rows`` rows
+    against ``Model.predict`` (rtol 1e-6; PCA's float32 scores against the
+    scorer's float64 also atol 1e-5), and every model through
+    ``dumps_model``/``loads_model`` on ``dev`` with the same prediction
+    bits and the same bytes. Every check raises. Returns the phase's
+    record."""
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch import (
+        GLRM, PCA, SVD, ExtendedIsolationForest, IsolationForest, KMeans, NaiveBayes)
+    from h2o3_tpu_torch.genmodel import load_mojo
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.models import persist
+    from h2o3_tpu_torch.models.tree.common import tree_matrix
+
+    dev = torch.device(dev)
+    mnist_fr = mnist_frame(*mnist)
+    glrm_fr = mnist_frame(blank_cells(mnist[0], seed + 16), mnist[1])
+    rec = {"fits": []}
+    models = {}
+    cache0 = devcache_counts("kmeans_x") | devcache_counts("pca_x")
+
+    def fit(label, builder_cls, frame, **kw):
+        model, r, pred = breadth_fit(label, builder_cls, frame, dev, **kw)
+        models[label] = (model, frame)
+        rec["fits"].append(r)
+        return model, r, pred
+
+    # the clustered and the HIGGS-shaped frames: 28 features, the response
+    # left out; the predict passes but the isolation forest's on their
+    # first sub_rows rows
+    blobs_sub = blobs.rows(slice(0, sub_rows))
+    km, r, _ = fit("kmeans_plus_plus_k10", KMeans, blobs, k=10, init="plus_plus",
+                   max_iterations=10, seed=seed, score=blobs_sub)
+    r.update(tot_withinss=km.tot_withinss, betweenss=km.betweenss, totss=km.totss)
+    kme, r, _ = fit("kmeans_estimate_k10", KMeans, blobs, k=10, estimate_k=True,
+                    seed=seed, score=blobs_sub)
+    r.update(k=int(kme.centers_std.shape[0]), tot_withinss=kme.tot_withinss,
+             betweenss=kme.betweenss)
+    if r["k"] < 2:
+        raise AssertionError(f"kmeans estimate_k: k={r['k']} on the clustered frame")
+    ig = ["y"]
+    sub = higgs.rows(slice(0, sub_rows))
+    pca, r, _ = fit("pca_k10_standardize", PCA, higgs, k=10, transform="standardize",
+                    ignored_columns=ig, score=sub)
+    r["pve"] = pca.pve.tolist()
+    svd, r, _ = fit("svd_nv10", SVD, higgs, nv=10, ignored_columns=ig, score=sub)
+    r.update(d=svd.d.tolist(), pve=svd.pve.tolist())
+    iso, r, pred = fit("isolation_forest", IsolationForest, higgs, seed=seed,
+                       ignored_columns=ig)
+    s = pred.col("anomaly_score").data
+    r.update(mean_score=float(s.mean()), max_score=float(s.max()),
+             training_metrics=iso.training_metrics)
+    for level in (0, 27):
+        eif, r, pred = fit(f"ext_isolation_forest_level{level}", ExtendedIsolationForest,
+                           higgs, ntrees=100, sample_size=256, extension_level=level,
+                           seed=seed, ignored_columns=ig, score=sub)
+        s = pred.col("anomaly_score").data
+        r.update(mean_score=float(s.mean()), max_score=float(s.max()),
+                 mean_length=float(pred.col("mean_length").data.mean()))
+    # the MNIST-shaped frame: its 784 pixels, the label left out
+    ig = ["label"]
+    pm, r, _ = fit("pca_k50_demean_mnist", PCA, mnist_fr, k=50, transform="demean",
+                   ignored_columns=ig)
+    r["cum_pve_50"] = float(pm.cum_pve[-1])
+    glrm_kw = {"quadratic": dict(k=10, loss="quadratic", max_iterations=30),
+               "huber_l1": dict(k=10, loss="huber", regularization_x="l1", gamma_x=0.1,
+                                max_iterations=10)}
+    for name, kw in glrm_kw.items():
+        gm, r, _ = fit(f"glrm_{name}_mnist", GLRM, glrm_fr, seed=seed,
+                       ignored_columns=ig, score=glrm_fr.rows(slice(0, export_rows)), **kw)
+        r.update(objective=gm.objective, step_size=gm.step_size)
+        if not np.isfinite(gm.objective):
+            raise AssertionError(f"glrm {name}: the objective is not finite")
+    # the airlines-shaped frame
+    nb, r, _ = fit("naive_bayes_airlines", NaiveBayes, airlines,
+                   response_column="IsDepDelayed", laplace=1.0)
+    r["auc"] = float(nb.training_metrics.auc)
+    if not (np.isfinite(r["auc"]) and r["auc"] > 0.5):
+        raise AssertionError(f"naive bayes: AUC {r['auc']}")
+    for r in rec["fits"]:
+        print(f"breadth fit: {json.dumps(r)}", flush=True)
+    # a fit's design is placed once per (frame, design parameters, device)
+    cache = devcache_counts("kmeans_x") | devcache_counts("pca_x")
+    rec["devcache"] = {k: [cache[k][0] - cache0.get(k, (0, 0))[0],
+                           cache[k][1] - cache0.get(k, (0, 0))[1]] for k in cache}
+    if rec["devcache"] != {"kmeans_x": [1, 1], "pca_x": [1, 2]}:
+        raise AssertionError(f"breadth: cache hits and misses {rec['devcache']}")
+
+    # the card against the CPU on the first rows of each frame
+    vs = {}
+    for label, builder_cls, frame, kw in (
+            ("kmeans", KMeans, blobs_sub, dict(k=10, init="plus_plus", max_iterations=10,
+                                                seed=seed)),
+            ("kmeans_estimate_k", KMeans, blobs_sub, dict(k=10, estimate_k=True, seed=seed)),
+            ("pca", PCA, sub, dict(k=10, ignored_columns=["y"])),
+            ("svd", SVD, sub, dict(nv=10, ignored_columns=["y"])),
+            ("isolation_forest", IsolationForest, sub, dict(seed=seed,
+                                                             ignored_columns=["y"])),
+            ("ext_isolation_forest_level0", ExtendedIsolationForest, sub,
+             dict(ntrees=100, extension_level=0, seed=seed, ignored_columns=["y"])),
+            ("ext_isolation_forest_level27", ExtendedIsolationForest, sub,
+             dict(ntrees=100, extension_level=27, seed=seed, ignored_columns=["y"])),
+            ("pca_k50_demean_mnist", PCA, mnist_fr,
+             dict(k=50, transform="demean", ignored_columns=["label"])),
+            ("glrm_quadratic_mnist", GLRM, glrm_fr,
+             dict(seed=seed, ignored_columns=["label"], **glrm_kw["quadratic"])),
+            ("glrm_huber_l1_mnist", GLRM, glrm_fr,
+             dict(seed=seed, ignored_columns=["label"], **glrm_kw["huber_l1"])),
+            ("naive_bayes", NaiveBayes, airlines.rows(slice(0, sub_rows)),
+             dict(response_column="IsDepDelayed", laplace=1.0))):
+        pair, v = [], vs.setdefault(label, {})
+        # the MNIST-shaped fits above ran on these whole frames already
+        model, fitted_on = models.get(label, (None, None))
+        card = model if fitted_on is frame else None
+        for d in (dev, torch.device("cpu")):
+            if card is not None and d == dev:
+                pair.append(card)
+                continue
+            t0 = time.time()
+            pair.append(builder_cls(device=str(d), **kw).train(frame))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            v[f"{d.type}_train_s"] = time.time() - t0
+        a, b = pair
+        if label.startswith("kmeans"):
+            ok, v["tot_withinss_max_abs_err"] = _close(a.tot_withinss, b.tot_withinss, 1e-4)
+            v["k"] = [int(a.centers_std.shape[0]), int(b.centers_std.shape[0])]
+            ok = ok and v["k"][0] == v["k"][1]
+        elif label.startswith(("pca", "svd")):
+            ok, v["eigenvalue_max_abs_err"] = _close(a.std_deviation ** 2,
+                                                     b.std_deviation ** 2, 1e-4)
+        elif label == "isolation_forest":
+            ok = all(np.array_equal(x, y) for x, y in zip(a.trees, b.trees))
+            Xs = tree_matrix(a.data_info, frame)
+            la, lb = a.mean_path_lengths(Xs), b.mean_path_lengths(Xs)
+            v["trees_equal"] = ok
+            v["path_lengths_equal"] = bool(np.array_equal(la, lb))
+            ok = ok and v["path_lengths_equal"]
+        elif label.startswith("ext_"):
+            ok = all(np.array_equal(getattr(a, f), getattr(b, f))
+                     for f in ("normals", "offsets", "is_split", "correction"))
+            v["trees_equal"] = ok
+            la = a.predict(frame).col("mean_length").data
+            lb = b.predict(frame).col("mean_length").data
+            outside = ~np.isclose(la, lb, rtol=1e-5, atol=0.0)
+            v["mean_length_max_abs_err"] = float(np.max(np.abs(la - lb)))
+            v["rows_outside_rtol_1e-5"] = int(outside.sum())
+            # a row parts only where a projection lies within a float32
+            # rounding of a threshold: at level 0 the projection is exact.
+            # Such a row takes another path in one tree, which moves its
+            # mean length by at most that tree's longest path over ntrees
+            step = (a.depth + float(a.correction.max())) / a.normals.shape[0]
+            v["one_tree_step"] = step
+            print(f"breadth {label}: {int(outside.sum())} of {frame.nrows} rows' "
+                  f"mean_length outside rtol 1e-5 of the CPU's (max abs err "
+                  f"{v['mean_length_max_abs_err']}, one tree's step {step})", flush=True)
+            limit = 0 if label.endswith("level0") else 20
+            ok = (ok and int(outside.sum()) <= limit
+                  and v["mean_length_max_abs_err"] <= step)
+        elif label.startswith("glrm"):
+            ok, v["objective_max_abs_err"] = _close(a.objective, b.objective, 1e-3)
+            v.update(objective=[a.objective, b.objective],
+                     iterations=[a.iterations, b.iterations])
+        else:
+            ok = bool(np.array_equal(a.priors, b.priors)) and all(
+                np.array_equal(getattr(a, t)[k], getattr(b, t)[k])
+                for t in ("num_mean", "num_sd", "cat_probs") for k in getattr(b, t))
+            v["tables_equal"] = ok
+        if not ok:
+            raise AssertionError(f"breadth {label}: card and CPU differ: {v}")
+        for m in pair:
+            if m is not card:
+                DKV.remove(m.key)
+    rec["card_vs_cpu"] = vs
+    print(f"breadth card vs cpu: {json.dumps(vs)}", flush=True)
+
+    # MOJOs through the port's genmodel; save and load on the card
+    rec["mojo"], rec["persist"] = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (model, frame) in models.items():
+            ex = frame.rows(slice(0, export_rows))
+            if label in ("kmeans_plus_plus_k10", "pca_k10_standardize", "isolation_forest",
+                         "naive_bayes_airlines"):
+                t0 = time.time()
+                model.download_mojo(f"{tmp}/{label}.zip")
+                cols = {c: ex.col(c).data for c in model.data_info.predictor_names}
+                for c in cols:
+                    col = ex.col(c)
+                    if col.domain is not None:
+                        cols[c] = np.array([None if k < 0 else col.domain[k]
+                                            for k in col.data], dtype=object)
+                got = load_mojo(f"{tmp}/{label}.zip").score(cols)
+                want = model._predict_raw(ex)
+                ok, err = _close(got, want, 1e-6, 1e-5 if label.startswith("pca") else 0.0)
+                rec["mojo"][label] = {"s": time.time() - t0, "max_abs_err": err}
+                if not ok:
+                    raise AssertionError(f"breadth {label}: MOJO scores differ ({err})")
+            t0 = time.time()
+            blob = persist.dumps_model(model)
+            loaded = persist.loads_model(blob, device=dev)
+            if loaded.device != dev:
+                raise AssertionError(f"breadth {label}: loaded onto {loaded.device}")
+            same = persist.dumps_model(loaded) == blob
+            for x, y in zip(_breadth_scores(loaded, ex), _breadth_scores(model, ex)):
+                same = same and np.array_equal(x, y)
+            rec["persist"][label] = {"s": time.time() - t0, "bytes": len(blob)}
+            if not same:
+                raise AssertionError(f"breadth {label}: save and load changed the bits")
+    print(f"breadth mojo: {json.dumps(rec['mojo'])}", flush=True)
+    for model, _ in models.values():
+        DKV.remove(model.key)
+    return rec
+
+
+def _breadth_scores(model, frame):
+    """What a model of this phase gives for a frame: its raw scores, and
+    the extended forest's mean lengths too."""
+    if hasattr(model, "normals"):
+        p = model.predict(frame)
+        return [p.col("anomaly_score").data, p.col("mean_length").data]
+    return [model._predict_raw(frame)]
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -2225,6 +2556,18 @@ def main() -> int:
                               sub_rows=min(10_000, args.air_rows))
     automl_rec["phase_s"] = time.time() - t0
     print(json.dumps({"automl": automl_rec}), flush=True)
+    # the cluster, decomposition, NaiveBayes and isolation-forest models:
+    # no histogram kernel runs in them
+    launches_before = dict(cuda_build.LAUNCHES)
+    t0 = time.time()
+    breadth_rec = breadth_phase(frame, clustered_frame(X, seed + 15), mnist,
+                                synth_airlines(1_000_000, seed + 14), dev, seed,
+                                sub_rows=min(200_000, n))
+    breadth_rec["phase_s"] = time.time() - t0
+    print(json.dumps({"breadth": breadth_rec}), flush=True)
+    if cuda_build.LAUNCHES != launches_before:
+        raise AssertionError(f"a histogram kernel ran in the breadth phase: "
+                             f"{cuda_build.LAUNCHES} (before: {launches_before})")
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
@@ -2253,7 +2596,7 @@ def main() -> int:
                        "cross_check": cross, "jrandom": rand, "binning": binning,
                        "fits": fits, "cv": cv, "devcache": cache_stats,
                        "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
-                       "automl": automl_rec,
+                       "automl": automl_rec, "breadth": breadth_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,9 @@ contributions, variable importances, binary save/load, MOJO and POJO export
 and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``; GLM (every
 family, IRLSM with the Gram on the device, L-BFGS, lambda search) and the
 DeepLearning MLP (ADADELTA or SGD, dropout, autoencoder) on the dense
-design matrix; grid search, target encoding, stacked ensembles and AutoML
-over those models.
+design matrix; KMeans, PCA and SVD, GLRM, NaiveBayes and both isolation
+forests; grid search, target encoding, stacked ensembles and AutoML over
+those models.
 
 The top-level names load on first use (PEP 562), so importing
 ``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.
@@ -29,11 +30,25 @@ __all__ = [
     "DRF",
     "DeepLearning",
     "DeepLearningParameters",
+    "ExtendedIsolationForest",
+    "ExtendedIsolationForestParameters",
     "Frame",
     "GBM",
     "GLM",
     "GLMParameters",
+    "GLRM",
+    "GLRMParameters",
     "GridSearch",
+    "IsolationForest",
+    "IsolationForestParameters",
+    "KMeans",
+    "KMeansParameters",
+    "NaiveBayes",
+    "NaiveBayesParameters",
+    "PCA",
+    "PCAParameters",
+    "SVD",
+    "SVDParameters",
     "SearchCriteria",
     "StackedEnsemble",
     "StackedEnsembleParameters",
@@ -55,6 +70,23 @@ _LAZY = {
                                "DeepLearningParameters"),
     "GLM": ("h2o3_tpu_torch.models.glm", "GLM"),
     "GLMParameters": ("h2o3_tpu_torch.models.glm", "GLMParameters"),
+    "GLRM": ("h2o3_tpu_torch.models.glrm", "GLRM"),
+    "GLRMParameters": ("h2o3_tpu_torch.models.glrm", "GLRMParameters"),
+    "ExtendedIsolationForest": ("h2o3_tpu_torch.models.ext_isolation_forest",
+                                "ExtendedIsolationForest"),
+    "ExtendedIsolationForestParameters": ("h2o3_tpu_torch.models.ext_isolation_forest",
+                                          "ExtendedIsolationForestParameters"),
+    "IsolationForest": ("h2o3_tpu_torch.models.isolation_forest", "IsolationForest"),
+    "IsolationForestParameters": ("h2o3_tpu_torch.models.isolation_forest",
+                                  "IsolationForestParameters"),
+    "KMeans": ("h2o3_tpu_torch.models.kmeans", "KMeans"),
+    "KMeansParameters": ("h2o3_tpu_torch.models.kmeans", "KMeansParameters"),
+    "NaiveBayes": ("h2o3_tpu_torch.models.naive_bayes", "NaiveBayes"),
+    "NaiveBayesParameters": ("h2o3_tpu_torch.models.naive_bayes", "NaiveBayesParameters"),
+    "PCA": ("h2o3_tpu_torch.models.pca", "PCA"),
+    "PCAParameters": ("h2o3_tpu_torch.models.pca", "PCAParameters"),
+    "SVD": ("h2o3_tpu_torch.models.pca", "SVD"),
+    "SVDParameters": ("h2o3_tpu_torch.models.pca", "SVDParameters"),
     "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
     "GridSearch": ("h2o3_tpu_torch.models.grid", "GridSearch"),
     "SearchCriteria": ("h2o3_tpu_torch.models.grid", "SearchCriteria"),

@@ -15,7 +15,19 @@ from typing import Dict, Tuple
 
 def algo_map() -> Dict[str, Tuple[type, type]]:
     from h2o3_tpu_torch.models.deeplearning import DeepLearning, DeepLearningParameters
+    from h2o3_tpu_torch.models.ext_isolation_forest import (
+        ExtendedIsolationForest,
+        ExtendedIsolationForestParameters,
+    )
     from h2o3_tpu_torch.models.glm import GLM, GLMParameters
+    from h2o3_tpu_torch.models.glrm import GLRM, GLRMParameters
+    from h2o3_tpu_torch.models.isolation_forest import (
+        IsolationForest,
+        IsolationForestParameters,
+    )
+    from h2o3_tpu_torch.models.kmeans import KMeans, KMeansParameters
+    from h2o3_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesParameters
+    from h2o3_tpu_torch.models.pca import PCA, PCAParameters, SVD, SVDParameters
     from h2o3_tpu_torch.models.stacked_ensemble import (
         StackedEnsemble,
         StackedEnsembleParameters,
@@ -30,7 +42,17 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
         "deeplearning": (DeepLearning, DeepLearningParameters),
         "drf": (DRF, DRFParameters),
         "glm": (GLM, GLMParameters),
+        "glrm": (GLRM, GLRMParameters),
+        "kmeans": (KMeans, KMeansParameters),
+        "naivebayes": (NaiveBayes, NaiveBayesParameters),
+        "pca": (PCA, PCAParameters),
+        "svd": (SVD, SVDParameters),
         "gbm": (GBM, GBMParameters),
+        "isolationforest": (IsolationForest, IsolationForestParameters),
+        "extendedisolationforest": (
+            ExtendedIsolationForest,
+            ExtendedIsolationForestParameters,
+        ),
         "stackedensemble": (StackedEnsemble, StackedEnsembleParameters),
         # extensions
         "xgboost": (XGBoost, XGBoostParameters),

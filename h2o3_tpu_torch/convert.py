@@ -37,6 +37,29 @@ models' order, with the level-one column names of the ensemble they come
 from; ``params`` are the ensemble's parameters but its base models. So an
 AutoML leader of the JAX package, with its target encoder set as each
 model's ``preprocessors``, scores here.
+
+One function each for KMeans, PCA and SVD, GLRM, NaiveBayes and the two
+isolation forests takes the fitted arrays (a dict), the ``DataInfo``
+fields and the parameters as plain dicts, and returns a port model that
+scores as the model it came from:
+
+- ``kmeans_from_numpy``: ``centers_std`` and ``centers`` [k, P], ``size``
+  and ``withinss`` [k], optionally ``totss``;
+- ``pca_from_numpy``: ``eigenvectors`` [P, k], ``transform_sub`` and
+  ``transform_mul`` ([1, P] or None), ``std_deviation`` and ``pve`` [k];
+  with ``d`` [k] and ``v`` [P, k] it builds an SVD model;
+- ``glrm_from_numpy``: ``archetypes`` [k, P], optionally ``x_factors``
+  [N, k] and ``objective``;
+- ``naive_bayes_from_numpy``: ``priors`` [C] and the dicts ``num_mean``,
+  ``num_sd`` ([C] per numeric predictor) and ``cat_probs`` ([C, L] per
+  categorical one);
+- ``isolation_forest_from_numpy``: ``feat``, ``thresh``, ``is_split`` and
+  ``path_len`` [T, M] (M = 2^(max_depth+1) - 1, ``max_depth`` a
+  parameter) and ``c_norm`` (the JAX model's ``_cn``), optionally
+  ``min_path_total`` and ``max_path_total``;
+- ``ext_isolation_forest_from_numpy``: ``normals`` [T, M, P],
+  ``offsets``, ``is_split`` and ``correction`` [T, M], ``depth`` and
+  ``sample_size``.
 """
 
 from __future__ import annotations
@@ -91,7 +114,7 @@ def glm_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
 
     p = GLMParameters(**params)
     info = DataInfo(**data_info)
-    model = GLMModel(p, info, resolve_device(device if device is not None else p.device))
+    model = GLMModel(p, info, _model_device(device, p))
     P = len(info.coef_names)
     if p.family == "multinomial":
         B = np.asarray(arrays["beta_multi"], dtype=np.float64)
@@ -130,7 +153,7 @@ def deeplearning_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, A
     if shapes != want:
         raise ValueError(f"net_params shapes {shapes} are not the layout {want}")
     model = DeepLearningModel(p, info, loss_kind(p, nclasses),
-                              resolve_device(device if device is not None else p.device))
+                              _model_device(device, p))
     model.net_params = net
     leaves = arrays.get("opt_leaves")
     model.opt_leaves = None if leaves is None else [np.asarray(x) for x in leaves]
@@ -147,7 +170,7 @@ def target_encoder_from_numpy(encodings: Mapping[str, Any], prior_mean: float,
     p = TargetEncoderParameters(**params)
     info = DataInfo(**data_info)
     model = TargetEncoderModel(
-        p, info, resolve_device(device if device is not None else p.device))
+        p, info, _model_device(device, p))
     for name, (dom, num, den) in encodings.items():
         num = np.asarray(num, dtype=np.float64)
         den = np.asarray(den, dtype=np.float64)
@@ -180,8 +203,164 @@ def stacked_ensemble_from_models(base_models: Sequence[Any], metalearner,
     p.base_models = list(base_models)
     info = DataInfo(**data_info)
     model = StackedEnsembleModel(
-        p, info, resolve_device(device if device is not None else p.device))
+        p, info, _model_device(device, p))
     model.base_models = list(base_models)
     model.metalearner = metalearner
     model.levelone_names = list(levelone_names)
+    return model
+
+
+def _model_device(device, p):
+    return resolve_device(device if device is not None else p.device)
+
+
+def _check_shape(name: str, a: np.ndarray, shape) -> np.ndarray:
+    if a.shape != tuple(shape):
+        raise ValueError(f"{name} must be {list(shape)}, got {list(a.shape)}")
+    return a
+
+
+def kmeans_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                      params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.kmeans import KMeansModel, KMeansParameters
+
+    p = KMeansParameters(**params)
+    info = DataInfo(**data_info)
+    model = KMeansModel(p, info, _model_device(device, p))
+    C = np.asarray(arrays["centers_std"], dtype=np.float64)
+    k = C.shape[0]
+    shape = (k, len(info.coef_names))
+    model.centers_std = _check_shape("centers_std", C, shape)
+    model.centers = _check_shape(
+        "centers", np.asarray(arrays["centers"], dtype=np.float64), shape)
+    model.size = _check_shape("size", np.asarray(arrays["size"], dtype=np.int64), (k,))
+    model.withinss = _check_shape(
+        "withinss", np.asarray(arrays["withinss"], dtype=np.float64), (k,))
+    model.tot_withinss = float(model.withinss.sum())
+    if arrays.get("totss") is not None:
+        model.totss = float(arrays["totss"])
+        model.betweenss = model.totss - model.tot_withinss
+    model.training_metrics = model.model_performance(None)
+    return model
+
+
+def pca_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                   params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.pca import (
+        PCAModel, PCAParameters, SVDModel, SVDParameters)
+
+    svd = arrays.get("d") is not None
+    p = (SVDParameters if svd else PCAParameters)(**params)
+    info = DataInfo(**data_info)
+    model = (SVDModel if svd else PCAModel)(p, info, _model_device(device, p))
+    V = np.asarray(arrays["eigenvectors"], dtype=np.float32)
+    P = len(info.coef_names)
+    if V.ndim != 2 or V.shape[0] != P:
+        raise ValueError(f"eigenvectors must be [{P}, k], got {list(V.shape)}")
+    k = V.shape[1]
+    model.eigenvectors = V
+    for name in ("transform_sub", "transform_mul"):
+        a = arrays.get(name)
+        setattr(model, name, None if a is None else _check_shape(
+            name, np.asarray(a, dtype=np.float32), (1, P)))
+    model.std_deviation = _check_shape(
+        "std_deviation", np.asarray(arrays["std_deviation"], dtype=np.float64), (k,))
+    model.pve = _check_shape("pve", np.asarray(arrays["pve"], dtype=np.float64), (k,))
+    model.cum_pve = np.cumsum(model.pve)
+    model.training_metrics = model.model_performance(None)
+    if svd:
+        model.d = _check_shape("d", np.asarray(arrays["d"], dtype=np.float64), (k,))
+        model.v = _check_shape("v", np.asarray(arrays["v"], dtype=np.float32), (P, k))
+        model.training_metrics = {"d": model.d}
+    return model
+
+
+def glrm_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                    params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.glrm import GLRMModel, GLRMParameters
+
+    p = GLRMParameters(**params)
+    info = DataInfo(**data_info)
+    model = GLRMModel(p, info, _model_device(device, p))
+    Y = np.asarray(arrays["archetypes"], dtype=np.float64)
+    P = len(info.coef_names)
+    if Y.ndim != 2 or Y.shape[1] != P:
+        raise ValueError(f"archetypes must be [k, {P}], got {list(Y.shape)}")
+    model.archetypes = Y
+    x = arrays.get("x_factors")
+    if x is not None:
+        x = np.asarray(x, dtype=np.float64)
+        if x.ndim != 2 or x.shape[1] != Y.shape[0]:
+            raise ValueError(f"x_factors must be [N, {Y.shape[0]}], got {list(x.shape)}")
+        model.x_factors = x
+    if arrays.get("objective") is not None:
+        model.objective = float(arrays["objective"])
+    return model
+
+
+def naive_bayes_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                           params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel, NaiveBayesParameters
+
+    p = NaiveBayesParameters(**params)
+    info = DataInfo(**data_info)
+    model = NaiveBayesModel(p, info, _model_device(device, p))
+    C = len(info.response_domain or ())
+    model.priors = _check_shape(
+        "priors", np.asarray(arrays["priors"], dtype=np.float64), (C,))
+    for name in info.predictor_names:
+        if name in info.cat_domains:
+            model.cat_probs[name] = _check_shape(
+                f"cat_probs[{name!r}]",
+                np.asarray(arrays["cat_probs"][name], dtype=np.float64),
+                (C, len(info.cat_domains[name])))
+        else:
+            for field in ("num_mean", "num_sd"):
+                getattr(model, field)[name] = _check_shape(
+                    f"{field}[{name!r}]",
+                    np.asarray(arrays[field][name], dtype=np.float64), (C,))
+    return model
+
+
+def isolation_forest_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                                params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.isolation_forest import (
+        IsolationForestModel, IsolationForestParameters)
+
+    p = IsolationForestParameters(**params)
+    info = DataInfo(**data_info)
+    model = IsolationForestModel(p, info, _model_device(device, p))
+    shape = (np.shape(arrays["feat"])[0], 2 ** (p.max_depth + 1) - 1)
+    model.trees = tuple(
+        _check_shape(name, np.asarray(arrays[name], dtype=dt), shape)
+        for name, dt in (("feat", np.int32), ("thresh", np.float32),
+                         ("is_split", np.bool_), ("path_len", np.float32)))
+    model._cn = float(arrays["c_norm"])
+    for name in ("min_path_total", "max_path_total"):
+        if arrays.get(name) is not None:
+            setattr(model, name, float(arrays[name]))
+    return model
+
+
+def ext_isolation_forest_from_numpy(arrays: Mapping[str, Any],
+                                    data_info: Mapping[str, Any],
+                                    params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.ext_isolation_forest import (
+        ExtendedIsolationForestModel, ExtendedIsolationForestParameters)
+
+    p = ExtendedIsolationForestParameters(**params)
+    info = DataInfo(**data_info)
+    model = ExtendedIsolationForestModel(p, info, _model_device(device, p))
+    model.depth = int(arrays["depth"])
+    model.sample_size = int(arrays["sample_size"])
+    T = np.shape(arrays["normals"])[0]
+    m = 2 ** (model.depth + 1) - 1
+    model.normals = _check_shape("normals", np.asarray(arrays["normals"], dtype=np.float32),
+                                 (T, m, len(info.coef_names)))
+    model.offsets = _check_shape("offsets", np.asarray(arrays["offsets"], dtype=np.float32),
+                                 (T, m))
+    model.is_split = _check_shape("is_split", np.asarray(arrays["is_split"], dtype=bool),
+                                  (T, m))
+    model.correction = _check_shape(
+        "correction", np.asarray(arrays["correction"], dtype=np.float32), (T, m))
     return model

@@ -19,6 +19,7 @@ import contextlib
 import threading
 from typing import Iterator, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -63,3 +64,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     return dev
 
+
+
+def to_device_f32(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a contiguous float32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)

@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from h2o3_tpu_torch.device import to_device_f32
 from h2o3_tpu_torch.frame.frame import ColType, Frame
 from h2o3_tpu_torch.models.data_info import (
     DataInfo,
@@ -176,13 +177,9 @@ def _gram_kernel(Xw: torch.Tensor, wz: torch.Tensor, w: torch.Tensor):
     return g, q
 
 
-def _to_device_f32(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
-
-
 def _gram(Xd: torch.Tensor, wz: np.ndarray, w: np.ndarray):
     """The Gram pass on ``Xd``'s device, back on the host as float64."""
-    g, q = _gram_kernel(Xd, _to_device_f32(wz, Xd.device), _to_device_f32(w, Xd.device))
+    g, q = _gram_kernel(Xd, to_device_f32(wz, Xd.device), to_device_f32(w, Xd.device))
     return (g.cpu().numpy().astype(np.float64), q.cpu().numpy().astype(np.float64))
 
 
@@ -536,7 +533,7 @@ class GLM(ModelBuilder):
                 if p.intercept
                 else X
             )
-            return _to_device_f32(Xi, self._device)
+            return to_device_f32(Xi, self._device)
 
         return self._cached_upload("glm_design", build), (lambda a: a)
 
@@ -658,10 +655,10 @@ class GLM(ModelBuilder):
             )
         dev = self._device
         Xf = self._cached_upload(
-            "glm_lbfgs_x", lambda: _to_device_f32(X64, dev))
-        wd = _to_device_f32(obs_w, dev)
-        yd = _to_device_f32(y, dev)
-        od = _to_device_f32(offset, dev)
+            "glm_lbfgs_x", lambda: to_device_f32(X64, dev))
+        wd = to_device_f32(obs_w, dev)
+        yd = to_device_f32(y, dev)
+        od = to_device_f32(offset, dev)
         family = p.family
         vpow = p.tweedie_variance_power
         intercept = p.intercept
@@ -831,9 +828,9 @@ class GLM(ModelBuilder):
         p: GLMParameters = self.params
         dev = self._device
         Xf = self._cached_upload(
-            "glm_multinomial_x", lambda: _to_device_f32(X64, dev))
-        wd = _to_device_f32(obs_w, dev)
-        Yd = _to_device_f32(Y, dev)
+            "glm_multinomial_x", lambda: to_device_f32(X64, dev))
+        wd = to_device_f32(obs_w, dev)
+        Yd = to_device_f32(Y, dev)
         intercept = p.intercept
 
         def nll(flat, l2):
@@ -877,10 +874,10 @@ class GLM(ModelBuilder):
         n, pcols = X.shape
         l2 = p.lambda_ * (1 - p.alpha)
         dev = self._device
-        Xf = self._cached_upload("glm_ordinal_x", lambda: _to_device_f32(X, dev))
-        wd = _to_device_f32(obs_w, dev)
+        Xf = self._cached_upload("glm_ordinal_x", lambda: to_device_f32(X, dev))
+        wd = to_device_f32(obs_w, dev)
         yk = torch.from_numpy(y.astype(np.int64)).to(dev)
-        od = _to_device_f32(offset, dev)
+        od = to_device_f32(offset, dev)
         nth = K - 1
         l2 = float(np.float32(l2))
 
@@ -976,7 +973,7 @@ def _value_and_grad(nll, x: np.ndarray, device: torch.device, l2: float):
     """The objective and its gradient at the host point ``x`` (float64,
     rounded to float32 on the device, as the JAX package rounds it), back
     on the host as (float, float64 array)."""
-    params = _to_device_f32(x, device).requires_grad_(True)
+    params = to_device_f32(x, device).requires_grad_(True)
     v = nll(params, l2)
     (g,) = torch.autograd.grad(v, params)
     return float(v.detach()), g.cpu().numpy().astype(np.float64)

@@ -9,9 +9,12 @@ design-matrix layout, ``dataclasses.asdict`` of ``DataInfo``) and
 which reads the same layout).
 
 Tree models (GBM, XGBoost, DRF), GLM (standardized betas; the
-multinomial block; the ordinal betas and thresholds) and DeepLearning
-(each layer's W and b) are exported; the other algorithms raise until
-their model families are ported.
+multinomial block; the ordinal betas and thresholds), DeepLearning (each
+layer's W and b), KMeans (centers), NaiveBayes (priors and tables),
+IsolationForest (the stacked trees) and PCA (eigenvectors and the
+demean/descale statistics; an SVD model exports as its PCA) are exported.
+GLRM and the extended isolation forest raise the JAX package's
+``ValueError``, as they do there; so do the algorithms not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ def _payload(model: Model) -> Payload:
     """The per-algo payload (the *MojoWriter analogue)."""
     from h2o3_tpu_torch.models.deeplearning import DeepLearningModel
     from h2o3_tpu_torch.models.glm import GLMModel
+    from h2o3_tpu_torch.models.isolation_forest import IsolationForestModel
+    from h2o3_tpu_torch.models.kmeans import KMeansModel
+    from h2o3_tpu_torch.models.naive_bayes import NaiveBayesModel
+    from h2o3_tpu_torch.models.pca import PCAModel
     from h2o3_tpu_torch.models.tree.common import TreeModelBase
     from h2o3_tpu_torch.models.tree.drf import DRFModel
 
@@ -72,6 +79,45 @@ def _payload(model: Model) -> Payload:
             "autoencoder": bool(p.autoencoder),
         }
         return meta, arrays
+    if isinstance(model, KMeansModel):
+        return {"algo": "kmeans"}, {
+            "centers_std": np.asarray(model.centers_std, dtype=np.float64),
+            "centers": np.asarray(model.centers, dtype=np.float64),
+        }
+    if isinstance(model, NaiveBayesModel):
+        arrays = {"priors": np.asarray(model.priors, dtype=np.float64)}
+        for name, v in model.num_mean.items():
+            arrays[f"mean_{name}"] = np.asarray(v, dtype=np.float64)
+        for name, v in model.num_sd.items():
+            arrays[f"sd_{name}"] = np.asarray(v, dtype=np.float64)
+        for name, v in model.cat_probs.items():
+            arrays[f"cat_{name}"] = np.asarray(v, dtype=np.float64)
+        return {"algo": "naivebayes"}, arrays
+    if isinstance(model, IsolationForestModel):
+        feat, thresh, is_split, path_len = model.trees
+        return (
+            {
+                "algo": "isolation_forest",
+                "max_depth": int(model.max_depth),
+                "c_norm": float(model._cn),
+            },
+            {
+                "feat": np.asarray(feat, dtype=np.int32),
+                "thresh": np.asarray(thresh, dtype=np.float64),
+                "is_split": np.asarray(is_split, dtype=bool),
+                "path_len": np.asarray(path_len, dtype=np.float64),
+            },
+        )
+    if isinstance(model, PCAModel):
+        arrays = {"eigenvectors": np.asarray(model.eigenvectors, dtype=np.float64)}
+        # the demean/descale statistics live outside the design-matrix
+        # layout; without them the scorer would project untransformed rows
+        # onto transformed-space eigenvectors
+        if model.transform_sub is not None:
+            arrays["transform_sub"] = np.asarray(model.transform_sub, dtype=np.float64)
+        if model.transform_mul is not None:
+            arrays["transform_mul"] = np.asarray(model.transform_mul, dtype=np.float64)
+        return {"algo": "pca"}, arrays
     if not isinstance(model, TreeModelBase):
         raise ValueError(f"MOJO export not supported for {type(model).__name__}")
     b = model.booster

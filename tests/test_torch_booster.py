@@ -29,13 +29,6 @@ from h2o3_tpu_torch.models.tree import booster as tb
 torch.set_num_threads(1)
 
 
-def test_grad_hess_fixed_targets():
-    y = np.arange(12, dtype=np.float32).reshape(6, 2)
-    g, h = tb.grad_hess_device("fixed", torch.from_numpy(y), torch.zeros(6, 2))
-    np.testing.assert_array_equal(g.numpy(), -y)
-    np.testing.assert_array_equal(h.numpy(), np.ones_like(y))
-
-
 def _random_hist(rng, k, f, b1):
     """A level histogram with integer counts, consistent totals across
     features (every row lands in one bin of every feature), and one node
@@ -197,6 +190,11 @@ def test_predict_stacked_matches_jax():
         t(np.ascontiguousarray(bins.T)), t(feat), t(split_bin), t(default_left),
         t(is_split), t(leaf), max_depth=depth, n_bins1=b1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    # the fixed-target objective's gradient and hessian
+    y = np.arange(12, dtype=np.float32).reshape(6, 2)
+    g, h = tb.grad_hess_device("fixed", torch.from_numpy(y), torch.zeros(6, 2))
+    np.testing.assert_array_equal(g.numpy(), -y)
+    np.testing.assert_array_equal(h.numpy(), np.ones_like(y))
 
 
 class _DistX(np.ndarray):

@@ -190,13 +190,6 @@ def test_inactive_rows_empty_nodes_and_count_weight(weighted):
         rw=None if rw is None else t(rw), impl="plain", dtype="bf16").numpy())
 
 
-def test_counts_are_exact_integers():
-    bins, nodes, g, h, _ = _mk(700, 2, 3, 5, seed=3)
-    counts = _port(bins, nodes, g, h, 3, 5)[..., 2]
-    np.testing.assert_array_equal(counts, np.round(counts))
-    assert counts.sum() == 700 * 2
-
-
 def test_wrapper_on_cpu_tensors_is_the_plain_version():
     bins, nodes, g, h, rw = _mk(777, 6, 5, 11, seed=11, frac_inactive=0.2,
                                 weighted=True)
@@ -207,6 +200,11 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     b = ch.hist_nodematmul_reference(*args, rw=torch.from_numpy(rw))
     assert torch.equal(a, b)
     assert ch.LAUNCHES == before  # the plain version launches nothing
+    # counts are exact integers
+    bins, nodes, g, h, _ = _mk(700, 2, 3, 5, seed=3)
+    counts = _port(bins, nodes, g, h, 3, 5)[..., 2]
+    np.testing.assert_array_equal(counts, np.round(counts))
+    assert counts.sum() == 700 * 2
 
 
 def test_padded_node_bucket_is_bit_identical():
@@ -393,13 +391,6 @@ def test_sorted_prep_matches_jax_prep(k, frac_inactive):
     assert layout.tile_off[-1] <= k + extra
 
 
-def test_sorted_prep_treats_out_of_range_nodes_as_inactive():
-    nodes = torch.tensor([2, -1, 5, 0, 2, 9, 1], dtype=torch.int32)
-    layout = cs.sorted_prep(nodes, 3)
-    assert layout.order.tolist()[:4] == [3, 6, 0, 4]
-    assert layout.counts.tolist() == [1, 1, 2]
-
-
 def test_sorted_wrapper_on_cpu_tensors_is_the_plain_version():
     bins, nodes, g, h, rw = _mk(900, 6, 150, 11, seed=12, frac_inactive=0.2,
                                 weighted=True)
@@ -431,6 +422,11 @@ def test_sorted_wrapper_on_cpu_tensors_is_the_plain_version():
         cs.hist_sorted(*args, codes_rm=torch.zeros(16, 300, dtype=torch.uint8).T)
     with pytest.raises(ValueError, match="codes_rm is on meta"):
         cs.hist_sorted(*args, codes_rm=good.to("meta"))
+    # the prep treats out-of-range nodes as inactive
+    nodes = torch.tensor([2, -1, 5, 0, 2, 9, 1], dtype=torch.int32)
+    layout = cs.sorted_prep(nodes, 3)
+    assert layout.order.tolist()[:4] == [3, 6, 0, 4]
+    assert layout.counts.tolist() == [1, 1, 2]
 
 
 def _kernel_by_loops(bins_fm, nodes, g, h, k, b1, rw, tile_rows):

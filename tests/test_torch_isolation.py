@@ -4,7 +4,9 @@ optax; the port keeps its own copy of the updates DeepLearning uses, in
 ``util/optim.py``) nor anything of ``h2o3_tpu``, its MOJO scorer
 ``h2o3_tpu_torch.genmodel`` imports numpy and not even ``torch``, and the
 port's entry points refuse to run quietly on the CPU when no card is
-present.
+present. The port's algorithm registry lists the JAX package's algorithms
+that are ported, in the JAX package's order (read from its source, so this
+file imports no JAX).
 
 Mind the prefix: ``h2o3_tpu_torch`` starts with ``h2o3_tpu``, so the
 import check matches ``h2o3_tpu`` only when a ``.``, a space or the end of
@@ -63,11 +65,32 @@ def test_no_jax_or_reference_imports_in_the_port():
                    "ops/cuda_build.py", "models/tree/drf.py", "models/glm.py",
                    "models/deeplearning.py", "util/optim.py", "automl/automl.py",
                    "models/grid.py", "models/stacked_ensemble.py",
-                   "models/target_encoder.py", "api/registry.py"):
+                   "models/target_encoder.py", "api/registry.py",
+                   "models/naive_bayes.py", "models/kmeans.py", "models/pca.py",
+                   "models/isolation_forest.py", "models/ext_isolation_forest.py",
+                   "models/glrm.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
     assert not bad, bad
+
+    # algo_map: the JAX package's keys (its source's return dict, in
+    # RegisterAlgos.java order) minus the algorithms not ported yet
+    from h2o3_tpu_torch.api.registry import algo_map
+
+    tree = ast.parse((ROOT / "h2o3_tpu" / "api" / "registry.py").read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "algo_map")
+    ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return))
+    jax_keys = [k.value for k in ret.value.keys]
+    not_ported = {"coxph", "aggregator", "word2vec", "psvm", "gam", "rulefit", "generic"}
+    assert set(jax_keys) >= not_ported
+    port = algo_map()
+    assert list(port) == [k for k in jax_keys if k not in not_ported]
+    for key in ("glrm", "kmeans", "naivebayes", "pca", "svd", "isolationforest",
+                "extendedisolationforest"):
+        builder, params = port[key]
+        assert builder.__module__.startswith("h2o3_tpu_torch.models.")
+        assert builder(params()).algo_name == key
 
 
 def test_port_runs_with_jax_and_reference_blocked():
@@ -105,12 +128,25 @@ def test_port_runs_with_jax_and_reference_blocked():
             aml = ht.AutoML(max_models=2, nfolds=2, seed=1,
                             include_algos=["glm", "gbm"])
             aml.train(y="y", training_frame=fr)
+            km = ht.KMeans(k=2, seed=1, ignored_columns=["y"]).train(fr)
+            pc = ht.PCA(k=2).train(fr)
+            sv = ht.SVD(nv=2).train(fr)
+            gl = ht.GLRM(k=2, loss="huber", regularization_x="l1", gamma_x=0.1,
+                         max_iterations=3, ignored_columns=["y"]).train(fr)
+            nb = ht.NaiveBayes(response_column="y").train(fr)
+            iso = ht.IsolationForest(ntrees=3, seed=1).train(fr)
+            eif = ht.ExtendedIsolationForest(ntrees=3, extension_level=1,
+                                             seed=1).train(fr)
+            for model in (km, pc, sv, gl, nb, iso, eif):
+                model.predict(fr)
         assert m.training_metrics.auc > 0.9
         assert f.training_metrics.auc > 0.9
         assert g.training_metrics.auc > 0.9 and g2.training_metrics.auc > 0.9
         assert np.isfinite(d.training_metrics.logloss)
         assert len(s.opt_leaves) == 3 + 4 + 1
         assert [m.algo_name for m in aml.leaderboard.models].count("glm") == 1
+        assert nb.training_metrics.auc > 0.9 and len(km.size) == 2
+        assert np.isfinite(gl.objective) and sv.d.shape == (2,)
         assert not [e for e in aml.event_log.events if "failed" in e["message"]]
         leaked = [k for k in sys.modules
                   if k.split(".")[0] in ("jax", "jaxlib", "optax", "h2o3_tpu")
@@ -162,6 +198,11 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         ht.DeepLearning(hidden=[2], epochs=1, response_column="y").train(fr)
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.resolve_device("cuda")
+    for builder in (ht.KMeans(k=2), ht.PCA(k=1), ht.SVD(nv=1), ht.GLRM(k=1),
+                    ht.NaiveBayes(response_column="y"), ht.IsolationForest(ntrees=1),
+                    ht.ExtendedIsolationForest(ntrees=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            builder.train(fr)
     from h2o3_tpu_torch.entry import entry
 
     with pytest.raises(RuntimeError, match="CUDA"):

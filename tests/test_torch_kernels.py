@@ -59,11 +59,6 @@ def test_launch_plan_fits_and_is_node_independent(n_bins1, k):
     assert ch.launch_plan(2_000_000, 28, 1, n_bins1)[1:] == (chunk_rows, n_chunks)
 
 
-def test_launch_plan_rejects_what_does_not_fit():
-    with pytest.raises(ValueError):
-        ch.launch_plan(1000, 4, 128, 257)
-
-
 @pytest.mark.parametrize("n_bins1", [2, 21, 257, 303, 513, 605, 1025, 1209, 4097])
 def test_launch_plan_tiles_every_level_up_to_64_nodes(n_bins1):
     # every level the dispatch sends (1 to 64 nodes) at any bin count: the
@@ -116,8 +111,6 @@ def test_sorted_launch_plan_takes_fewer_warps_for_wide_bins():
         with pytest.raises(ValueError, match="shared memory"):
             cs.launch_plan(2_000_000, n_feat, 19_339)
 
-
-def test_sorted_tile_bound_holds_for_skewed_nodes():
     # one node holds most rows, many are empty: the tiles used never
     # exceed the tiles launched (n_nodes + n_rows // tile_rows)
     rng = np.random.default_rng(5)
@@ -138,6 +131,9 @@ def test_every_kernel_has_a_source_and_a_count():
     assert {"hist_nodematmul", "hist_sorted", "hist_factorized"} <= set(
         cuda_build.KERNELS)
     assert ch.LAUNCHES is cuda_build.LAUNCHES is cs.LAUNCHES is cf.LAUNCHES
+    # the node-matmul plan rejects what does not fit
+    with pytest.raises(ValueError):
+        ch.launch_plan(1000, 4, 128, 257)
 
 
 @pytest.mark.parametrize("n_bins1", [257, 21])

@@ -252,18 +252,6 @@ def test_fit_predict_score_match_jax(algo, dist, subtract, aux, monkeypatch):
         _assert_cv_matches_jax(jcv, pcv)
 
 
-def test_drf_checkpoint_raises():
-    # a checkpoint key that names no model: the JAX package's error
-    d = _data("gaussian", 200, seed=3)
-    kw = dict(response_column="y", ntrees=2, checkpoint="drf_0",
-              ignored_columns=["w", "off"])
-    with pytest.raises(ValueError) as jerr:
-        JDRF(**kw).train(JFrame.from_dict(d))
-    with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
-        ht.DRF(**kw).train(ht.Frame.from_dict(d))
-    assert str(perr.value) == str(jerr.value) == "checkpoint model 'drf_0' not found"
-
-
 MONO_CASES = [
     (algo, dist, subtract)
     for algo in ("xgboost", "gbm")
@@ -610,3 +598,13 @@ def test_invalid_hist_dtype_raises_the_jax_error():
                               ignored_columns=["w", "off"],
                               hist_dtype="f16").train(ht.Frame.from_dict(d))
         assert str(err.value) == want, algo
+
+    # a checkpoint key that names no model: the JAX package's error
+    d = _data("gaussian", 200, seed=3)
+    kw = dict(response_column="y", ntrees=2, checkpoint="drf_0",
+              ignored_columns=["w", "off"])
+    with pytest.raises(ValueError) as jerr:
+        JDRF(**kw).train(JFrame.from_dict(d))
+    with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
+        ht.DRF(**kw).train(ht.Frame.from_dict(d))
+    assert str(perr.value) == str(jerr.value) == "checkpoint model 'drf_0' not found"

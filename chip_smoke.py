@@ -198,14 +198,39 @@ Run from the root of a checkout. Phases, each of which must pass:
    the port's ``genmodel`` against ``predict`` (rtol 1e-6; PCA also atol
    1e-5), and every model saved and loaded on the card with the same bits.
    It prints a ``{"breadth": ...}`` line and launches no histogram kernel;
-21. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+21. GAM, CoxPH, PSVM and Word2Vec (``breadth2_phase``) at full width: on
+   the N x 28 frame a binomial GAM with x0, x1, x2 as cubic regression
+   splines, [x3, x4] as one thin-plate smoother and x5 as a monotone
+   I-spline, at lambda 0 and on the ADMM path (alpha 0.5, lambda 1e-4,
+   its design a ``gam_design`` cache hit), a gaussian GAM on the frame's
+   logit with M-splines, and a cubic-regression GAM on the first 200,000
+   rows whose C POJO, built with the host's C compiler, scores 10,000 rows
+   inside the knots as ``predict`` does (rtol 1e-10); CoxPH with efron
+   and breslow ties and a left-truncated fit on 1,000,000 survival
+   rows (``synth_survival``: 28 covariates, proportional hazards, about
+   30% censored, times rounded to 0.01); PSVM at its defaults on the frame's first 200,000 rows; and
+   Word2Vec at its defaults twice on a 400,000-token corpus
+   (``synth_corpus``: Zipf over 50,000 words, sentences of 20), the two
+   runs' vectors equal bit for bit. Each fit prints ``train_s``, predict
+   rows/s on 200,000 rows, its iterations, the device memory peak and its
+   headline results. Card against CPU: the GAM on 200,000 rows
+   (coefficients rtol 1e-4, atol 1e-6 times the largest coefficient's
+   size; iterations equal), CoxPH on 100,000 rows (coefficients rtol
+   1e-3, log-likelihood rtol 1e-5), PSVM on 20,000 rows (the support sets
+   equal on every row whose alpha lies 1e-5 or more from ``sv_threshold``
+   on both devices, decision values atol 1e-4), Word2Vec on 100,000 tokens for one epoch (vectors
+   rtol 1e-4 / atol 1e-5); the MOJO export of each model raises the JAX
+   package's ``ValueError``, and one model of each family is saved and
+   loaded on the card with the same bits. It prints a ``{"breadth2": ...}``
+   line and launches no histogram kernel;
+22. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15 and of phase 19's main AutoML run; phases 16-18 and
-20 launch no histogram kernel), then
+those of phases 8-15 and of phase 19's main AutoML run; phases 16-18, 20
+and 21 launch no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -2292,6 +2317,333 @@ def _breadth_scores(model, frame):
     return [model._predict_raw(frame)]
 
 
+def synth_survival(n_rows: int, n_feat: int, seed: int, censored: float = 0.3):
+    """Proportional-hazards survival data: N(0,1) covariates ``x0..``,
+    event times exponential with hazard exp(x.b), censoring times
+    exponential at the rate that censors about ``censored`` of the rows,
+    the observed time (``stop``) rounded to 0.01 so that event times tie
+    often, ``event`` 1 or 0, and an entry time ``start`` for left
+    truncation: 0 for half the rows, below the stop time for the rest."""
+    from h2o3_tpu_torch import ColType, Column, Frame
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n_rows, n_feat)).astype(np.float32)
+    b = rng.normal(size=n_feat) * (0.8 / np.sqrt(n_feat))
+    lam = np.exp(X.astype(np.float64) @ b)
+    lo, hi = 1e-6, 1e6  # the censoring rate r: mean(r / (r + lam)) = censored
+    for _ in range(80):
+        r = np.sqrt(lo * hi)
+        lo, hi = (r, hi) if np.mean(r / (r + lam)) < censored else (lo, r)
+    t, c = rng.exponential(1.0 / lam), rng.exponential(1.0 / r, size=n_rows)
+    stop = np.round(np.minimum(t, c), 2)
+    start = np.where(rng.random(n_rows) < 0.5, 0.0, np.round(rng.random(n_rows) * stop, 2))
+    cols = [Column(f"x{j}", X[:, j], ColType.NUM) for j in range(n_feat)]
+    cols += [Column("start", start, ColType.NUM), Column("stop", stop, ColType.NUM),
+             Column("event", (t <= c).astype(np.float64), ColType.NUM)]
+    return Frame(cols)
+
+
+def synth_corpus(n_tokens: int, n_words: int, seed: int, sent_len: int = 20):
+    """A Word2Vec corpus: ``n_tokens`` words drawn Zipf-distributed (rank
+    k with probability proportional to 1/k) from ``n_words`` words
+    ``w0..``, in sentences of ``sent_len`` with an NA (None) after each,
+    as one string column's values."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_words + 1)
+    draws = rng.choice(n_words, size=n_tokens, p=p / p.sum())
+    words = np.array([f"w{k}" for k in range(n_words)], dtype=object)[draws]
+    n_sent = -(-n_tokens // sent_len)
+    out = np.full(n_tokens + n_sent, None, dtype=object)
+    pos = np.arange(n_tokens)
+    out[pos + pos // sent_len] = words
+    return out
+
+
+GAM_KW = dict(family="binomial", response_column="y",
+              gam_columns=["x0", "x1", "x2", ["x3", "x4"], "x5"],
+              bs=[0, 0, 0, 1, 2], num_knots=[10, 10, 10, 12, 10])
+
+
+def _word_frame(tokens):
+    from h2o3_tpu_torch import ColType, Column, Frame
+
+    return Frame([Column("words", tokens, ColType.STR)])
+
+
+def _w2v_fit(label, frame, dev, **kw):
+    """A Word2Vec fit on ``dev`` with its record (Word2Vec has no predict:
+    its scoring pass is ``transform``)."""
+    import torch
+
+    from h2o3_tpu_torch import Word2Vec
+
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model = Word2Vec(device=str(dev), **kw).train(frame)
+    if cuda:
+        torch.cuda.synchronize()
+    rec = {"fit": label, "device": str(dev), "rows": frame.nrows,
+           "train_s": time.time() - t0, "vocabulary": len(model.words),
+           "epochs": model.epochs_run, "losses": model.losses,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+    return model, rec
+
+
+def breadth2_phase(higgs, logit, survival, corpus, dev, seed, sub_rows=200_000,
+                   gam_sub=200_000, cox_sub=100_000, psvm_rows=200_000,
+                   psvm_sub=20_000, w2v_sub=100_000, export_rows=10_000):
+    """GAM, CoxPH, PSVM and Word2Vec on ``dev`` at the full width of their
+    frames. On the HIGGS-shaped frame: a binomial GAM with x0, x1, x2 as
+    cubic regression splines (10 knots), [x3, x4] as one thin-plate
+    smoother (12 knots) and x5 as a monotone I-spline, at lambda 0 and
+    again with alpha 0.5, lambda 1e-4 (the ADMM path; its design a
+    ``gam_design`` cache hit); a gaussian GAM on the frame's logit with
+    M-splines for x0, x1, x2 and the same thin-plate and I-spline; a
+    binomial GAM with the three cubic regression splines alone on the
+    first ``sub_rows`` rows, whose C POJO, built with the host's C
+    compiler, scores ``export_rows`` rows inside the knots as ``predict``
+    does (rtol 1e-10). On the survival frame (``synth_survival``): CoxPH with efron and with breslow ties and
+    a left-truncated efron fit (``start_column``), with the device memory
+    peak. On the first ``psvm_rows`` rows of the HIGGS-shaped frame: PSVM
+    at its defaults (rank sqrt(n), gamma 1/28), its support-vector count
+    and training AUC. On the corpus (``synth_corpus``): Word2Vec at its
+    defaults twice, the vectors of the two runs equal bit for bit,
+    ``find_synonyms`` and ``transform("average")``. Scoring passes run on
+    the first ``sub_rows`` rows.
+
+    Then each family on the CPU against the card: the binomial GAM on the
+    first ``gam_sub`` rows (coefficients rtol 1e-4, atol 1e-6 times the
+    largest coefficient's size; iterations equal), efron CoxPH on the
+    first ``cox_sub`` rows (coefficients rtol 1e-3, log-likelihood rtol
+    1e-5), PSVM on the first ``psvm_sub`` rows (the support sets equal
+    where no alpha lies within 1e-5 of ``sv_threshold``, the decision
+    function atol 1e-4), Word2Vec on the corpus's first ``w2v_sub`` tokens
+    for one epoch (vectors rtol 1e-4 / atol 1e-5). The MOJO export of each
+    model raises the JAX package's ``ValueError``, and the first model of
+    each family (the binomial GAM, efron CoxPH, PSVM, Word2Vec) is saved
+    and loaded on ``dev`` with the same bits and bytes. Every check raises.
+    Returns the phase's record."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch import GAM, PSVM, CoxPH, ColType, Column
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.models import persist
+    from h2o3_tpu_torch.models import psvm as psvm_mod
+    from h2o3_tpu_torch.models.data_info import expand_matrix
+
+    dev = torch.device(dev)
+    rec = {"fits": []}
+    models = {}
+    cache0 = devcache_counts("gam_design")
+
+    def fit(label, builder_cls, frame, **kw):
+        model, r, pred = breadth_fit(label, builder_cls, frame, dev, **kw)
+        models[label] = (model, frame)
+        rec["fits"].append(r)
+        return model, r, pred
+
+    def head(frame, n):
+        return frame.rows(slice(0, min(n, frame.nrows)))
+
+    # GAM on the HIGGS-shaped frame
+    sub = head(higgs, sub_rows)
+    for label, kw in (("gam_binomial", dict(lambda_=0.0)),
+                      ("gam_binomial_admm", dict(alpha=0.5, lambda_=1e-4))):
+        gam, r, _ = fit(label, GAM, higgs, score=sub, **GAM_KW, **kw)
+        r.update(coefficients=len(gam.coefficients), auc=float(gam.training_metrics.auc),
+                 residual_deviance=gam.residual_deviance)
+        if not (np.all(np.isfinite(gam.beta)) and r["auc"] > 0.5):
+            raise AssertionError(f"{label}: AUC {r['auc']}, coefficients finite "
+                                 f"{np.all(np.isfinite(gam.beta))}")
+    gauss = higgs.drop("y").add_column(Column("logit", logit.astype(np.float64), ColType.NUM))
+    gam, r, _ = fit("gam_gaussian_mspline", GAM, gauss, score=head(gauss, sub_rows),
+                    family="gaussian", response_column="logit",
+                    gam_columns=GAM_KW["gam_columns"], bs=[3, 3, 3, 1, 2],
+                    num_knots=GAM_KW["num_knots"])
+    r.update(coefficients=len(gam.coefficients), residual_deviance=gam.residual_deviance,
+             null_deviance=gam.null_deviance)
+    if not gam.residual_deviance < gam.null_deviance:
+        raise AssertionError(f"gam gaussian: deviance {gam.residual_deviance} not below "
+                             f"the null deviance {gam.null_deviance}")
+    cr, r, _ = fit("gam_binomial_cr", GAM, sub, family="binomial",
+                   response_column="y", gam_columns=["x0", "x1", "x2"], num_knots=10)
+    r["auc"] = float(cr.training_metrics.auc)
+    cache = devcache_counts("gam_design")
+    rec["devcache"] = [cache["gam_design"][i] - cache0.get("gam_design", (0, 0))[i]
+                       for i in (0, 1)]
+    if rec["devcache"] != [1, 3]:
+        raise AssertionError(f"gam: design cache hits and misses {rec['devcache']}, "
+                             "not [1, 3]")
+    # the C POJO on rows inside every smoother's knots
+    inside = np.ones(sub.nrows, dtype=bool)
+    for s in cr.specs:
+        x = sub.col(s.column).data
+        inside &= (x >= s.knots[0]) & (x <= s.knots[-1])
+    rows = sub.rows(np.flatnonzero(inside)[:export_rows])
+    Xl, _ = expand_matrix(cr.data_info, rows, dtype=np.float64)
+    Xp = np.concatenate([Xl, np.stack([rows.col(s.column).data for s in cr.specs], 1)], 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        lib = compile_pojo(cr.pojo("c"), tmp, row_type=ctypes.c_double)
+        got = pojo_scores(lib, Xp, 3, dtype=np.float64)
+        want = cr._predict_raw(rows)
+        ok, err = _close(got[:, 1:], want, 1e-10, 1e-12)
+        rec["pojo"] = {"rows": rows.nrows, "s": time.time() - t0, "max_abs_err": err}
+        if not ok:
+            raise AssertionError(f"gam pojo: scores differ from predict ({err})")
+
+    # CoxPH on the survival frame
+    for label, kw in (("coxph_efron", dict(ties="efron", ignored_columns=["start"])),
+                      ("coxph_breslow", dict(ties="breslow", ignored_columns=["start"])),
+                      ("coxph_efron_truncated", dict(ties="efron", start_column="start"))):
+        cox, r, _ = fit(label, CoxPH, survival, score=head(survival, sub_rows),
+                        response_column="event", stop_column="stop", **kw)
+        r.update(loglik=cox.loglik, loglik_null=cox.loglik_null,
+                 concordance=cox.concordance, n_events=cox.n_events)
+        if not (np.isfinite(cox.loglik) and cox.loglik > cox.loglik_null
+                and cox.concordance > 0.5):
+            raise AssertionError(f"{label}: loglik {cox.loglik} (null {cox.loglik_null}), "
+                                 f"concordance {cox.concordance}")
+    # PSVM on the first rows of the HIGGS-shaped frame
+    psvm_fr = head(higgs, psvm_rows)
+    svm, r, _ = fit("psvm", PSVM, psvm_fr, response_column="y")
+    r.update(svs_count=svm.svs_count, bounded_svs_count=svm.bounded_svs_count,
+             rank=svm.rank_, gamma=svm.gamma_, auc=float(svm.training_metrics.auc))
+    if not (svm.svs_count > 0 and r["auc"] > 0.5):
+        raise AssertionError(f"psvm: {svm.svs_count} support vectors, AUC {r['auc']}")
+    # Word2Vec on the corpus, twice: the same bits
+    words = _word_frame(corpus)
+    runs = []
+    for i in range(2):
+        w2v, r = _w2v_fit(f"word2vec_run{i + 1}", words, dev, seed=seed)
+        runs.append(w2v)
+        rec["fits"].append(r)
+    models["word2vec"] = (runs[0], words)
+    same = bool(torch.equal(torch.from_numpy(runs[0].vectors),
+                            torch.from_numpy(runs[1].vectors)))
+    r.update(vectors_equal_run1=same, synonyms_w0=runs[0].find_synonyms("w0", 10))
+    if not same:
+        raise AssertionError("word2vec: two seeded runs on the card gave different vectors")
+    t0 = time.time()
+    avg = runs[0].transform(_word_frame(corpus[: w2v_sub]), "average")
+    r["transform_average_rows_per_s"] = w2v_sub / (time.time() - t0)
+    if avg.ncols != 100 or not np.isfinite(avg.col("V1").data).any():
+        raise AssertionError("word2vec: transform('average') gave no finite vectors")
+    DKV.remove(runs[1].key)
+    for r in rec["fits"]:
+        print(f"breadth2 fit: {json.dumps(r)}", flush=True)
+
+    # the card against the CPU on the first rows of each frame
+    vs = {}
+    alphas = []
+    orig_qp = psvm_mod._solve_box_qp
+
+    def spy_qp(*a, **kw):
+        out = orig_qp(*a, **kw)
+        alphas.append(out.cpu().numpy())
+        return out
+
+    for label, builder_cls, frame, kw in (
+            ("gam_binomial", GAM, head(higgs, gam_sub), dict(GAM_KW, lambda_=0.0)),
+            ("coxph_efron", CoxPH, head(survival, cox_sub),
+             dict(response_column="event", stop_column="stop", ignored_columns=["start"])),
+            ("psvm", PSVM, head(higgs, psvm_sub), dict(response_column="y")),
+            ("word2vec", None, _word_frame(corpus[: w2v_sub + w2v_sub // 20]),
+             dict(epochs=1, seed=seed))):
+        pair, v = [], vs.setdefault(label, {})
+        alphas.clear()
+        psvm_mod._solve_box_qp = spy_qp
+        try:
+            for d in (dev, torch.device("cpu")):
+                t0 = time.time()
+                if builder_cls is None:
+                    pair.append(_w2v_fit(label, frame, d, **kw)[0])
+                else:
+                    pair.append(builder_cls(device=str(d), **kw).train(frame))
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                v[f"{d.type}_train_s"] = time.time() - t0
+        finally:
+            psvm_mod._solve_box_qp = orig_qp
+        a, b = pair
+        if label == "gam_binomial":
+            scale = max(1.0, float(np.abs(b.beta).max()))
+            ok, v["coef_max_abs_err"] = _close(a.beta, b.beta, 1e-4, 1e-6 * scale)
+            v["iterations"] = [a.iterations, b.iterations]
+            ok = ok and a.iterations == b.iterations
+        elif label == "coxph_efron":
+            ok, v["coef_max_abs_err"] = _close(a.beta, b.beta, 1e-3)
+            ok2, v["loglik_abs_err"] = _close(a.loglik, b.loglik, 1e-5)
+            v.update(loglik=[a.loglik, b.loglik], iterations=[a.iterations, b.iterations])
+            ok = ok and ok2
+        elif label == "psvm":
+            # the support sets agree on every row whose alpha is not within
+            # 1e-5 of the threshold on either device
+            thr = b.params.sv_threshold
+            far = (np.abs(alphas[0] - thr) >= 1e-5) & (np.abs(alphas[1] - thr) >= 1e-5)
+            masks = [al > thr for al in alphas]
+            v.update(svs=[a.svs_count, b.svs_count], alphas_near_threshold=int((~far).sum()),
+                     alpha_max_abs_err=float(np.max(np.abs(alphas[0] - alphas[1]))))
+            ok = (np.array_equal(masks[0][far], masks[1][far])
+                  and [a.svs_count, b.svs_count] == [int(m.sum()) for m in masks])
+            ok2, v["decision_max_abs_err"] = _close(a.decision_function(frame),
+                                                    b.decision_function(frame), 0.0, 1e-4)
+            ok = ok and ok2
+        else:
+            ok = a.words == b.words
+            ok2, v["vectors_max_abs_err"] = _close(a.vectors, b.vectors, 1e-4, 1e-5)
+            ok = ok and ok2
+        if not ok:
+            raise AssertionError(f"breadth2 {label}: card and CPU differ: {v}")
+        for m in pair:
+            DKV.remove(m.key)
+    rec["card_vs_cpu"] = vs
+    print(f"breadth2 card vs cpu: {json.dumps(vs)}", flush=True)
+
+    # no MOJO for these families (the JAX package's ValueError); save and
+    # load on the card
+    rec["persist"] = {}
+    for label, (model, frame) in models.items():
+        try:
+            model.download_mojo("unused.zip")
+        except ValueError as e:
+            if str(e) != f"MOJO export not supported for {type(model).__name__}":
+                raise
+        else:
+            raise AssertionError(f"breadth2 {label}: a MOJO was written")
+        if label not in ("gam_binomial", "coxph_efron", "psvm", "word2vec"):
+            continue  # one model of each family through save and load
+        t0 = time.time()
+        blob = persist.dumps_model(model)
+        loaded = persist.loads_model(blob, device=dev)
+        if loaded.device != dev:
+            raise AssertionError(f"breadth2 {label}: loaded onto {loaded.device}")
+        same = persist.dumps_model(loaded) == blob
+        for x, y in zip(_breadth2_scores(loaded, frame, export_rows),
+                        _breadth2_scores(model, frame, export_rows)):
+            same = same and np.array_equal(x, y)
+        rec["persist"][label] = {"s": time.time() - t0, "bytes": len(blob)}
+        if not same:
+            raise AssertionError(f"breadth2 {label}: save and load changed the bits")
+    for model, _ in models.values():
+        DKV.remove(model.key)
+    return rec
+
+
+def _breadth2_scores(model, frame, n):
+    """What a model of the breadth2 phase gives for the first ``n`` rows
+    of its frame: Word2Vec its vectors, the others their raw scores."""
+    if hasattr(model, "vectors"):
+        return [model.vectors]
+    return [model._predict_raw(frame.rows(slice(0, min(n, frame.nrows))))]
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -2569,6 +2921,20 @@ def main() -> int:
         raise AssertionError(f"a histogram kernel ran in the breadth phase: "
                              f"{cuda_build.LAUNCHES} (before: {launches_before})")
 
+    # GAM, CoxPH, PSVM and Word2Vec: no histogram kernel runs in them
+    launches_before = dict(cuda_build.LAUNCHES)
+    t0 = time.time()
+    # the corpus is cut from 1,000,000 tokens for the phase's time (PERF.md section 4)
+    breadth2_rec = breadth2_phase(frame, logit, synth_survival(1_000_000, 28, seed + 17),
+                                  synth_corpus(400_000, 50_000, seed + 18), dev, seed,
+                                  sub_rows=min(200_000, n))
+    breadth2_rec["phase_s"] = time.time() - t0
+    breadth2_rec["card"] = smi
+    print(json.dumps({"breadth2": breadth2_rec}), flush=True)
+    if cuda_build.LAUNCHES != launches_before:
+        raise AssertionError(f"a histogram kernel ran in the breadth2 phase: "
+                             f"{cuda_build.LAUNCHES} (before: {launches_before})")
+
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
              profile_fit(XGBoost, frame, "xgboost_monotone", ntrees=args.trees,
@@ -2597,6 +2963,7 @@ def main() -> int:
                        "fits": fits, "cv": cv, "devcache": cache_stats,
                        "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
                        "automl": automl_rec, "breadth": breadth_rec,
+                       "breadth2": breadth2_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,8 +14,8 @@ and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``; GLM (every
 family, IRLSM with the Gram on the device, L-BFGS, lambda search) and the
 DeepLearning MLP (ADADELTA or SGD, dropout, autoencoder) on the dense
 design matrix; KMeans, PCA and SVD, GLRM, NaiveBayes and both isolation
-forests; grid search, target encoding, stacked ensembles and AutoML over
-those models.
+forests; GAM (with its C POJO), CoxPH, PSVM and Word2Vec; grid search,
+target encoding, stacked ensembles and AutoML over those models.
 
 The top-level names load on first use (PEP 562), so importing
 ``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.
@@ -27,12 +27,16 @@ __all__ = [
     "AutoML",
     "ColType",
     "Column",
+    "CoxPH",
+    "CoxPHParameters",
     "DRF",
     "DeepLearning",
     "DeepLearningParameters",
     "ExtendedIsolationForest",
     "ExtendedIsolationForestParameters",
     "Frame",
+    "GAM",
+    "GAMParameters",
     "GBM",
     "GLM",
     "GLMParameters",
@@ -47,6 +51,8 @@ __all__ = [
     "NaiveBayesParameters",
     "PCA",
     "PCAParameters",
+    "PSVM",
+    "PSVMParameters",
     "SVD",
     "SVDParameters",
     "SearchCriteria",
@@ -54,6 +60,8 @@ __all__ = [
     "StackedEnsembleParameters",
     "TargetEncoder",
     "TargetEncoderParameters",
+    "Word2Vec",
+    "Word2VecParameters",
     "XGBoost",
     "resolve_device",
     "use_device",
@@ -87,6 +95,14 @@ _LAZY = {
     "PCAParameters": ("h2o3_tpu_torch.models.pca", "PCAParameters"),
     "SVD": ("h2o3_tpu_torch.models.pca", "SVD"),
     "SVDParameters": ("h2o3_tpu_torch.models.pca", "SVDParameters"),
+    "CoxPH": ("h2o3_tpu_torch.models.coxph", "CoxPH"),
+    "CoxPHParameters": ("h2o3_tpu_torch.models.coxph", "CoxPHParameters"),
+    "GAM": ("h2o3_tpu_torch.models.gam", "GAM"),
+    "GAMParameters": ("h2o3_tpu_torch.models.gam", "GAMParameters"),
+    "PSVM": ("h2o3_tpu_torch.models.psvm", "PSVM"),
+    "PSVMParameters": ("h2o3_tpu_torch.models.psvm", "PSVMParameters"),
+    "Word2Vec": ("h2o3_tpu_torch.models.word2vec", "Word2Vec"),
+    "Word2VecParameters": ("h2o3_tpu_torch.models.word2vec", "Word2VecParameters"),
     "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
     "GridSearch": ("h2o3_tpu_torch.models.grid", "GridSearch"),
     "SearchCriteria": ("h2o3_tpu_torch.models.grid", "SearchCriteria"),

@@ -14,11 +14,13 @@ from typing import Dict, Tuple
 
 
 def algo_map() -> Dict[str, Tuple[type, type]]:
+    from h2o3_tpu_torch.models.coxph import CoxPH, CoxPHParameters
     from h2o3_tpu_torch.models.deeplearning import DeepLearning, DeepLearningParameters
     from h2o3_tpu_torch.models.ext_isolation_forest import (
         ExtendedIsolationForest,
         ExtendedIsolationForestParameters,
     )
+    from h2o3_tpu_torch.models.gam import GAM, GAMParameters
     from h2o3_tpu_torch.models.glm import GLM, GLMParameters
     from h2o3_tpu_torch.models.glrm import GLRM, GLRMParameters
     from h2o3_tpu_torch.models.isolation_forest import (
@@ -28,6 +30,7 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
     from h2o3_tpu_torch.models.kmeans import KMeans, KMeansParameters
     from h2o3_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesParameters
     from h2o3_tpu_torch.models.pca import PCA, PCAParameters, SVD, SVDParameters
+    from h2o3_tpu_torch.models.psvm import PSVM, PSVMParameters
     from h2o3_tpu_torch.models.stacked_ensemble import (
         StackedEnsemble,
         StackedEnsembleParameters,
@@ -36,9 +39,11 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
     from h2o3_tpu_torch.models.tree.drf import DRF, DRFParameters
     from h2o3_tpu_torch.models.tree.gbm import GBM, GBMParameters
     from h2o3_tpu_torch.models.tree.xgboost import XGBoost, XGBoostParameters
+    from h2o3_tpu_torch.models.word2vec import Word2Vec, Word2VecParameters
 
     return {
         # hex/api/RegisterAlgos.java order
+        "coxph": (CoxPH, CoxPHParameters),
         "deeplearning": (DeepLearning, DeepLearningParameters),
         "drf": (DRF, DRFParameters),
         "glm": (GLM, GLMParameters),
@@ -53,7 +58,10 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
             ExtendedIsolationForest,
             ExtendedIsolationForestParameters,
         ),
+        "word2vec": (Word2Vec, Word2VecParameters),
         "stackedensemble": (StackedEnsemble, StackedEnsembleParameters),
+        "psvm": (PSVM, PSVMParameters),
+        "gam": (GAM, GAMParameters),
         # extensions
         "xgboost": (XGBoost, XGBoostParameters),
         "targetencoder": (TargetEncoder, TargetEncoderParameters),

@@ -60,6 +60,18 @@ scores as the model it came from:
 - ``ext_isolation_forest_from_numpy``: ``normals`` [T, M, P],
   ``offsets``, ``is_split`` and ``correction`` [T, M], ``depth`` and
   ``sample_size``.
+
+GAM, CoxPH, PSVM and Word2Vec take the same three dicts:
+
+- ``gam_from_numpy``: ``beta`` [P_lin + sum of the smoothers' widths + 1]
+  and ``specs``, one dict per smoother (``dataclasses.asdict`` of the JAX
+  package's ``GamSpec``, or of its ``TpSpec`` for a multi-predictor
+  thin-plate smoother);
+- ``coxph_from_numpy``: ``beta`` and ``feature_means`` [P];
+- ``psvm_from_numpy``: ``support_vectors`` [S, P], ``alpha_y`` [S],
+  ``rho`` and ``gamma_``;
+- ``word2vec_from_numpy``: ``vectors`` [V, D] and ``words`` (the
+  vocabulary in row order).
 """
 
 from __future__ import annotations
@@ -363,4 +375,75 @@ def ext_isolation_forest_from_numpy(arrays: Mapping[str, Any],
                                   (T, m))
     model.correction = _check_shape(
         "correction", np.asarray(arrays["correction"], dtype=np.float32), (T, m))
+    return model
+
+
+def gam_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                   params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.gam import (
+        GAMModel, GAMParameters, GamSpec, TpSpec, coefficient_names)
+
+    p = GAMParameters(**params)
+    info = DataInfo(**data_info)
+    model = GAMModel(p, info, _model_device(device, p))
+    specs = []
+    for d in arrays["specs"]:
+        d = {k: np.asarray(v, dtype=np.float64) if isinstance(v, np.ndarray) else v
+             for k, v in d.items()}
+        specs.append(TpSpec(**d) if "columns" in d else GamSpec(**d))
+    model.specs = specs
+    width = len(info.coef_names) + sum(s.penalty.shape[0] for s in specs) + 1
+    model.beta = _check_shape("beta", np.asarray(arrays["beta"], dtype=np.float64),
+                              (width,))
+    names = coefficient_names(info.coef_names, specs)
+    model.coefficients = dict(zip(names, model.beta[:-1].tolist()))
+    model.coefficients["Intercept"] = float(model.beta[-1])
+    return model
+
+
+def coxph_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                     params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.coxph import CoxPHModel, CoxPHParameters
+
+    p = CoxPHParameters(**params)
+    info = DataInfo(**data_info)
+    model = CoxPHModel(p, info, _model_device(device, p))
+    P = len(info.coef_names)
+    model.beta = _check_shape("beta", np.asarray(arrays["beta"], dtype=np.float64), (P,))
+    model.feature_means = _check_shape(
+        "feature_means", np.asarray(arrays["feature_means"], dtype=np.float64), (P,))
+    model.coefficients = dict(zip(info.coef_names, model.beta.tolist()))
+    model.exp_coef = {k: float(np.exp(v)) for k, v in model.coefficients.items()}
+    return model
+
+
+def psvm_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                    params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.psvm import PSVMModel, PSVMParameters
+
+    p = PSVMParameters(**params)
+    info = DataInfo(**data_info)
+    model = PSVMModel(p, info, _model_device(device, p))
+    sv = np.asarray(arrays["support_vectors"], dtype=np.float64)
+    model.support_vectors = _check_shape(
+        "support_vectors", sv, (sv.shape[0], len(info.coef_names)))
+    model.alpha_y = _check_shape(
+        "alpha_y", np.asarray(arrays["alpha_y"], dtype=np.float64), (sv.shape[0],))
+    model.rho = float(arrays["rho"])
+    model.gamma_ = float(arrays["gamma_"])
+    model.svs_count = sv.shape[0]
+    return model
+
+
+def word2vec_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                        params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.word2vec import Word2VecModel, Word2VecParameters
+
+    p = Word2VecParameters(**params)
+    model = Word2VecModel(p, DataInfo(**data_info), _model_device(device, p))
+    words = [str(w) for w in arrays["words"]]
+    model.vectors = _check_shape(
+        "vectors", np.asarray(arrays["vectors"], dtype=np.float64), (len(words), p.vec_size))
+    model.words = words
+    model.vocab = {w: i for i, w in enumerate(words)}
     return model

@@ -8,7 +8,8 @@ need to the device themselves, so the frame itself holds no tensors.
 Kept from the JAX package: ``Column``, ``Frame``, ``from_dict``, row
 selection (``Frame.rows``), ``Frame.drop``, ``Frame.rbind`` (categorical domains merged
 in first-seen order, as the JAX package merges them), the column version
-stamps the device frame cache keys on, and the rollups that trees need
+stamps the device frame cache keys on, the type predicates
+``is_categorical`` and ``is_string``, and the rollups that trees need
 (min/max/mean/sigma), computed in numpy. CSV parsing, the native
 tokenizer, the chunk codecs and the rest of the munging surface (column
 selection, ``cbind``) are not part of this package yet.
@@ -111,6 +112,13 @@ class Column:
     @property
     def nrows(self) -> int:
         return len(self)
+
+    # -- type predicates (Vec.isCategorical/isString) ------------------------
+    def is_categorical(self) -> bool:
+        return self.type is ColType.CAT
+
+    def is_string(self) -> bool:
+        return self.type is ColType.STR
 
     def isna(self) -> np.ndarray:
         if self.type is ColType.CAT:

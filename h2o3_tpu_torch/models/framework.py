@@ -279,7 +279,7 @@ class Model:
     def pojo(self, lang: str = "c") -> str:
         """Standalone scoring source (TreeJCodeGen, water/codegen): C, which
         compiles with any C99 compiler, or Java in the genmodel ``score0``
-        shape. Tree models (C or Java) and GLM (C) so far."""
+        shape. Tree models (C or Java), GLM and GAM (C)."""
         from h2o3_tpu_torch.models.pojo import pojo_source
 
         return pojo_source(self, lang)

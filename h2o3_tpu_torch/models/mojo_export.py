@@ -13,8 +13,9 @@ multinomial block; the ordinal betas and thresholds), DeepLearning (each
 layer's W and b), KMeans (centers), NaiveBayes (priors and tables),
 IsolationForest (the stacked trees) and PCA (eigenvectors and the
 demean/descale statistics; an SVD model exports as its PCA) are exported.
-GLRM and the extended isolation forest raise the JAX package's
-``ValueError``, as they do there; so do the algorithms not ported yet.
+GLRM, the extended isolation forest, GAM, CoxPH, PSVM and Word2Vec raise
+the JAX package's ``ValueError``, as they do there (their reference-format
+MOJOs wait for ``mojo_ref.py``, ROADMAP A4).
 """
 
 from __future__ import annotations

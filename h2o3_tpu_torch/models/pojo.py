@@ -1,5 +1,5 @@
-"""POJO-style standalone scoring source — the port of the tree and GLM
-parts of ``h2o3_tpu/models/pojo.py``.
+"""POJO-style standalone scoring source — the port of
+``h2o3_tpu/models/pojo.py``.
 
 Reference: ``hex/tree/TreeJCodeGen.java`` + ``water/codegen/``: a trained
 model as dependency-free scoring source that runs without the cluster.
@@ -18,8 +18,10 @@ device path makes.
 A GLM scorer (``glm_pojo_c``, ``glm_multinomial_pojo_c``; C only) takes
 the model's standardized design vector (``expand_matrix`` order) as
 ``double`` values and applies the standardized betas and the link; the
-ordinal family is refused, as in the JAX package. The GAM generator waits
-for the GAM (ROADMAP A8).
+ordinal family is refused, as in the JAX package. A GAM scorer
+(``gam_pojo_c``; C only, cubic-regression smoothers only) takes the linear
+design vector followed by the raw value of each gam column and rebuilds
+each smoother's basis.
 """
 
 from __future__ import annotations
@@ -474,6 +476,118 @@ void score(const double *x, double *out) {{
     return "".join(chunks)
 
 
+def gam_pojo_c(model) -> str:
+    """Standalone GAM scorer: the emitted source re-computes each
+    cubic-regression smoother's basis (cr_basis algebra: locateBin +
+    a/c functions + the B⁻¹D rows), centers it through Z, and adds the
+    linear eta — matching in-framework ``_predict_raw`` exactly for
+    rows inside the knot range (outside, the C clamps to the boundary
+    knot while training-side scoring extrapolates linearly; NA gam
+    values mean-impute with the training median like ``GamSpec.expand``).
+
+    Input contract: ``x = [linear design vector (expand_matrix order,
+    len n_lin)] + [raw gam column values, one per smoother]``."""
+    from h2o3_tpu_torch.models.gam import cr_matrices
+
+    if any(s.kind != 0 for s in model.specs):
+        raise ValueError("GAM POJO export covers cubic-regression "
+                         "smoothers (bs=0) only")
+    p = model.params
+    if p.family in ("multinomial", "ordinal"):
+        raise ValueError("GAM POJO export supports single-eta families "
+                         "only")
+    info = model.data_info
+    n_lin = len(info.coef_names)
+    beta_full = np.asarray(model.beta, dtype=np.float64)
+    beta, icpt = beta_full[:-1], float(beta_full[-1])
+    link = p.actual_link()
+    if link == "identity":
+        inv = "mu = eta;"
+    elif link == "log":
+        inv = "mu = exp(eta);"
+    elif link == "logit":
+        inv = "mu = 1.0 / (1.0 + exp(-eta));"
+    else:
+        raise ValueError(f"unsupported link {link!r} for GAM POJO export")
+
+    chunks = [f"""/* GENERATED standalone GAM scorer — do not edit.
+ * Model: {model.key} (family={p.family})
+ * x: double[{n_lin + len(model.specs)}] = linear design vector
+ * ({", ".join(info.coef_names)}) then raw gam values
+ * ({", ".join(s.column for s in model.specs)})
+ */
+#include <math.h>
+
+"""]
+    chunks.append(_c_arr("beta", beta, "double", _c_float))
+    chunks.append(f"static const double intercept = {_c_float(icpt)};\n")
+    for ci, s in enumerate(model.specs):
+        K = len(s.knots)
+        D, B = cr_matrices(np.asarray(s.knots))
+        binvd = np.linalg.solve(B, D)
+        chunks.append(_c_arr(f"knots_{ci}", s.knots, "double", _c_float))
+        chunks.append(_c_arr(f"binvd_{ci}", binvd.ravel(), "double",
+                             _c_float))
+        chunks.append(_c_arr(f"zt_{ci}", np.ascontiguousarray(
+            s.Z.T).ravel(), "double", _c_float))
+        chunks.append(
+            f"static const double nafill_{ci} = "
+            f"{_c_float(s.na_fill)};\n")
+        chunks.append(f"""
+static void gamify_{ci}(double xv, double *out) {{
+  const int K = {K};
+  double basis[{K}];
+  if (isnan(xv)) xv = nafill_{ci};
+  if (xv < knots_{ci}[0]) xv = knots_{ci}[0];
+  if (xv > knots_{ci}[K-1]) xv = knots_{ci}[K-1];
+  int j = 0;
+  while (j < K - 2 && xv >= knots_{ci}[j+1]) j++;
+  double hj = knots_{ci}[j+1] - knots_{ci}[j];
+  double tm = knots_{ci}[j+1] - xv, tp = xv - knots_{ci}[j];
+  double cmj = (tm*tm*tm/hj - tm*hj) / 6.0;
+  double cpj = (tp*tp*tp/hj - tp*hj) / 6.0;
+  for (int i = 0; i < K; i++) {{
+    double v = 0.0;
+    if (j > 0) v += binvd_{ci}[(j-1)*K + i] * cmj;
+    if (j < K - 2) v += binvd_{ci}[j*K + i] * cpj;
+    basis[i] = v;
+  }}
+  basis[j] += tm / hj;
+  basis[j+1] += tp / hj;
+  for (int r = 0; r < K - 1; r++) {{
+    double acc = 0.0;
+    for (int i = 0; i < K; i++) acc += zt_{ci}[r*K + i] * basis[i];
+    out[r] = acc;
+  }}
+}}
+""")
+    body = [f"""
+void score(const double *x, double *out) {{
+  double eta = intercept;
+  for (int i = 0; i < {n_lin}; i++) eta += beta[i] * x[i];
+"""]
+    off = n_lin
+    for ci, s in enumerate(model.specs):
+        kz = len(s.knots) - 1
+        body.append(f"""  {{
+    double g[{kz}];
+    gamify_{ci}(x[{n_lin + ci}], g);
+    for (int r = 0; r < {kz}; r++) eta += beta[{off} + r] * g[r];
+  }}
+""")
+        off += kz
+    body.append(f"""  double mu;
+  {inv}
+""")
+    if model.nclasses == 2:
+        body.append("  out[1] = 1.0 - mu; out[2] = mu; "
+                    "out[0] = (mu >= 0.5) ? 1.0 : 0.0;\n}\n")
+    else:
+        body.append("  out[0] = mu;\n}\n")
+    chunks.extend(body)
+    return "".join(chunks)
+
+
 def pojo_source(model, lang: str = "c") -> str:
     from h2o3_tpu_torch.models.tree.common import TreeModelBase
 
@@ -486,6 +600,10 @@ def pojo_source(model, lang: str = "c") -> str:
         if model.booster is None:
             raise ValueError("model has no trained trees")
         return tree_pojo_c(model) if lang == "c" else tree_pojo_java(model)
+    if getattr(model, "algo_name", "") == "gam":
+        if lang != "c":
+            raise ValueError("GAM POJO is emitted as C only")
+        return gam_pojo_c(model)
     if hasattr(model, "coefficients") and isinstance(
             getattr(model, "coefficients", None), dict):
         if lang != "c":

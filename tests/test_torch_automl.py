@@ -560,7 +560,7 @@ def test_automl_default_plan_runs_on_the_port(tmp_path):
     back = ppersist.load_model(path, device="cpu")
     assert back.preprocessors[0].encodings.keys() == aml._te_model.encodings.keys()
     np.testing.assert_array_equal(back.predict(raw).col("pyes").data, want)
-    assert list(algo_map()) == ["deeplearning", "drf", "glm", "glrm", "kmeans",
+    assert list(algo_map()) == ["coxph", "deeplearning", "drf", "glm", "glrm", "kmeans",
                               "naivebayes", "pca", "svd", "gbm", "isolationforest",
-                              "extendedisolationforest", "stackedensemble",
-                              "xgboost", "targetencoder"]
+                              "extendedisolationforest", "word2vec", "stackedensemble",
+                              "psvm", "gam", "xgboost", "targetencoder"]

@@ -110,28 +110,6 @@ def test_split_search_monotone_matches_jax(child_stats):
             assert c * (got[6][j].item() - got[5][j].item()) >= 0
 
 
-def test_split_search_per_node_mask_matches_jax():
-    # DRF's mtries: a [K, F] mask, one feature subset per node
-    rng = np.random.default_rng(4)
-    k, f, b1 = 6, 5, 11
-    hist = _random_hist(rng, k, f, b1)
-    mask = rng.random((k, f)) < 0.5
-    mask[:, 2] = True
-    mask[1] = False  # a node with no feature: no split
-    want = jb._split_search(
-        jnp.asarray(hist), jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0),
-        jnp.float32(1.0), jnp.asarray(mask), min_rows=1.0, n_bins1=b1,
-        child_stats=True)
-    got = tb._split_search(
-        torch.from_numpy(hist), 0.0, 0.0, 0.0, 1.0, torch.from_numpy(mask),
-        min_rows=1.0, n_bins1=b1, child_stats=True)
-    for name, g_, w_ in zip(("feat", "bin", "dl"), got[:3], want[:3]):
-        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_), err_msg=name)
-    assert np.isneginf(got[3][1].item()) and np.isneginf(np.asarray(want[3])[1])
-    for g_, w_ in zip(got[3:], want[3:]):
-        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
-
-
 SAMPLED = [
     ("gaussian", dict(sample_rate=0.7), 1),
     ("gaussian", dict(col_sample_rate_per_tree=0.6), 1),
@@ -195,6 +173,26 @@ def test_predict_stacked_matches_jax():
     g, h = tb.grad_hess_device("fixed", torch.from_numpy(y), torch.zeros(6, 2))
     np.testing.assert_array_equal(g.numpy(), -y)
     np.testing.assert_array_equal(h.numpy(), np.ones_like(y))
+
+    # DRF's mtries: a [K, F] mask, one feature subset per node
+    rng = np.random.default_rng(4)
+    k, f, b1 = 6, 5, 11
+    hist = _random_hist(rng, k, f, b1)
+    mask = rng.random((k, f)) < 0.5
+    mask[:, 2] = True
+    mask[1] = False  # a node with no feature: no split
+    want = jb._split_search(
+        jnp.asarray(hist), jnp.float32(0.0), jnp.float32(0.0), jnp.float32(0.0),
+        jnp.float32(1.0), jnp.asarray(mask), min_rows=1.0, n_bins1=b1,
+        child_stats=True)
+    got = tb._split_search(
+        torch.from_numpy(hist), 0.0, 0.0, 0.0, 1.0, torch.from_numpy(mask),
+        min_rows=1.0, n_bins1=b1, child_stats=True)
+    for name, g_, w_ in zip(("feat", "bin", "dl"), got[:3], want[:3]):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w_), err_msg=name)
+    assert np.isneginf(got[3][1].item()) and np.isneginf(np.asarray(want[3])[1])
+    for g_, w_ in zip(got[3:], want[3:]):
+        np.testing.assert_allclose(g_.numpy(), np.asarray(w_), rtol=1e-5, atol=1e-6)
 
 
 class _DistX(np.ndarray):

@@ -68,7 +68,8 @@ def test_no_jax_or_reference_imports_in_the_port():
                    "models/target_encoder.py", "api/registry.py",
                    "models/naive_bayes.py", "models/kmeans.py", "models/pca.py",
                    "models/isolation_forest.py", "models/ext_isolation_forest.py",
-                   "models/glrm.py"):
+                   "models/glrm.py", "models/gam.py", "models/coxph.py",
+                   "models/psvm.py", "models/word2vec.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
@@ -82,12 +83,12 @@ def test_no_jax_or_reference_imports_in_the_port():
     fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "algo_map")
     ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return))
     jax_keys = [k.value for k in ret.value.keys]
-    not_ported = {"coxph", "aggregator", "word2vec", "psvm", "gam", "rulefit", "generic"}
+    not_ported = {"aggregator", "rulefit", "generic"}
     assert set(jax_keys) >= not_ported
     port = algo_map()
     assert list(port) == [k for k in jax_keys if k not in not_ported]
     for key in ("glrm", "kmeans", "naivebayes", "pca", "svd", "isolationforest",
-                "extendedisolationforest"):
+                "extendedisolationforest", "coxph", "word2vec", "psvm", "gam"):
         builder, params = port[key]
         assert builder.__module__.startswith("h2o3_tpu_torch.models.")
         assert builder(params()).algo_name == key
@@ -200,9 +201,16 @@ def test_entry_points_refuse_the_cpu_unless_asked():
         ht.resolve_device("cuda")
     for builder in (ht.KMeans(k=2), ht.PCA(k=1), ht.SVD(nv=1), ht.GLRM(k=1),
                     ht.NaiveBayes(response_column="y"), ht.IsolationForest(ntrees=1),
-                    ht.ExtendedIsolationForest(ntrees=1)):
+                    ht.ExtendedIsolationForest(ntrees=1),
+                    ht.GAM(response_column="y", gam_columns=["a"]),
+                    ht.CoxPH(response_column="y", stop_column="a"),
+                    ht.PSVM(response_column="y")):
         with pytest.raises(RuntimeError, match="CUDA"):
             builder.train(fr)
+    words = ht.Frame([ht.Column("w", np.array(["a", "b", None] * 4, dtype=object),
+                                ht.ColType.STR)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Word2Vec(min_word_freq=1).train(words)
     from h2o3_tpu_torch.entry import entry
 
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -38,6 +38,22 @@ def test_jax_runs_the_configuration_ported():
     assert jr.PRNGKey(-1) == (0, 4294967295)
     assert jr.PRNGKey(2**32 + 9) == (0, 9)
 
+    # the order in which the JAX block derives keys for one round and one
+    # class's tree (booster.py:853, :881, :584, :607, :491)
+    seed, tree, cls = 1234, 17, 2
+    jk = jax.random.fold_in(jax.random.PRNGKey(seed), tree)
+    jkr, jkc, jkt = jax.random.split(jk, 3)
+    jkey = jax.random.fold_in(jkt, cls)
+    pkr, pkc, pkt = jr.split(jr.fold_in(jr.PRNGKey(seed), tree), 3)
+    pkey = jr.fold_in(pkt, cls)
+    assert (pkr, pkc, pkey) == (_words(jkr), _words(jkc), _words(jkey))
+    for _ in range(3):  # three built levels of mtries draws
+        jkey, jsub = jax.random.split(jkey)
+        pkey, psub = jr.split(pkey)
+        want = np.asarray(jax.random.uniform(jsub, (4, 6)))
+        np.testing.assert_array_equal(
+            jr.uniform(psub, (4, 6), "cpu").numpy().view(np.int32), want.view(np.int32))
+
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_prng_key(seed):
@@ -71,21 +87,3 @@ def test_uniform(seed, shape):
         got = jr.bernoulli(_words(key), p, shape, "cpu")
         assert got.dtype == torch.bool
         np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_booster_key_chain_matches_jax():
-    # the order in which the JAX block derives keys for one round and one
-    # class's tree (booster.py:853, :881, :584, :607, :491)
-    seed, tree, cls = 1234, 17, 2
-    jk = jax.random.fold_in(jax.random.PRNGKey(seed), tree)
-    jkr, jkc, jkt = jax.random.split(jk, 3)
-    jkey = jax.random.fold_in(jkt, cls)
-    pkr, pkc, pkt = jr.split(jr.fold_in(jr.PRNGKey(seed), tree), 3)
-    pkey = jr.fold_in(pkt, cls)
-    assert (pkr, pkc, pkey) == (_words(jkr), _words(jkc), _words(jkey))
-    for _ in range(3):  # three built levels of mtries draws
-        jkey, jsub = jax.random.split(jkey)
-        pkey, psub = jr.split(pkey)
-        want = np.asarray(jax.random.uniform(jsub, (4, 6)))
-        np.testing.assert_array_equal(
-            jr.uniform(psub, (4, 6), "cpu").numpy().view(np.int32), want.view(np.int32))

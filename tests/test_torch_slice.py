@@ -429,6 +429,36 @@ def test_early_stopping_matches_jax():
         [h["score"] for h in pmodel.scoring_history],
         [h["score"] for h in jmodel.scoring_history], rtol=1e-5)
 
+    # an invalid hist dtype and a checkpoint naming no model raise the JAX
+    # package's errors
+    with pytest.raises(ValueError) as jerr:
+        _resolve_hist_dtype("f16")
+    want = "hist dtype must be 'f32' or 'bf16', got 'f16'"
+    assert str(jerr.value) == want
+    z = torch.zeros(2, 5, dtype=torch.int32)
+    for impl in ("plain", "kernel"):
+        with pytest.raises(ValueError) as err:
+            build_histogram(z, z[0], z[0].float(), z[0].float(), 2, 3, impl=impl,
+                            dtype="f16")
+        assert str(err.value) == want
+    d = _data("bernoulli", 200, seed=4)
+    for algo in BUILDERS:
+        with ht.use_device("cpu"), pytest.raises(ValueError) as err:
+            BUILDERS[algo][0](response_column="y", ntrees=1, max_depth=2,
+                              ignored_columns=["w", "off"],
+                              hist_dtype="f16").train(ht.Frame.from_dict(d))
+        assert str(err.value) == want, algo
+
+    # a checkpoint key that names no model: the JAX package's error
+    d = _data("gaussian", 200, seed=3)
+    kw = dict(response_column="y", ntrees=2, checkpoint="drf_0",
+              ignored_columns=["w", "off"])
+    with pytest.raises(ValueError) as jerr:
+        JDRF(**kw).train(JFrame.from_dict(d))
+    with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
+        ht.DRF(**kw).train(ht.Frame.from_dict(d))
+    assert str(perr.value) == str(jerr.value) == "checkpoint model 'drf_0' not found"
+
 
 def _row_leaves(model, frame, tree_matrix):
     """Each row's leaf value in each tree [trees, N], by walking the tree
@@ -578,33 +608,3 @@ def test_bf16_fit_matches_jax_pallas_bf16(case, monkeypatch):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5, err_msg=name)
         moved |= not np.allclose(f32pred.col(name).data, b, rtol=1e-4, atol=1e-5)
     assert moved, "the bf16 fit predicts what the f32 fit predicts"
-
-
-def test_invalid_hist_dtype_raises_the_jax_error():
-    with pytest.raises(ValueError) as jerr:
-        _resolve_hist_dtype("f16")
-    want = "hist dtype must be 'f32' or 'bf16', got 'f16'"
-    assert str(jerr.value) == want
-    z = torch.zeros(2, 5, dtype=torch.int32)
-    for impl in ("plain", "kernel"):
-        with pytest.raises(ValueError) as err:
-            build_histogram(z, z[0], z[0].float(), z[0].float(), 2, 3, impl=impl,
-                            dtype="f16")
-        assert str(err.value) == want
-    d = _data("bernoulli", 200, seed=4)
-    for algo in BUILDERS:
-        with ht.use_device("cpu"), pytest.raises(ValueError) as err:
-            BUILDERS[algo][0](response_column="y", ntrees=1, max_depth=2,
-                              ignored_columns=["w", "off"],
-                              hist_dtype="f16").train(ht.Frame.from_dict(d))
-        assert str(err.value) == want, algo
-
-    # a checkpoint key that names no model: the JAX package's error
-    d = _data("gaussian", 200, seed=3)
-    kw = dict(response_column="y", ntrees=2, checkpoint="drf_0",
-              ignored_columns=["w", "off"])
-    with pytest.raises(ValueError) as jerr:
-        JDRF(**kw).train(JFrame.from_dict(d))
-    with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
-        ht.DRF(**kw).train(ht.Frame.from_dict(d))
-    assert str(perr.value) == str(jerr.value) == "checkpoint model 'drf_0' not found"

@@ -316,6 +316,88 @@ def test_ensemble_carried_across_scores_like_jax(tmp_path):
     _check_mojo(jmodel, pmodel, hold, tmp_path, "gbm")
     _check_pojo(jmodel, pmodel, hold, tmp_path, "gbm")
 
+    # ensemble_from_numpy's shape checks, make_metrics, export refusals, Job, rbind
+    d = {"edges": np.zeros((2, 6)), "init_margin": np.zeros(1), "max_depth": 2,
+         "n_bins1": 8, "feat": [np.zeros((1, 5))], "split_bin": [np.zeros((1, 7))],
+         "default_left": [np.zeros((1, 7))], "is_split": [np.zeros((1, 7))],
+         "leaf": [np.zeros((1, 7))]}
+    with pytest.raises(ValueError, match="feat"):
+        ensemble_from_numpy(d, device="cpu")
+
+    # make_metrics on the same numpy inputs: the JAX package's numbers and
+    # errors, for every column convention and the non-gaussian deviances
+    good, bad = _make_metrics_cases(np.random.default_rng(8))
+    for args, kw in good:
+        jm, pm = JM.make_metrics(*args, **kw), PM.make_metrics(*args, **kw)
+        assert type(jm).__name__ == type(pm).__name__
+        jv, pv = _metric_values(jm), _metric_values(pm)
+        assert sorted(jv) == sorted(pv)
+        for k in jv:
+            np.testing.assert_array_equal(pv[k], jv[k], err_msg=f"{kw} {k}")
+    for args, kw in bad:
+        with pytest.raises(ValueError) as je:
+            JM.make_metrics(*args, **kw)
+        with pytest.raises(ValueError) as pe:
+            PM.make_metrics(*args, **kw)
+        assert str(pe.value) == str(je.value)
+    # a model of a family not ported yet: MOJO and POJO export refuse it
+    # with the JAX package's errors
+    msgs = []
+    for Model, Params, write_mojo, pojo_source in (
+            (JModel, JParams, j_write_mojo, j_pojo_source),
+            (PModel, PParams, p_write_mojo, p_pojo_source)):
+        other = Model.__new__(Model)
+        other.params = Params()
+        for export in (lambda: write_mojo(other, "unused.zip"), lambda: pojo_source(other)):
+            with pytest.raises(ValueError) as err:
+                export()
+            msgs.append(str(err.value))
+    assert msgs[:2] == msgs[2:]
+    assert msgs[2] == "MOJO export not supported for Model"
+    assert (PM.ScoringRecord.key_for("gbm_3", "fr@1")
+            == JM.ScoringRecord.key_for("gbm_3", "fr@1") == "modelmetrics_gbm_3@fr@1")
+
+    # Job states: done, cancelled, failed, and the run time
+    states = []
+    for Job, DKV in ((JJob, JDKV), (PJob, PDKV)):
+        seq = []
+        for action in ("done", "cancel", "fail"):
+            job = Job("surface")
+            seq.append((job.status, job.run_time, job.stop_requested))
+            job.start()
+            if action == "cancel":
+                job.cancel()
+                seq.append(job.stop_requested)
+            if action == "fail":
+                job.fail(RuntimeError("x"))
+            else:
+                job.done()
+            seq.append((job.status, job.progress, job.run_time >= 0,
+                        job.end_time >= job.start_time))
+            DKV.remove(job.key)
+        states.append(seq)
+    assert states[0] == states[1]
+    assert [s[0] for s in states[1] if isinstance(s, tuple) and len(s) == 4] == [
+        "DONE", "CANCELLED", "FAILED"]
+
+    # rbind: a categorical column with NAs and new levels in the second
+    # frame, and a column numeric in one frame and categorical in the other
+    rng = np.random.default_rng(12)
+    a = {"c": np.array(["b", None, "a", "b"], dtype=object), "k": np.arange(4.0),
+         "x": rng.normal(size=4)}
+    b = {"c": np.array(["d", "a", None], dtype=object),
+         "k": np.array(["u", None, "1"], dtype=object), "x": rng.normal(size=3)}
+    jbound = JFrame.from_dict(a).rbind(JFrame.from_dict(b))
+    pbound = ht.Frame.from_dict(a).rbind(ht.Frame.from_dict(b))
+    assert pbound.names == jbound.names
+    for name in jbound.names:
+        jc, pc = jbound.col(name), pbound.col(name)
+        assert (pc.type.value, pc.domain) == (jc.type.value, jc.domain), name
+        np.testing.assert_array_equal(pc.data, jc.data, err_msg=name)
+    assert pbound.col("c").domain == ["a", "b", "d"] and pbound.col("c").data[1] == -1
+    with pytest.raises(ValueError, match="identical column names"):
+        ht.Frame.from_dict({"x": [1.0]}).rbind(ht.Frame.from_dict({"z": [1.0]}))
+
 
 def test_drf_ensemble_carried_across_scores_like_jax(tmp_path):
     # a JAX-trained forest (averaged, fixed indicator targets, sampled)
@@ -404,86 +486,3 @@ def _metric_values(m):
     if hasattr(m, "cm"):
         out["cm"] = m.cm.table
     return out
-
-
-def test_ensemble_from_numpy_rejects_bad_shapes():
-    d = {"edges": np.zeros((2, 6)), "init_margin": np.zeros(1), "max_depth": 2,
-         "n_bins1": 8, "feat": [np.zeros((1, 5))], "split_bin": [np.zeros((1, 7))],
-         "default_left": [np.zeros((1, 7))], "is_split": [np.zeros((1, 7))],
-         "leaf": [np.zeros((1, 7))]}
-    with pytest.raises(ValueError, match="feat"):
-        ensemble_from_numpy(d, device="cpu")
-
-    # make_metrics on the same numpy inputs: the JAX package's numbers and
-    # errors, for every column convention and the non-gaussian deviances
-    good, bad = _make_metrics_cases(np.random.default_rng(8))
-    for args, kw in good:
-        jm, pm = JM.make_metrics(*args, **kw), PM.make_metrics(*args, **kw)
-        assert type(jm).__name__ == type(pm).__name__
-        jv, pv = _metric_values(jm), _metric_values(pm)
-        assert sorted(jv) == sorted(pv)
-        for k in jv:
-            np.testing.assert_array_equal(pv[k], jv[k], err_msg=f"{kw} {k}")
-    for args, kw in bad:
-        with pytest.raises(ValueError) as je:
-            JM.make_metrics(*args, **kw)
-        with pytest.raises(ValueError) as pe:
-            PM.make_metrics(*args, **kw)
-        assert str(pe.value) == str(je.value)
-    # a model of a family not ported yet: MOJO and POJO export refuse it
-    # with the JAX package's errors
-    msgs = []
-    for Model, Params, write_mojo, pojo_source in (
-            (JModel, JParams, j_write_mojo, j_pojo_source),
-            (PModel, PParams, p_write_mojo, p_pojo_source)):
-        other = Model.__new__(Model)
-        other.params = Params()
-        for export in (lambda: write_mojo(other, "unused.zip"), lambda: pojo_source(other)):
-            with pytest.raises(ValueError) as err:
-                export()
-            msgs.append(str(err.value))
-    assert msgs[:2] == msgs[2:]
-    assert msgs[2] == "MOJO export not supported for Model"
-    assert (PM.ScoringRecord.key_for("gbm_3", "fr@1")
-            == JM.ScoringRecord.key_for("gbm_3", "fr@1") == "modelmetrics_gbm_3@fr@1")
-
-    # Job states: done, cancelled, failed, and the run time
-    states = []
-    for Job, DKV in ((JJob, JDKV), (PJob, PDKV)):
-        seq = []
-        for action in ("done", "cancel", "fail"):
-            job = Job("surface")
-            seq.append((job.status, job.run_time, job.stop_requested))
-            job.start()
-            if action == "cancel":
-                job.cancel()
-                seq.append(job.stop_requested)
-            if action == "fail":
-                job.fail(RuntimeError("x"))
-            else:
-                job.done()
-            seq.append((job.status, job.progress, job.run_time >= 0,
-                        job.end_time >= job.start_time))
-            DKV.remove(job.key)
-        states.append(seq)
-    assert states[0] == states[1]
-    assert [s[0] for s in states[1] if isinstance(s, tuple) and len(s) == 4] == [
-        "DONE", "CANCELLED", "FAILED"]
-
-    # rbind: a categorical column with NAs and new levels in the second
-    # frame, and a column numeric in one frame and categorical in the other
-    rng = np.random.default_rng(12)
-    a = {"c": np.array(["b", None, "a", "b"], dtype=object), "k": np.arange(4.0),
-         "x": rng.normal(size=4)}
-    b = {"c": np.array(["d", "a", None], dtype=object),
-         "k": np.array(["u", None, "1"], dtype=object), "x": rng.normal(size=3)}
-    jbound = JFrame.from_dict(a).rbind(JFrame.from_dict(b))
-    pbound = ht.Frame.from_dict(a).rbind(ht.Frame.from_dict(b))
-    assert pbound.names == jbound.names
-    for name in jbound.names:
-        jc, pc = jbound.col(name), pbound.col(name)
-        assert (pc.type.value, pc.domain) == (jc.type.value, jc.domain), name
-        np.testing.assert_array_equal(pc.data, jc.data, err_msg=name)
-    assert pbound.col("c").domain == ["a", "b", "d"] and pbound.col("c").data[1] == -1
-    with pytest.raises(ValueError, match="identical column names"):
-        ht.Frame.from_dict({"x": [1.0]}).rbind(ht.Frame.from_dict({"z": [1.0]}))

@@ -223,14 +223,51 @@ Run from the root of a checkout. Phases, each of which must pass:
    package's ``ValueError``, and one model of each family is saved and
    loaded on the card with the same bits. It prints a ``{"breadth2": ...}``
    line and launches no histogram kernel;
-22. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+22. Aggregator, RuleFit, segment models, Generic, Assembly with the scoring
+   pipeline, and the reference-format MOJO (``breadth3_phase``): the
+   Aggregator at its defaults on the N x 28 features (counts summing to
+   N, distinct exemplar rows, an output frame with ``counts`` and every
+   predictor); RuleFit at its defaults (GBM rules of length 3 from 50
+   trees, ``rules_and_linear``) on the frame's first 100,000 rows (cut
+   from 200,000 for the phase's time), then
+   with DRF rules, each fit launching B1 once per level of every tree of
+   its ensembles and nothing else; one GBM per ``UniqueCarrier`` segment
+   (20 levels and the NA segment) of 1,000,000 airlines-shaped rows (10
+   trees, cut from GBM's 50 for the phase's time), on four worker threads
+   and serially, every status ``succeeded``, the threaded trees equal to
+   the serial ones bit for bit and the serial run's launches those its
+   trees imply; one segment's GBM through its MOJO and ``import_mojo``
+   against its ``predict`` on 200,000 rows (rtol 1e-4, atol 1e-5); an
+   Assembly (``log1p`` of Distance, CRSArrTime - CRSDepTime, a column
+   selection) on 200,000 raw rows, a GBM (10 trees) on its output and
+   their ``ScoringPipeline`` through ``to_bytes``/``from_bytes``, whose
+   ``transform`` of the raw rows scores as ``predict`` on the assembled
+   rows (rtol 1e-4, atol 1e-5; labels part only at the threshold), a
+   transform-only pipeline equal to ``Assembly.fit`` bit for bit and
+   ``to_java`` writing each output once; ``models/mojo_ref.py``'s
+   ``write_mojo`` of that GBM, of RuleFit's DRF ensemble and of its inner
+   GLM, ``read_mojo`` and ``score0`` on 2,000 rows against the card's
+   predictions (rtol 1e-4, atol 1e-5); card against CPU (the CPU's trees
+   with the card's subtraction): RuleFit on 20,000 rows (the same rules,
+   coefficients rtol 1e-4 / atol 1e-4 times their largest size, at least
+   1, as the LASSO stops at ``beta_epsilon`` 1e-4; AUC within 1e-4) and
+   the segment GBMs on 100,000 rows (each segment's AUC within 1e-4
+   where its trees split alike on both devices; each segment whose trees
+   part, at ties, fitted again on the card with its gradients, every
+   level's B1 histogram bit for bit and its split search checked against
+   the CPU, ``replay_parted_segments``); and ``dispatch_probe``, the cost
+   of a small call that lets go of the GIL, from one and four threads. It
+   prints each part's seconds, device frame cache hits and misses and
+   device memory peak in a ``{"breadth3": ...}`` line;
+23. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15 and of phase 19's main AutoML run; phases 16-18, 20
-and 21 launch no histogram kernel), then
+those of phases 8-15, of phase 19's main AutoML run and of phase 22's
+RuleFit, serial segment and pipeline fits; phases 16-18, 20 and 21 launch
+no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -241,6 +278,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -696,6 +734,21 @@ def trees_equal(ma, mb) -> bool:
     for ta, tb in zip(ma.booster.trees_per_class, mb.booster.trees_per_class):
         for f in ("feat", "split_bin", "default_left", "is_split"):
             if not np.array_equal(np.stack(getattr(ta, f)), np.stack(getattr(tb, f))):
+                return False
+    return True
+
+
+def split_trees_equal(ma, mb) -> bool:
+    """The same nodes split, each on the same feature, bin and NA direction.
+    A node left unsplit keeps a candidate that no row reads, so candidates
+    are compared where a node splits."""
+    for ta, tb in zip(ma.booster.trees_per_class, mb.booster.trees_per_class):
+        split = np.stack(ta.is_split)
+        if not np.array_equal(split, np.stack(tb.is_split)):
+            return False
+        for f in ("feat", "split_bin", "default_left"):
+            if not np.array_equal(np.stack(getattr(ta, f))[split],
+                                  np.stack(getattr(tb, f))[split]):
                 return False
     return True
 
@@ -2644,6 +2697,531 @@ def _breadth2_scores(model, frame, n):
     return [model._predict_raw(frame.rows(slice(0, min(n, frame.nrows))))]
 
 
+def dispatch_probe(dev, threads=4, steps=2_000, repeats=3):
+    """Microseconds a small call takes, issued from one thread and from
+    ``threads`` threads at once (the median of ``repeats`` runs after one
+    to warm up), for three calls that each let go of the GIL and take it
+    back: a small PyTorch op on ``dev`` and on CPU tensors (three ops a
+    step on 16 values), and ``hashlib.sha1`` of 4 KB, which touches no
+    PyTorch. If all three cost more each from many threads, the threads
+    wait on one another at the GIL, not in PyTorch or the port."""
+    import hashlib
+    import statistics
+    import threading
+
+    import torch
+
+    def ops(device):
+        def work():
+            x = torch.zeros(16, device=device)
+            for _ in range(steps):
+                x = torch.where(x > 0, x, x + 1.0)
+        return work
+
+    block = bytes(4096)
+
+    def digests():
+        for _ in range(steps):
+            for _ in range(3):
+                hashlib.sha1(block)
+
+    out = {}
+    for name, work in (("card_op", ops(dev)), ("cpu_op", ops(torch.device("cpu"))),
+                       ("sha1_4k", digests)):
+        for n in (1, threads):
+            times = []
+            for _ in range(repeats + 1):
+                pool = [threading.Thread(target=work) for _ in range(n)]
+                t0 = time.perf_counter()
+                for t in pool:
+                    t.start()
+                for t in pool:
+                    t.join()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) / (n * steps * 3) * 1e6)
+            out[f"{name}_us_{n}_threads"] = statistics.median(times[1:])
+    return out
+
+
+def replay_parted_segments(frame, segments, models, params):
+    """Fit ``segments`` of ``frame`` again on the card (one GBM each, with
+    ``params``) and check each step whose float order depends on the
+    device: every tree's gradients within 1e-6 of the CPU's on the same
+    margins (the sigmoid), every level's B1 histogram equal to
+    ``hist_chunked_ordered_reference`` on the same inputs, bit for bit, and
+    the CPU's ``_split_search`` on that histogram against the card's: each
+    node picks the card's (feature, bin, NA direction), or a tie, whose
+    best gain is the card's within 1e-5 times max(1, gain). The refits must
+    give ``models``' trees, every node and leaf. Returns the trees, levels
+    and nodes checked, how many of them differ from the CPU's, and the
+    first pick that differs."""
+    import torch
+
+    from h2o3_tpu_torch import GBM
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.models.segments import SegmentModelsBuilder
+    from h2o3_tpu_torch.models.tree import booster
+    from h2o3_tpu_torch.ops import cuda_build
+    from h2o3_tpu_torch.ops.cuda_histogram import hist_chunked_ordered_reference
+
+    def host(v):
+        return v.cpu() if torch.is_tensor(v) else v
+
+    tally = {"trees": 0, "trees_gradients_differ": 0, "max_gradient_gap": 0.0,
+             "levels": 0, "levels_gains_differ": 0, "nodes": 0, "tie_picks": 0,
+             "max_tie_gain_gap": 0.0, "first_tie": None}
+    codes = {}
+    grad_hess = booster.grad_hess_device
+    build_histogram, split_search = booster.build_histogram, booster._split_search
+
+    def checked_gradients(objective, y, margin):
+        out = grad_hess(objective, y, margin)
+        mine = grad_hess(objective, y.cpu(), margin.cpu())
+        gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(out, mine))
+        if not gap <= 1e-6:
+            raise AssertionError(f"breadth3 segments replay: gradients {gap} apart")
+        tally["trees"] += 1
+        tally["trees_gradients_differ"] += gap > 0
+        tally["max_gradient_gap"] = max(tally["max_gradient_gap"], gap)
+        return out
+
+    def checked_histogram(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=None, **kw):
+        before = cuda_build.LAUNCHES["hist_nodematmul"]
+        out = build_histogram(bins_fm, nodes, g, h, n_nodes, n_bins1, rw=rw, **kw)
+        if cuda_build.LAUNCHES["hist_nodematmul"] != before + 1:
+            raise AssertionError("breadth3 segments replay: a level did not launch B1")
+        want = hist_chunked_ordered_reference(
+            codes.setdefault(bins_fm.data_ptr(), bins_fm.cpu()), nodes.cpu(), g.cpu(),
+            h.cpu(), n_nodes, n_bins1, rw=host(rw), dtype=kw.get("dtype", "f32"))
+        if not torch.equal(out.cpu(), want):
+            raise AssertionError(f"breadth3 segments replay: B1 is not its ordered plain "
+                                 f"version at level {tally['levels']}")
+        tally["levels"] += 1
+        return out
+
+    def checked_split(hist, *args, **kw):
+        out = split_search(hist, *args, **kw)
+        mine = split_search(hist.cpu(), *map(host, args),
+                            **{k: host(v) for k, v in kw.items()})
+        card = [host(v) for v in out[:4]]
+        tally["levels_gains_differ"] += not torch.equal(card[3], mine[3])
+        differ = ((card[0] != mine[0]) | (card[1] != mine[1]) | (card[2] != mine[2])).nonzero()
+        tally["nodes"] += hist.shape[0]
+        for k in differ[:, 0].tolist():
+            g_card, g_cpu = float(card[3][k]), float(mine[3][k])
+            if g_card == g_cpu == float("-inf"):
+                continue  # no candidate: the node splits on neither device
+            gap = abs(g_card - g_cpu)
+            tie = {"level": tally["levels"] - 1, "node": k, "gains": [g_card, g_cpu],
+                   "card": [int(card[0][k]), int(card[1][k]), bool(card[2][k])],
+                   "cpu": [int(mine[0][k]), int(mine[1][k]), bool(mine[2][k])]}
+            if not gap <= 1e-5 * max(1.0, abs(g_card)):
+                raise AssertionError(f"breadth3 segments replay: not a tie: {tie}")
+            tally["tie_picks"] += 1
+            tally["max_tie_gain_gap"] = max(tally["max_tie_gain_gap"], gap)
+            tally["first_tie"] = tally["first_tie"] or tie
+        return out
+
+    builder = SegmentModelsBuilder(GBM, params, ["UniqueCarrier"])
+    rows = np.zeros(frame.nrows, dtype=bool)
+    for seg in segments:
+        rows |= builder._segment_mask(frame, seg)
+    hooks = (checked_gradients, checked_histogram, checked_split)
+    booster.grad_hess_device, booster.build_histogram, booster._split_search = hooks
+    try:
+        again = builder.train(frame.rows(rows))
+    finally:
+        booster.grad_hess_device, booster.build_histogram, booster._split_search = (
+            grad_hess, build_histogram, split_search)
+    if any(again.errors):  # a segment's fit keeps its error, a check's too
+        raise AssertionError(f"breadth3 segments replay: {again.errors}")
+    if again.segments != segments:
+        raise AssertionError("breadth3 segments replay: other segments")
+    for seg, ma, mb in zip(segments, models, again.models):
+        for ta, tb in zip(ma.booster.trees_per_class, mb.booster.trees_per_class):
+            for f in ("feat", "split_bin", "default_left", "is_split", "leaf"):
+                if not np.array_equal(np.stack(getattr(ta, f)), np.stack(getattr(tb, f))):
+                    raise AssertionError(f"breadth3 segments replay {seg}: the refit's {f} "
+                                         "differs from the first fit's")
+        DKV.remove(mb.key)
+    return tally
+
+
+def breadth3_phase(higgs, airlines, dev, seed, rf_rows=100_000, rf_sub=20_000,
+                   seg_sub=100_000, pipe_rows=200_000, ref_rows=2_000, seg_trees=10):
+    """Aggregator, RuleFit, segment models, Generic, Assembly with the
+    scoring pipeline, and the reference-format MOJO on ``dev``, through the
+    port's entry points.
+
+    Aggregator at its defaults on the HIGGS-shaped features (``higgs``
+    without its response): the counts sum to the rows, the exemplar rows
+    are distinct, the output frame holds ``counts`` and every predictor.
+    RuleFit at its defaults (GBM rules of length 3, 50 trees,
+    ``rules_and_linear``) on the first ``rf_rows`` rows, then again with
+    ``algorithm="drf"``: each fit launches B1 exactly once per level of
+    every tree its ensembles hold (and no other kernel). One GBM per
+    ``UniqueCarrier`` segment of ``airlines`` (its NA segment included) at
+    GBM's defaults but for ``seg_trees`` trees, on four worker threads and
+    serially: every status ``succeeded``, each segment's trees equal on the
+    two runs (every node and leaf), and the serial run's launches those its
+    trees imply. One segment's model through its MOJO and ``import_mojo``
+    (``Generic``), on the first ``pipe_rows`` rows, against its ``predict``
+    (rtol 1e-4, atol 1e-5). An Assembly (``log1p`` of Distance,
+    CRSArrTime - CRSDepTime, a column selection) on the first
+    ``pipe_rows`` rows, a GBM (``seg_trees`` trees) fitted on its output,
+    and their ``ScoringPipeline`` through ``to_bytes``/``from_bytes``:
+    ``transform`` of the raw rows against the model's ``predict`` on the
+    assembled rows (rtol 1e-4, atol 1e-5), a transform-only pipeline equal
+    to ``Assembly.fit`` bit for bit, ``to_java`` with one ``out[j]`` per
+    output column. The reference-format MOJO (``models/mojo_ref.py``) of
+    that GBM, of RuleFit's DRF ensemble and of its inner GLM, read back by
+    ``read_mojo``: ``score0`` on ``ref_rows`` rows against the card's
+    predictions (rtol 1e-4, atol 1e-5). Card against CPU (the CPU's trees
+    with the card's histogram subtraction): RuleFit on the first ``rf_sub``
+    rows (the same rules, coefficients rtol 1e-4 / atol 1e-4 times the
+    largest coefficient's size, at least 1: the LASSO stops at
+    ``beta_epsilon`` 1e-4; AUC within 1e-4), the segment GBMs on the first
+    ``seg_sub`` airlines rows: each segment whose trees split alike on
+    both devices within 1e-4 of AUC, and each segment whose trees part
+    (at ties, ROADMAP C2) fitted again on the card with every level held
+    by ``replay_parted_segments``. Every check raises. Returns the phase's
+    record, with the checked fits' kernel launches under ``launches``."""
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch import GBM, Aggregator, RuleFit, import_mojo
+    from h2o3_tpu_torch.frame.devcache import DEVCACHE
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.models import assembly as asm_mod
+    from h2o3_tpu_torch.models import mojo_ref
+    from h2o3_tpu_torch.models import pipeline as pipe_mod
+    from h2o3_tpu_torch.models import rulefit as rulefit_mod
+    from h2o3_tpu_torch.models.segments import SegmentModelsBuilder
+    from h2o3_tpu_torch.models.tree.common import tree_matrix
+    from h2o3_tpu_torch.models.tree.gbm import GBMParameters
+    from h2o3_tpu_torch.ops import cuda_build
+
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    y_air = "IsDepDelayed"
+    rec = {"parts": {}}
+    launches = {k: 0 for k in cuda_build.KERNELS}
+
+    def head(frame, n):
+        return frame.rows(slice(0, min(n, frame.nrows)))
+
+    def cache_totals():
+        kinds = DEVCACHE.stats()["kinds"]
+        return (sum(v["hits"] for v in kinds.values()),
+                sum(v["misses"] for v in kinds.values()))
+
+    class part:
+        """One part of the phase: its seconds, device frame cache hits and
+        misses, and device memory peak, in ``rec["parts"][name]``."""
+
+        def __init__(self, name):
+            self.name = name
+
+        def __enter__(self):
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            self.cache0, self.t0 = cache_totals(), time.time()
+            self.rec = rec["parts"].setdefault(self.name, {})
+            return self.rec
+
+        def __exit__(self, *exc):
+            if cuda:
+                torch.cuda.synchronize()
+            h, m = cache_totals()
+            self.rec.update(s=time.time() - self.t0, cache_hits=h - self.cache0[0],
+                            cache_misses=m - self.cache0[1],
+                            peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else None)
+            return False
+
+    def implied(models):
+        """B1 launches the trees imply: one per level of every tree."""
+        return sum(t.ntrees * t.max_depth for m in models
+                   for t in m.booster.trees_per_class)
+
+    def counted(label, want_of, fn):
+        """Run ``fn`` with the launch counts at 0 and check them: B1 as
+        ``want_of(result)`` gives, no other kernel."""
+        cuda_build.reset_launch_counts()
+        out = fn()
+        got = dict(cuda_build.LAUNCHES)
+        want = {k: 0 for k in cuda_build.KERNELS}
+        if cuda:
+            want["hist_nodematmul"] = want_of(out)
+        if got != want:
+            raise AssertionError(f"breadth3 {label}: kernel launches {got}, expected {want}")
+        for k, v in got.items():
+            launches[k] += v
+        return out, got
+
+    def close_or_raise(label, a, b, rtol, atol):
+        ok, err = _close(a, b, rtol, atol)
+        if not ok:
+            raise AssertionError(f"breadth3 {label}: max abs difference {err}")
+        return err
+
+    # Aggregator at its defaults on the HIGGS-shaped features
+    feats = higgs.drop("y")
+    with part("aggregator") as r:
+        agg = Aggregator(device=str(dev)).train(feats)
+    rows = agg.exemplar_rows
+    r.update(rows=feats.nrows, exemplars=int(len(rows)), radius=agg.radius,
+             train_s=agg.run_time)
+    if not (agg.counts.sum() == feats.nrows and len(np.unique(rows)) == len(rows)
+            and agg.output_frame.names == feats.names + ["counts"]
+            and agg.output_frame.nrows == len(rows) and agg.device == dev):
+        raise AssertionError(f"breadth3 aggregator: counts sum {agg.counts.sum()}, "
+                             f"{len(rows)} exemplars, names {agg.output_frame.names}")
+    print(f"breadth3 aggregator: {json.dumps(r)}", flush=True)
+
+    # RuleFit at its defaults, GBM then DRF rules; its ensembles and the
+    # rules they gave before the support filter are read on the way
+    rf_frame = head(higgs, rf_rows)
+    ensembles, extracted = [], []
+    orig_ensemble, orig_extract = RuleFit._tree_ensemble, rulefit_mod._extract_rules
+
+    def spy_ensemble(self, *a, **kw):
+        m = orig_ensemble(self, *a, **kw)
+        ensembles.append(m)
+        return m
+
+    def spy_extract(*a, **kw):
+        out = orig_extract(*a, **kw)
+        extracted.append(len(out))
+        return out
+
+    RuleFit._tree_ensemble, rulefit_mod._extract_rules = spy_ensemble, spy_extract
+    rulefits, inner = {}, {}
+    try:
+        for algo in ("gbm", "drf"):
+            ensembles.clear()
+            extracted.clear()
+            label = f"rulefit_{algo}"
+            with part(label) as r:
+                rf, got = counted(label, lambda _: implied(ensembles), lambda: RuleFit(
+                    response_column="y", algorithm=algo, seed=seed,
+                    device=str(dev)).train(rf_frame))
+            rulefits[algo], inner[algo] = rf, list(ensembles)
+            nonzero = sum(1 for c in rf.glm.coefficients.values() if c != 0.0)
+            r.update(rows=rf_frame.nrows, train_s=rf.run_time, rules_extracted=sum(extracted),
+                     rules_kept=len(rf.rules), nonzero_coefficients=nonzero,
+                     importance_rows=len(rf.rule_importance),
+                     auc=float(rf.training_metrics.auc), launches=got,
+                     trees=[m.booster.trees_per_class[0].ntrees for m in ensembles])
+            if not (rf.rules and np.isfinite(r["auc"]) and r["auc"] > 0.5
+                    and rf.glm.device == dev
+                    and all(m.device == dev for m in ensembles)):
+                raise AssertionError(f"breadth3 {label}: {r}")
+            print(f"breadth3 {label}: {json.dumps(r)}", flush=True)
+    finally:
+        RuleFit._tree_ensemble, rulefit_mod._extract_rules = orig_ensemble, orig_extract
+
+    # one GBM per carrier, on four threads and serially
+    seg_params = GBMParameters(response_column=y_air, ntrees=seg_trees, seed=seed,
+                               device=str(dev))
+    runs = {}
+    for label, par in (("segments_threads4", 4), ("segments_serial", 1)):
+        builder = SegmentModelsBuilder(GBM, seg_params, ["UniqueCarrier"], parallelism=par)
+        with part(label) as r:
+            if par == 1:
+                res, got = counted(label, lambda out: implied(out.models),
+                                   lambda: builder.train(airlines))
+                r["launches"] = got
+            else:
+                res = builder.train(airlines)
+        runs[label] = res
+        status = res.as_frame().col("status")
+        r.update(rows=airlines.nrows, segments=len(res.segments),
+                 statuses=sorted(set(status.domain[c] for c in status.data)),
+                 seconds_per_segment=res.run_times)
+        if r["statuses"] != ["succeeded"] or not any(s["UniqueCarrier"] is None
+                                                     for s in res.segments):
+            raise AssertionError(f"breadth3 {label}: {r['statuses']}, errors {res.errors}")
+        print(f"breadth3 {label}: {json.dumps(r)}", flush=True)
+    a, b = runs["segments_threads4"], runs["segments_serial"]
+    if a.segments != b.segments:
+        raise AssertionError("breadth3 segments: the two runs found different segments")
+    for seg, ma, mb in zip(a.segments, a.models, b.models):
+        for ta, tb in zip(ma.booster.trees_per_class, mb.booster.trees_per_class):
+            for f in ("feat", "split_bin", "default_left", "is_split", "leaf"):
+                if not np.array_equal(np.stack(getattr(ta, f)), np.stack(getattr(tb, f))):
+                    raise AssertionError(f"breadth3 segments {seg}: the threaded trees' {f} "
+                                         "differ from the serial run's")
+    rec["parts"]["segments_threads4"]["trees_equal_serial"] = True
+    rec["parts"]["segments_threads4"]["dispatch"] = probe = dispatch_probe(dev)
+    print(f"breadth3 dispatch: {json.dumps(probe)}", flush=True)
+
+    # Generic: one segment's GBM through its MOJO and import_mojo
+    pipe_raw = head(airlines, pipe_rows)
+    seg_model = b.models[0]
+    with part("generic") as r, tempfile.TemporaryDirectory() as tmp:
+        path = seg_model.download_mojo(f"{tmp}/segment.mojo")
+        gen = import_mojo(path, model_id="breadth3_generic", device=str(dev))
+        t0 = time.time()
+        got = gen._predict_raw(pipe_raw)
+        r["predict_rows_per_s"] = pipe_raw.nrows / (time.time() - t0)
+        r["max_abs_err"] = close_or_raise("generic", got, seg_model._predict_raw(pipe_raw),
+                                          1e-4, 1e-5)
+        r.update(segment=b.segments[0], rows=pipe_raw.nrows, source_algo=gen.source_algo)
+        if gen.device != dev or DKV.get("breadth3_generic") is not gen:
+            raise AssertionError(f"breadth3 generic: on {gen.device}, key {gen.key}")
+    print(f"breadth3 generic: {json.dumps(r)}", flush=True)
+
+    # Assembly and the scoring pipeline
+    steps = [
+        {"op": "ColOp", "fun": "log1p", "col": "Distance"},
+        {"op": "BinaryOp", "fun": "-", "left": "CRSArrTime", "right": "CRSDepTime",
+         "new_col_name": "ArrMinusDep"},
+        {"op": "ColSelect", "cols": ["log1p_Distance", "ArrMinusDep", "Year", "Month",
+                                     "DayofMonth", "DayOfWeek", "CRSDepTime",
+                                     "UniqueCarrier", "Origin", "Dest", y_air]},
+    ]
+    with part("pipeline") as r:
+        asm, assembled = asm_mod.fit_assembly(steps, pipe_raw)
+        pgbm, got = counted("pipeline_gbm", lambda m: implied([m]), lambda: GBM(
+            response_column=y_air, ntrees=seg_trees, seed=seed,
+            device=str(dev)).train(assembled))
+        r["launches"] = got
+        pipe = pipe_mod.ScoringPipeline.from_bytes(
+            pipe_mod.build_pipeline(pgbm, asm).to_bytes())
+        t0 = time.time()
+        out = pipe.transform(pipe_raw)
+        r["transform_rows_per_s"] = pipe_raw.nrows / (time.time() - t0)
+        want = pgbm.predict(asm_mod.Assembly(steps=steps).fit(pipe_raw))
+        if out.names != want.names:
+            raise AssertionError(f"breadth3 pipeline: columns {out.names}, not {want.names}")
+        r["max_abs_err"] = max(close_or_raise("pipeline", out.col(c).data, want.col(c).data,
+                                              1e-4, 1e-5) for c in want.names[1:])
+        # the labels threshold p1 at the training max-F1 threshold, which is
+        # one row's own probability: only rows that close to it may part
+        p1, thr = want.col(want.names[-1]).data, pgbm.default_threshold()
+        parted = out.col("predict").data != want.col("predict").data
+        r["labels_parted_at_threshold"] = int(parted.sum())
+        if np.any(parted & ~np.isclose(p1, thr, rtol=1e-4, atol=1e-5)):
+            raise AssertionError("breadth3 pipeline: labels part away from the threshold")
+        only = pipe_mod.ScoringPipeline.from_bytes(
+            pipe_mod.build_pipeline(assembly=asm).to_bytes()).transform(pipe_raw)
+        fitted = asm_mod.Assembly(steps=steps).fit(pipe_raw)
+        if only.names != fitted.names or not all(
+                np.array_equal(only.col(c).data, fitted.col(c).data, equal_nan=True)
+                for c in fitted.names):
+            raise AssertionError("breadth3 pipeline: transform-only is not Assembly.fit")
+        java = asm.to_java("AirlinesMunger")
+        if [java.count(f"out[{j}] =") for j in range(len(fitted.names))] != [1] * len(
+                fitted.names) or f"out[{len(fitted.names)}]" in java:
+            raise AssertionError("breadth3 pipeline: to_java does not write each output once")
+        r.update(rows=pipe_raw.nrows, in_names=pipe.in_names, out_names=asm.out_names,
+                 auc=float(pgbm.training_metrics.auc))
+    print(f"breadth3 pipeline: {json.dumps(r)}", flush=True)
+
+    # the reference-format MOJO of the GBM, RuleFit's DRF ensemble and its GLM
+    higgs_rows = head(higgs, ref_rows)
+    glm = rulefits["gbm"].glm
+    rule_rows = rulefits["gbm"]._rule_frame(higgs_rows)
+    cases = [
+        ("gbm", pgbm, tree_matrix(pgbm.data_info, head(assembled, ref_rows)),
+         pgbm._predict_raw(head(assembled, ref_rows))),
+        ("drf", inner["drf"][0], tree_matrix(inner["drf"][0].data_info, higgs_rows),
+         inner["drf"][0]._predict_raw(higgs_rows)),
+        ("glm", glm, np.stack([rule_rows.col(n).data for n in glm.data_info.predictor_names],
+                              axis=1), glm._predict_raw(rule_rows)),
+    ]
+    with part("mojo_ref") as r, tempfile.TemporaryDirectory() as tmp:
+        for label, model, X, want in cases:
+            path = mojo_ref.write_mojo(model, f"{tmp}/{label}.zip")
+            mojo = mojo_ref.read_mojo(path)
+            got = np.stack([mojo.score0(X[i].astype(np.float64)) for i in range(len(X))])
+            r[label] = {"bytes": os.path.getsize(path),
+                        "max_abs_err": close_or_raise(f"mojo_ref {label}", got,
+                                                      want.reshape(len(X), -1), 1e-4, 1e-5)}
+    print(f"breadth3 mojo_ref: {json.dumps(r)}", flush=True)
+
+    # the card against the CPU, the CPU's trees with the card's subtraction
+    # (rehearsed on the CPU, the "card" is the CPU)
+    vs = rec["card_vs_cpu"] = {}
+    sub = head(higgs, rf_sub)
+    pair = []
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.time()
+        with tree_subtract_default(True):
+            pair.append(RuleFit(response_column="y", seed=seed, device=str(d)).train(sub))
+        vs[f"rulefit_{where}_s"] = time.time() - t0
+    ra, rb = pair
+    if [x.key() for x in ra.rules] != [x.key() for x in rb.rules]:
+        raise AssertionError("breadth3 rulefit: the card's rules are not the CPU's")
+    # the LASSO stops once no coefficient moves by beta_epsilon (1e-4) in
+    # an IRLSM step, so two devices' coefficients agree to 1e-4 of the
+    # coefficients' scale, not of each coefficient
+    names = list(rb.glm.coefficients)
+    ca = np.array([ra.glm.coefficients[k] for k in names])
+    cb = np.array([rb.glm.coefficients[k] for k in names])
+    scale = max(1.0, float(np.abs(cb).max()))
+    vs.update(rulefit_rules=len(ra.rules), rulefit_coef_scale=scale,
+              rulefit_iterations=[ra.glm.iterations, rb.glm.iterations],
+              rulefit_auc=[float(ra.training_metrics.auc), float(rb.training_metrics.auc)])
+    vs["rulefit_coef_max_abs_err"] = close_or_raise("rulefit card vs cpu", ca, cb, 1e-4,
+                                                    1e-4 * scale)
+    if abs(vs["rulefit_auc"][0] - vs["rulefit_auc"][1]) > 1e-4:
+        raise AssertionError(f"breadth3 rulefit: card and CPU AUC {vs['rulefit_auc']}")
+    # the segments' GBMs: each segment whose trees split alike on the two
+    # devices has its AUCs within 1e-4. The others part at ties (ROADMAP
+    # C2): B1 gives its ordered plain version's bits, but the split
+    # search's sums over the bins (a scan on the card, a running sum on
+    # the CPU) and the sigmoid round differently on the two devices, and
+    # two candidates whose gains lie a few float32 steps apart swap. Each
+    # such segment is fitted again on the card (the same trees) with every
+    # level checked: B1's histogram equal to hist_chunked_ordered_reference
+    # on the same inputs, bit for bit, and the CPU's split search on that
+    # histogram picking the card's split at every node, or a tie: a split
+    # whose gain is the card's best within 1e-5 times max(1, gain)
+    seg_rows = head(airlines, seg_sub)
+    seg_p, res = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.time()
+        seg_p[where] = GBMParameters(response_column=y_air, ntrees=seg_trees, seed=seed,
+                                     device=str(d), tree_subtract=True)
+        res[where] = SegmentModelsBuilder(GBM, seg_p[where],
+                                          ["UniqueCarrier"]).train(seg_rows)
+        vs[f"segments_{where}_s"] = time.time() - t0
+    if res["card"].segments != res["cpu"].segments:
+        raise AssertionError("breadth3 segments: card and CPU found different segments")
+    vs["segments"], parted = [], []
+    for seg, mc, mp in zip(res["card"].segments, res["card"].models, res["cpu"].models):
+        auc = [float(mc.training_metrics.auc), float(mp.training_metrics.auc)]
+        same = split_trees_equal(mc, mp)
+        vs["segments"].append({"segment": seg["UniqueCarrier"],
+                               "rows": int(mc.training_metrics.nobs), "auc": auc,
+                               "split_trees_equal": same})
+        if not same:
+            parted.append(mc)
+        elif abs(auc[0] - auc[1]) > 1e-4:
+            raise AssertionError(f"breadth3 segments: equal trees, AUCs apart: "
+                                 f"{vs['segments'][-1]}")
+    vs["segments_trees_parted"] = [r_["segment"] for r_ in vs["segments"]
+                                   if not r_["split_trees_equal"]]
+    if parted and cuda:
+        t0 = time.time()
+        vs["segments_parted_replay"] = replay_parted_segments(
+            seg_rows, [s for s, r_ in zip(res["card"].segments, vs["segments"])
+                       if not r_["split_trees_equal"]], parted, seg_p["card"])
+        vs["segments_parted_replay_s"] = time.time() - t0
+    print(f"breadth3 card vs cpu: {json.dumps(vs)}", flush=True)
+    for m in [ra, rb] + [m for r_ in res.values() for m in r_.models]:
+        DKV.remove(m.key)
+    for model in [agg, gen, pgbm, *rulefits.values()] + [m for res in runs.values()
+                                                         for m in res.models]:
+        DKV.remove(model.key)
+    rec["launches"] = launches
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -2935,6 +3513,16 @@ def main() -> int:
         raise AssertionError(f"a histogram kernel ran in the breadth2 phase: "
                              f"{cuda_build.LAUNCHES} (before: {launches_before})")
 
+    # Aggregator, RuleFit, segment models, Generic, Assembly and the
+    # pipeline, the reference-format MOJO: B1 in RuleFit's and the
+    # segments' fits and the pipeline's GBM, counted there
+    t0 = time.time()
+    breadth3_rec = breadth3_phase(frame, synth_airlines(1_000_000, seed + 14), dev, seed,
+                                  rf_rows=min(100_000, n))
+    breadth3_rec["phase_s"] = time.time() - t0
+    breadth3_rec["card"] = smi
+    print(json.dumps({"breadth3": breadth3_rec}), flush=True)
+
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
              profile_fit(XGBoost, frame, "xgboost_monotone", ntrees=args.trees,
@@ -2942,7 +3530,7 @@ def main() -> int:
                          hist_fact_max_kc=32)]
             if args.profile else None)
 
-    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec])
+    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec, breadth3_rec])
              for k in cuda_build.KERNELS}
     kernels = [
         kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
@@ -2963,7 +3551,7 @@ def main() -> int:
                        "fits": fits, "cv": cv, "devcache": cache_stats,
                        "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
                        "automl": automl_rec, "breadth": breadth_rec,
-                       "breadth2": breadth2_rec,
+                       "breadth2": breadth2_rec, "breadth3": breadth3_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

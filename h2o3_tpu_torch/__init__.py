@@ -14,8 +14,11 @@ and the numpy-only MOJO scorer ``h2o3_tpu_torch.genmodel``; GLM (every
 family, IRLSM with the Gram on the device, L-BFGS, lambda search) and the
 DeepLearning MLP (ADADELTA or SGD, dropout, autoencoder) on the dense
 design matrix; KMeans, PCA and SVD, GLRM, NaiveBayes and both isolation
-forests; GAM (with its C POJO), CoxPH, PSVM and Word2Vec; grid search,
-target encoding, stacked ensembles and AutoML over those models.
+forests; GAM (with its C POJO), CoxPH, PSVM and Word2Vec; Aggregator,
+RuleFit, Generic (MOJO import), segment models, Assembly munging and
+scoring pipelines, and the reference-format MOJO (``models/mojo_ref.py``);
+grid search, target encoding, stacked ensembles and AutoML over those
+models.
 
 The top-level names load on first use (PEP 562), so importing
 ``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.
@@ -24,6 +27,8 @@ The top-level names load on first use (PEP 562), so importing
 __version__ = "0.1.0"
 
 __all__ = [
+    "Aggregator",
+    "AggregatorParameters",
     "AutoML",
     "ColType",
     "Column",
@@ -39,6 +44,8 @@ __all__ = [
     "GAMParameters",
     "GBM",
     "GLM",
+    "Generic",
+    "GenericParameters",
     "GLMParameters",
     "GLRM",
     "GLRMParameters",
@@ -53,9 +60,12 @@ __all__ = [
     "PCAParameters",
     "PSVM",
     "PSVMParameters",
+    "RuleFit",
+    "RuleFitParameters",
     "SVD",
     "SVDParameters",
     "SearchCriteria",
+    "SegmentModelsBuilder",
     "StackedEnsemble",
     "StackedEnsembleParameters",
     "TargetEncoder",
@@ -63,11 +73,14 @@ __all__ = [
     "Word2Vec",
     "Word2VecParameters",
     "XGBoost",
+    "import_mojo",
     "resolve_device",
     "use_device",
 ]
 
 _LAZY = {
+    "Aggregator": ("h2o3_tpu_torch.models.aggregator", "Aggregator"),
+    "AggregatorParameters": ("h2o3_tpu_torch.models.aggregator", "AggregatorParameters"),
     "AutoML": ("h2o3_tpu_torch.automl.automl", "AutoML"),
     "ColType": ("h2o3_tpu_torch.frame.frame", "ColType"),
     "Column": ("h2o3_tpu_torch.frame.frame", "Column"),
@@ -104,6 +117,11 @@ _LAZY = {
     "Word2Vec": ("h2o3_tpu_torch.models.word2vec", "Word2Vec"),
     "Word2VecParameters": ("h2o3_tpu_torch.models.word2vec", "Word2VecParameters"),
     "GBM": ("h2o3_tpu_torch.models.tree.gbm", "GBM"),
+    "Generic": ("h2o3_tpu_torch.models.generic", "Generic"),
+    "GenericParameters": ("h2o3_tpu_torch.models.generic", "GenericParameters"),
+    "RuleFit": ("h2o3_tpu_torch.models.rulefit", "RuleFit"),
+    "RuleFitParameters": ("h2o3_tpu_torch.models.rulefit", "RuleFitParameters"),
+    "SegmentModelsBuilder": ("h2o3_tpu_torch.models.segments", "SegmentModelsBuilder"),
     "GridSearch": ("h2o3_tpu_torch.models.grid", "GridSearch"),
     "SearchCriteria": ("h2o3_tpu_torch.models.grid", "SearchCriteria"),
     "StackedEnsemble": ("h2o3_tpu_torch.models.stacked_ensemble", "StackedEnsemble"),
@@ -113,6 +131,7 @@ _LAZY = {
     "TargetEncoderParameters": ("h2o3_tpu_torch.models.target_encoder",
                                 "TargetEncoderParameters"),
     "XGBoost": ("h2o3_tpu_torch.models.tree.xgboost", "XGBoost"),
+    "import_mojo": ("h2o3_tpu_torch.models.generic", "import_mojo"),
     "resolve_device": ("h2o3_tpu_torch.device", "resolve_device"),
     "use_device": ("h2o3_tpu_torch.device", "use_device"),
 }

@@ -2,10 +2,9 @@
 algo name -> (ModelBuilder, Parameters).
 
 Reference: ``hex/api/RegisterAlgos.java:16-34``, plus the extension
-registrations (xgboost, targetencoder). The map holds the algorithms this
-package has, in the JAX package's order; the others join it as they are
-ported (ROADMAP A8). ``AutoML._exploitation`` looks the leader's builder
-up here.
+registrations (xgboost, targetencoder). The map equals the JAX package's,
+key for key and in its order. ``AutoML._exploitation`` looks the leader's
+builder up here.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from typing import Dict, Tuple
 
 
 def algo_map() -> Dict[str, Tuple[type, type]]:
+    from h2o3_tpu_torch.models.aggregator import Aggregator, AggregatorParameters
     from h2o3_tpu_torch.models.coxph import CoxPH, CoxPHParameters
     from h2o3_tpu_torch.models.deeplearning import DeepLearning, DeepLearningParameters
     from h2o3_tpu_torch.models.ext_isolation_forest import (
@@ -21,6 +21,7 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
         ExtendedIsolationForestParameters,
     )
     from h2o3_tpu_torch.models.gam import GAM, GAMParameters
+    from h2o3_tpu_torch.models.generic import Generic, GenericParameters
     from h2o3_tpu_torch.models.glm import GLM, GLMParameters
     from h2o3_tpu_torch.models.glrm import GLRM, GLRMParameters
     from h2o3_tpu_torch.models.isolation_forest import (
@@ -31,6 +32,7 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
     from h2o3_tpu_torch.models.naive_bayes import NaiveBayes, NaiveBayesParameters
     from h2o3_tpu_torch.models.pca import PCA, PCAParameters, SVD, SVDParameters
     from h2o3_tpu_torch.models.psvm import PSVM, PSVMParameters
+    from h2o3_tpu_torch.models.rulefit import RuleFit, RuleFitParameters
     from h2o3_tpu_torch.models.stacked_ensemble import (
         StackedEnsemble,
         StackedEnsembleParameters,
@@ -58,10 +60,13 @@ def algo_map() -> Dict[str, Tuple[type, type]]:
             ExtendedIsolationForest,
             ExtendedIsolationForestParameters,
         ),
+        "aggregator": (Aggregator, AggregatorParameters),
         "word2vec": (Word2Vec, Word2VecParameters),
         "stackedensemble": (StackedEnsemble, StackedEnsembleParameters),
         "psvm": (PSVM, PSVMParameters),
         "gam": (GAM, GAMParameters),
+        "rulefit": (RuleFit, RuleFitParameters),
+        "generic": (Generic, GenericParameters),
         # extensions
         "xgboost": (XGBoost, XGBoostParameters),
         "targetencoder": (TargetEncoder, TargetEncoderParameters),

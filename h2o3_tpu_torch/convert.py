@@ -20,7 +20,9 @@ parameters, as plain dicts:
 
 - GLM ``arrays``: ``beta_std`` ([P+1], the intercept last; [P] for the
   ordinal family, with ``ordinal_thresholds`` [K-1]) or ``beta_multi``
-  ([P+1, K]), and ``coefficients`` (the raw-scale dict);
+  ([P+1, K]; the per-class raw-scale ``coefficients_multinomial`` are
+  made from it as a fit makes them), and ``coefficients`` (the raw-scale
+  dict);
 - DeepLearning ``arrays``: ``net_params`` ([(W, b)] per layer),
   ``opt_leaves`` (optax's state leaves, in optax's order) and
   ``epochs_trained``. Such a model scores as the model it came from and
@@ -72,6 +74,16 @@ GAM, CoxPH, PSVM and Word2Vec take the same three dicts:
   ``rho`` and ``gamma_``;
 - ``word2vec_from_numpy``: ``vectors`` [V, D] and ``words`` (the
   vocabulary in row order).
+
+``rulefit_from_numpy(arrays, data_info, params)`` takes the same three
+dicts: ``rules``, one dict per rule with its ``conditions`` (each a dict
+of ``feature``, ``feature_name``, ``threshold``, ``go_left`` and
+``na_left``: ``dataclasses.asdict`` of the JAX package's ``RuleCondition``)
+and its ``support``; ``linear_names``; ``winsor_lo`` and ``winsor_hi``
+[F]; and ``glm``, the inner LASSO as the three dicts of
+``glm_from_numpy`` (``arrays``, ``data_info``, ``params``). Each rule's
+coefficient and the importance table come from the inner GLM's
+coefficients, as a fit makes them.
 """
 
 from __future__ import annotations
@@ -81,7 +93,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 
 from h2o3_tpu_torch.device import resolve_device
-from h2o3_tpu_torch.models.data_info import DataInfo
+from h2o3_tpu_torch.models.data_info import DataInfo, destandardize_coefs
 from h2o3_tpu_torch.models.tree.booster import BoostedTrees, TreeParams, Trees
 
 _FIELDS = (
@@ -134,6 +146,12 @@ def glm_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
         if B.shape != (P + 1, K):
             raise ValueError(f"beta_multi must be [P + 1, K] = [{P + 1}, {K}], got {B.shape}")
         model.beta_multi = B
+        # the per-class raw-scale coefficients, as the fit makes them
+        model.coefficients_multinomial = {}
+        for k, lv in enumerate(info.response_domain):
+            b_raw, icpt = destandardize_coefs(info, B[:-1, k], B[-1, k])
+            model.coefficients_multinomial[lv] = dict(zip(info.coef_names, b_raw.tolist()))
+            model.coefficients_multinomial[lv]["Intercept"] = icpt
     else:
         beta = np.asarray(arrays["beta_std"], dtype=np.float64)
         want = P if p.family == "ordinal" else P + 1
@@ -446,4 +464,32 @@ def word2vec_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
         "vectors", np.asarray(arrays["vectors"], dtype=np.float64), (len(words), p.vec_size))
     model.words = words
     model.vocab = {w: i for i, w in enumerate(words)}
+    return model
+
+
+def rulefit_from_numpy(arrays: Mapping[str, Any], data_info: Mapping[str, Any],
+                       params: Mapping[str, Any], device=None):
+    from h2o3_tpu_torch.models.rulefit import (
+        Rule, RuleCondition, RuleFitModel, RuleFitParameters, _rule_importance)
+
+    p = RuleFitParameters(**params)
+    info = DataInfo(**data_info)
+    dev = _model_device(device, p)
+    model = RuleFitModel(p, info, dev)
+    F = len(info.predictor_names)
+    model.rules = [
+        Rule([RuleCondition(int(c["feature"]), str(c["feature_name"]),
+                            float(c["threshold"]), bool(c["go_left"]),
+                            bool(c["na_left"])) for c in r["conditions"]],
+             support=float(r["support"]))
+        for r in arrays["rules"]
+    ]
+    model.linear_names = [str(n) for n in arrays["linear_names"]]
+    model.winsor = (
+        _check_shape("winsor_lo", np.asarray(arrays["winsor_lo"]), (F,)),
+        _check_shape("winsor_hi", np.asarray(arrays["winsor_hi"]), (F,)),
+    )
+    g = arrays["glm"]
+    model.glm = glm_from_numpy(g["arrays"], g["data_info"], g["params"], device=dev)
+    model.rule_importance = _rule_importance(model)
     return model

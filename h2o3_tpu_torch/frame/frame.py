@@ -285,6 +285,15 @@ class Frame:
                 return c
         raise KeyError(f"no column {name_or_idx!r} in {self.names}")
 
+    def cols(self, sel: Any) -> "Frame":
+        """The named (or indexed) columns, in the order given, as a new
+        Frame sharing the Columns (Assembly's ``ColSelect``)."""
+        if sel is None or (isinstance(sel, slice) and sel == slice(None)):
+            return self
+        if isinstance(sel, (str, int)):
+            sel = [sel]
+        return Frame([self.col(s) for s in sel])
+
     def add_column(self, col: Column) -> "Frame":
         """A new Frame with ``col`` in place of the column of its name, or
         appended (the GLM's response conversion)."""

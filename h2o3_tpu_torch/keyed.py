@@ -11,8 +11,8 @@ Removing a frame's key (``remove``, or a scope drop) also evicts the
 device placements linked to it in the device frame cache
 (``frame/devcache.py``).
 
-Persistence, the memory budget with its ice spill, ``rekey``, ``clear``
-and the cluster router are not part of this package yet.
+Persistence, the memory budget with its ice spill, ``clear`` and the
+cluster router are not part of this package yet.
 """
 
 from __future__ import annotations
@@ -95,6 +95,24 @@ class KeyedStore:
             v = self._store.pop(key, None)
         if v is not None:
             _devcache_invalidate(key)
+
+    def rekey(self, obj: Any, new_key: str) -> str:
+        """Register ``obj`` (which carries a ``.key``) under ``new_key``.
+        The old key is dropped only while it still holds ``obj``, so a
+        rename never removes another object that shares the old key; the
+        device placements linked to the old key are evicted."""
+        with self._lock:
+            old = getattr(obj, "key", None)
+            if old and self._store.get(old) is obj:
+                self._check_unlocked(old)
+                self._store.pop(old, None)
+            obj.key = new_key
+            self._store[new_key] = obj
+            if self._scopes:
+                self._scopes[-1].append(new_key)
+        if old and old != new_key:
+            _devcache_invalidate(old)
+        return new_key
 
     def keys(self) -> List[str]:
         with self._lock:

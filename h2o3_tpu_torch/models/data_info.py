@@ -35,6 +35,10 @@ class DataInfo:
     coef_names: List[str] = field(default_factory=list)
     response_domain: Optional[List[str]] = None
 
+    @property
+    def n_coefs(self) -> int:
+        return len(self.coef_names)
+
 
 def build_data_info(
     frame: Frame,

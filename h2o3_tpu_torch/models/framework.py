@@ -319,7 +319,10 @@ class ModelBuilder:
         self.params = params
         self.job: Optional[Job] = None
 
-    def _validate(self, frame: Frame) -> None:
+    def _validate_params(self) -> None:
+        """The checks that need no frame: the guard on common parameters
+        and the cross-validation settings. A builder without a training
+        frame (``Generic``) runs these alone."""
         p = self.params
         for name, default in self._GUARDED_DEFAULTS.items():
             val = getattr(p, name, default)
@@ -333,6 +336,10 @@ class ModelBuilder:
             raise ValueError("nfolds must be 0 or >= 2")
         if p.nfolds and p.fold_column:
             raise ValueError("cannot use both nfolds and fold_column")
+
+    def _validate(self, frame: Frame) -> None:
+        self._validate_params()
+        p = self.params
         if p.response_column and p.response_column not in frame.names:
             raise ValueError(f"response_column {p.response_column!r} not in frame")
         if p.weights_column and p.weights_column not in frame.names:

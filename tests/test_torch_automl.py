@@ -562,5 +562,6 @@ def test_automl_default_plan_runs_on_the_port(tmp_path):
     np.testing.assert_array_equal(back.predict(raw).col("pyes").data, want)
     assert list(algo_map()) == ["coxph", "deeplearning", "drf", "glm", "glrm", "kmeans",
                               "naivebayes", "pca", "svd", "gbm", "isolationforest",
-                              "extendedisolationforest", "word2vec", "stackedensemble",
-                              "psvm", "gam", "xgboost", "targetencoder"]
+                              "extendedisolationforest", "aggregator", "word2vec",
+                              "stackedensemble", "psvm", "gam", "rulefit", "generic",
+                              "xgboost", "targetencoder"]

@@ -223,6 +223,10 @@ def test_padded_node_bucket_is_bit_identical():
         tot_pad = node_totals(t(nodes), t(g), t(h), pad_nodes(k), rw=t(rw))[:k]
         assert torch.equal(tot_pad, node_totals(t(nodes), t(g), t(h), k, rw=t(rw)))
 
+    # the node-count ladder is the JAX package's
+    for k in range(1, 700):
+        assert pad_nodes(k) == jax_pad_nodes(k)
+
 
 @pytest.mark.parametrize("weighted", [False, True])
 def test_node_totals_match_jax(weighted):
@@ -234,11 +238,6 @@ def test_node_totals_match_jax(weighted):
     want = np.asarray(_shard_node_totals(nodes, g, h, 7, rw=rw))
     np.testing.assert_array_equal(got[:, 2], want[:, 2])
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-
-
-def test_pad_nodes_ladder_matches_jax():
-    for k in range(1, 700):
-        assert pad_nodes(k) == jax_pad_nodes(k)
 
 
 def _adversarial_bins_frame(n, f, nbins, seed):
@@ -564,39 +563,6 @@ def test_gather_twin_is_plain_indexing(weighted):
         assert torch.equal(rows.w[:m], t(rw)[order])
 
 
-def test_dispatch_hands_codes_rm_to_the_sorted_kernel_alone(monkeypatch):
-    # only a level that goes to the sorted kernel asks the fit's cache for
-    # its row-major codes, and hands them to that kernel alone
-    from h2o3_tpu_torch.ops import histogram as hmod
-
-    calls = []
-    for name in ("hist_factorized", "hist_nodematmul", "hist_sorted"):
-        monkeypatch.setattr(
-            hmod, name, lambda *a, _n=name[5:], **kw:
-            calls.append((_n, a[4], kw.get("codes_rm", "absent"))) or _n)
-    z = torch.zeros(1, 4, dtype=torch.int32)
-    codes_rm = cs.row_major_codes(z, 3)
-
-    class Cache:
-        asked = 0
-
-        def codes_rm(self):
-            self.asked += 1
-            return codes_rm
-
-    cache = Cache()
-    for k in (1, 8, 64, 65, 512):
-        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 3,
-                             impl="kernel", fact_max_kc=32, cache=cache)
-    assert calls == [("factorized", 1, "absent"), ("factorized", 8, "absent"),
-                     ("nodematmul", 64, "absent"), ("sorted", 65, codes_rm),
-                     ("sorted", 512, codes_rm)]
-    assert cache.asked == 2
-    calls.clear()
-    hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), 65, 3, impl="kernel")
-    assert calls == [("sorted", 65, None)]  # no cache: the kernel makes its own
-
-
 @pytest.mark.parametrize("max_depth,subtract,sorted_levels", [
     (9, True, 1), (8, False, 1), (8, True, 0), (7, False, 0)])
 def test_fit_makes_codes_rm_once_for_its_sorted_levels(
@@ -776,6 +742,35 @@ def test_dispatch_takes_the_sorted_kernel_beyond_64_padded_nodes(monkeypatch):
     assert calls == [("nodematmul", 1), ("nodematmul", 8), ("nodematmul", 64),
                      ("sorted", 65), ("sorted", 128), ("sorted", 512),
                      ("sorted", 1024)]
+
+    # only a level that goes to the sorted kernel asks the fit's cache for
+    # its row-major codes, and hands them to that kernel alone
+    calls = []
+    for name in ("hist_factorized", "hist_nodematmul", "hist_sorted"):
+        monkeypatch.setattr(
+            hmod, name, lambda *a, _n=name[5:], **kw:
+            calls.append((_n, a[4], kw.get("codes_rm", "absent"))) or _n)
+    z = torch.zeros(1, 4, dtype=torch.int32)
+    codes_rm = cs.row_major_codes(z, 3)
+
+    class Cache:
+        asked = 0
+
+        def codes_rm(self):
+            self.asked += 1
+            return codes_rm
+
+    cache = Cache()
+    for k in (1, 8, 64, 65, 512):
+        hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), k, 3,
+                             impl="kernel", fact_max_kc=32, cache=cache)
+    assert calls == [("factorized", 1, "absent"), ("factorized", 8, "absent"),
+                     ("nodematmul", 64, "absent"), ("sorted", 65, codes_rm),
+                     ("sorted", 512, codes_rm)]
+    assert cache.asked == 2
+    calls.clear()
+    hmod.build_histogram(z, z[0], z[0].float(), z[0].float(), 65, 3, impl="kernel")
+    assert calls == [("sorted", 65, None)]  # no cache: the kernel makes its own
 
 
 # ---------------------------------------------------------------------------
@@ -1002,15 +997,11 @@ def test_dispatch_hands_the_operand_mode_to_every_kernel(monkeypatch):
                              impl="kernel", dtype="float32")
     assert calls == []
 
-
-def test_dispatch_sends_what_the_factorized_kernel_cannot_hold_to_nodematmul(
-        monkeypatch):
-    # at 2,417 bins one node's [HI, 1, 3, 16] slab is 29,184 bytes: the
-    # factorized kernel holds 7 nodes, not 8, so fact_max_kc=32 sends the
-    # 8-node level to the node-matmul kernel (the same sum order, the same
-    # bits) instead of a launch plan that raises
-    from h2o3_tpu_torch.ops import histogram as hmod
-
+    # what the factorized kernel cannot hold goes to the node-matmul
+    # kernel: at 2,417 bins one node's [HI, 1, 3, 16] slab is 29,184 bytes:
+    # the factorized kernel holds 7 nodes, not 8, so fact_max_kc=32 sends
+    # the 8-node level to the node-matmul kernel (the same sum order, the
+    # same bits) instead of a launch plan that raises
     calls = []
     for name in ("hist_factorized", "hist_nodematmul", "hist_sorted"):
         monkeypatch.setattr(

@@ -4,9 +4,8 @@ optax; the port keeps its own copy of the updates DeepLearning uses, in
 ``util/optim.py``) nor anything of ``h2o3_tpu``, its MOJO scorer
 ``h2o3_tpu_torch.genmodel`` imports numpy and not even ``torch``, and the
 port's entry points refuse to run quietly on the CPU when no card is
-present. The port's algorithm registry lists the JAX package's algorithms
-that are ported, in the JAX package's order (read from its source, so this
-file imports no JAX).
+present. The port's algorithm registry equals the JAX package's, key for
+key and in its order (read from its source, so this file imports no JAX).
 
 Mind the prefix: ``h2o3_tpu_torch`` starts with ``h2o3_tpu``, so the
 import check matches ``h2o3_tpu`` only when a ``.``, a space or the end of
@@ -69,26 +68,27 @@ def test_no_jax_or_reference_imports_in_the_port():
                    "models/naive_bayes.py", "models/kmeans.py", "models/pca.py",
                    "models/isolation_forest.py", "models/ext_isolation_forest.py",
                    "models/glrm.py", "models/gam.py", "models/coxph.py",
-                   "models/psvm.py", "models/word2vec.py"):
+                   "models/psvm.py", "models/word2vec.py", "models/aggregator.py",
+                   "models/rulefit.py", "models/generic.py", "models/assembly.py",
+                   "models/pipeline.py", "models/segments.py", "models/mojo_ref.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
     assert not bad, bad
 
     # algo_map: the JAX package's keys (its source's return dict, in
-    # RegisterAlgos.java order) minus the algorithms not ported yet
+    # RegisterAlgos.java order), every one of them
     from h2o3_tpu_torch.api.registry import algo_map
 
     tree = ast.parse((ROOT / "h2o3_tpu" / "api" / "registry.py").read_text())
     fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "algo_map")
     ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return))
     jax_keys = [k.value for k in ret.value.keys]
-    not_ported = {"aggregator", "rulefit", "generic"}
-    assert set(jax_keys) >= not_ported
     port = algo_map()
-    assert list(port) == [k for k in jax_keys if k not in not_ported]
+    assert list(port) == jax_keys and len(jax_keys) == 21
     for key in ("glrm", "kmeans", "naivebayes", "pca", "svd", "isolationforest",
-                "extendedisolationforest", "coxph", "word2vec", "psvm", "gam"):
+                "extendedisolationforest", "coxph", "word2vec", "psvm", "gam",
+                "aggregator", "rulefit", "generic"):
         builder, params = port[key]
         assert builder.__module__.startswith("h2o3_tpu_torch.models.")
         assert builder(params()).algo_name == key
@@ -140,6 +140,9 @@ def test_port_runs_with_jax_and_reference_blocked():
                                              seed=1).train(fr)
             for model in (km, pc, sv, gl, nb, iso, eif):
                 model.predict(fr)
+            rf = ht.RuleFit(response_column="y", rule_generation_ntrees=3, seed=1).train(fr)
+            rf.predict(fr)
+            ag = ht.Aggregator(target_num_exemplars=20).train(fr)
         assert m.training_metrics.auc > 0.9
         assert f.training_metrics.auc > 0.9
         assert g.training_metrics.auc > 0.9 and g2.training_metrics.auc > 0.9
@@ -148,6 +151,8 @@ def test_port_runs_with_jax_and_reference_blocked():
         assert [m.algo_name for m in aml.leaderboard.models].count("glm") == 1
         assert nb.training_metrics.auc > 0.9 and len(km.size) == 2
         assert np.isfinite(gl.objective) and sv.d.shape == (2,)
+        assert rf.rules and rf.training_metrics.auc > 0.9 and rf.glm.device.type == "cpu"
+        assert ag.counts.sum() == 300
         assert not [e for e in aml.event_log.events if "failed" in e["message"]]
         leaked = [k for k in sys.modules
                   if k.split(".")[0] in ("jax", "jaxlib", "optax", "h2o3_tpu")
@@ -204,13 +209,18 @@ def test_entry_points_refuse_the_cpu_unless_asked():
                     ht.ExtendedIsolationForest(ntrees=1),
                     ht.GAM(response_column="y", gam_columns=["a"]),
                     ht.CoxPH(response_column="y", stop_column="a"),
-                    ht.PSVM(response_column="y")):
+                    ht.PSVM(response_column="y"), ht.Aggregator(),
+                    ht.RuleFit(response_column="y")):
         with pytest.raises(RuntimeError, match="CUDA"):
             builder.train(fr)
     words = ht.Frame([ht.Column("w", np.array(["a", "b", None] * 4, dtype=object),
                                 ht.ColType.STR)])
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.Word2Vec(min_word_freq=1).train(words)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Generic(path="model.mojo").train()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.SegmentModelsBuilder(ht.GBM, ht.GBM(response_column="y").params, ["a"]).train(fr)
     from h2o3_tpu_torch.entry import entry
 
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -92,12 +92,23 @@ def test_sorted_launch_plan_fits_any_node_count(n_bins1):
     assert cs.launch_plan(1000, 3, n_bins1) == (3, 1000 // cs.TILE_ROWS)
 
 
-def test_sorted_launch_plan_takes_fewer_warps_for_wide_bins():
-    # a block's warps each hold [3, B1] sums and [B1] lane masks: past what
-    # eight fit, the plan takes fewer warps a block, down to one; past what
-    # one warp's masks fit, the warp finds peers with __match_any_sync and
-    # holds [3, B1] sums alone (the layout before lane masks), up to 19,338
-    # bins at any feature count; then it raises
+def test_every_kernel_has_a_source_and_a_count():
+    for name in cuda_build.KERNELS:
+        assert cuda_build.source(name).exists(), name
+        assert cuda_build.library_path(name).name.startswith(f"lib{name}_")
+    assert set(cuda_build.LAUNCHES) == set(cuda_build.KERNELS)
+    assert {"hist_nodematmul", "hist_sorted", "hist_factorized"} <= set(
+        cuda_build.KERNELS)
+    assert ch.LAUNCHES is cuda_build.LAUNCHES is cs.LAUNCHES is cf.LAUNCHES
+    # the node-matmul plan rejects what does not fit
+    with pytest.raises(ValueError):
+        ch.launch_plan(1000, 4, 128, 257)
+
+    # the sorted plan: a block's warps each hold [3, B1] sums and [B1]
+    # lane masks: past what eight fit, the plan takes fewer warps a block,
+    # down to one; past what one warp's masks fit, the warp finds peers
+    # with __match_any_sync and holds [3, B1] sums alone (the layout before
+    # lane masks), up to 19,338 bins at any feature count; then it raises
     assert cs.launch_plan(2_000_000, 28, 1792)[0] == 8
     for n_bins1 in (1793, 2389, 5000, 14_504, 14_505, 19_338):
         assert cs.launch_plan(2_000_000, 1, n_bins1)[0] == 1
@@ -121,19 +132,6 @@ def test_sorted_launch_plan_takes_fewer_warps_for_wide_bins():
         _, extra = cs.launch_plan(50_000, 4, 21, tile_rows=512)
         assert int(layout.tile_off[-1]) <= k + extra
         assert torch.all(layout.tile_off[1:] > layout.tile_off[:-1])
-
-
-def test_every_kernel_has_a_source_and_a_count():
-    for name in cuda_build.KERNELS:
-        assert cuda_build.source(name).exists(), name
-        assert cuda_build.library_path(name).name.startswith(f"lib{name}_")
-    assert set(cuda_build.LAUNCHES) == set(cuda_build.KERNELS)
-    assert {"hist_nodematmul", "hist_sorted", "hist_factorized"} <= set(
-        cuda_build.KERNELS)
-    assert ch.LAUNCHES is cuda_build.LAUNCHES is cs.LAUNCHES is cf.LAUNCHES
-    # the node-matmul plan rejects what does not fit
-    with pytest.raises(ValueError):
-        ch.launch_plan(1000, 4, 128, 257)
 
 
 @pytest.mark.parametrize("n_bins1", [257, 21])

@@ -259,15 +259,42 @@ Run from the root of a checkout. Phases, each of which must pass:
    of a small call that lets go of the GIL, from one and four threads. It
    prints each part's seconds, device frame cache hits and misses and
    device memory peak in a ``{"breadth3": ...}`` line;
-23. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+23. the Rapids engine (``rapids_phase``) with ``Session(device="cuda")``
+   on the N x 28 frame and 2,000,000 airlines-shaped rows, each step
+   against its plain version (the interpreter with ``fusion=False``, the
+   host sort, merge and group-by under ``host_paths``): five fused
+   pipelines over the HIGGS columns (``ifelse`` over comparisons, ``%%``
+   and ``%/%``, ``sqrt(abs(.))`` over a ``cols`` selection, ``round`` under
+   a trailing ``sum``, ``floor``, ``sign``, ``trunc``, ``is.na``) bit for bit
+   (NaN payloads aside), each warm repeat planning nothing and uploading
+   nothing (a ``frame_table`` hit); every fusible prim's emit on the card
+   against numpy on the special values and 1,000,000 wide ones a side (a
+   prim that fuses on the card must not part; the list of prims fused on
+   the card is printed) and its region against the interpreter; ``sort``
+   by [Origin, Distance], Distance descending, in the host lexsort's
+   order; ``merge`` ``all_left`` with a 300-row Origin lookup, every
+   column equal; ``GB`` by [Origin, Dest] with nrow, mean, sum, min, max,
+   sd and var of Distance (NAs removed): the same bits twice, keys and
+   counts equal to the host engine's, min and max within one float32
+   rounding of the centred value, the moments at the JAX package's
+   device-against-host tolerances, and the segment reduction's counts,
+   min and max equal on the card and on CPU tensors; ``quantiles`` of a
+   column with NaNs at 0, 0.001, 0.5, 0.999 and 1, card and CPU bit for bit;
+   ``x`` of N x 28 by 28 x 4 against float64 numpy (each entry within 1e-4
+   of the size of its terms); rollups of every airlines column against
+   ``map_reduce`` on the card (counts, min, max, zeros, ``is_int`` and the
+   histogram exact, mean 1e-12, sigma 1e-10). It prints each step's card
+   and host seconds and the device memory peak in a ``{"rapids": ...}``
+   line and launches no histogram kernel;
+24. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
 those of phases 8-15, of phase 19's main AutoML run and of phase 22's
-RuleFit, serial segment and pipeline fits; phases 16-18, 20 and 21 launch
-no histogram kernel), then
+RuleFit, serial segment and pipeline fits; phases 16-18, 20, 21 and 23
+launch no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -3222,6 +3249,429 @@ def breadth3_phase(higgs, airlines, dev, seed, rf_rows=100_000, rf_sub=20_000,
     return rec
 
 
+class host_paths:
+    """Inside the block the Rapids sort, merge and group-by take their host
+    paths: the plain versions their device paths are held to."""
+
+    def __enter__(self):
+        from h2o3_tpu_torch.rapids import dist
+
+        self.saved = dist.DIST_SORT_MIN
+        dist.DIST_SORT_MIN = 1 << 62
+        return self
+
+    def __exit__(self, *exc):
+        from h2o3_tpu_torch.rapids import dist
+
+        dist.DIST_SORT_MIN = self.saved
+
+
+class call_counter:
+    """Counts the calls of ``module.name`` inside the block."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.real(*a, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def bits_equal(a, b) -> bool:
+    """Bitwise float64 equality; a NaN equals a NaN whatever its payload."""
+    a = np.atleast_1d(np.asarray(a, dtype=np.float64))
+    b = np.atleast_1d(np.asarray(b, dtype=np.float64))
+    if a.shape != b.shape:
+        return False
+    return not ((a.view(np.uint64) != b.view(np.uint64)) & ~(np.isnan(a) & np.isnan(b))).any()
+
+
+def frames_equal(a, b) -> bool:
+    """Same names, types and domains, and the same values bit for bit."""
+    if a.names != b.names:
+        return False
+    for ca, cb in zip(a.columns, b.columns):
+        if ca.type is not cb.type or ca.domain != cb.domain:
+            return False
+        if ca.data.dtype == object:
+            if list(ca.data) != list(cb.data):
+                return False
+        elif not bits_equal(ca.numeric_view(), cb.numeric_view()):
+            return False
+    return True
+
+
+def vals_equal(a, b) -> bool:
+    if a.kind != b.kind:
+        return False
+    if a.is_frame():
+        return frames_equal(a.value, b.value)
+    return bits_equal(a.value, b.value)
+
+
+def special_values(seed=11):
+    """The special-values operands of the JAX package's fusion parity suite
+    (``tests/test_rapids_fusion.py``): div/mod sign rules, inf dividends,
+    signed zeros, NaN, then 200 N(0, 10^2) draws with NaNs."""
+    a = [1.5, -2.5, np.nan, np.inf, -np.inf, 0.0, -0.0, 3.0, -3.0, 7.25,
+         -7.25, 2.0, 1e300, -1e-300, 5.0, -5.5, -1.0, 0.5, -0.25, 9.0]
+    b = [2.0, -3.0, 1.0, 2.0, 2.0, -0.0, 0.0, -2.0, np.nan, np.inf,
+         -np.inf, 0.5, 1e-300, 1e300, -5.0, 5.5, np.inf, -0.0, 4.0, -9.0]
+    rng = np.random.default_rng(seed)
+    ra = rng.standard_normal(200) * 10
+    rb = rng.standard_normal(200) * 10
+    ra[::13] = np.nan
+    rb[::17] = np.nan
+    return np.concatenate([a, ra]), np.concatenate([b, rb])
+
+
+def wide_values(n, seed):
+    """``n`` float64 values over wide ranges (|x| up to 1e16), with NaN,
+    +-inf, signed zeros, integers and halves mixed in."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-10, 10, n) * 10.0 ** rng.uniform(-15, 15, n)
+    x[::97] = np.round(x[::97])
+    x[::89] = np.round(x[::89]) + 0.5
+    x[rng.random(n) < 0.01] = np.nan
+    x[rng.random(n) < 0.01] = 0.0
+    x[rng.random(n) < 0.01] = -0.0
+    x[rng.random(n) < 0.005] = np.inf
+    x[rng.random(n) < 0.005] = -np.inf
+    return x
+
+
+def parity_expr(name, kind):
+    """One fused-region expression over the frame ``pf`` per fusible prim."""
+    if kind == "binop":
+        return f"({name} (cols_py pf 0) (cols_py pf 1))"
+    if kind == "uniop":
+        return f"({name} (cols_py pf 0) 0)" if name == "round" else f"({name} (cols_py pf 0))"
+    if kind == "ifelse":
+        return "(ifelse (> (cols_py pf 0) 0) (cols_py pf 0) (cols_py pf 1))"
+    if kind == "select":
+        return f"(* ({name} pf [1]) 2)"
+    return f"({name} (* (cols_py pf 0) 2))"
+
+
+def emit_bit_table(dev, seed, n=1_000_000):
+    """Every fusible prim's emit on ``dev`` against its host function, on
+    the special values and on ``n`` wide values a side: the count of
+    values whose bits part (NaN payloads aside), and whether the prim
+    fuses on ``dev``'s type."""
+    import torch
+    from h2o3_tpu_torch import Column, ColType, Frame
+    from h2o3_tpu_torch.rapids.prims import FUSIBLE, PRIMS
+    from h2o3_tpu_torch.rapids.runtime import Val
+
+    sa, sb = special_values()
+    x = np.concatenate([sa, wide_values(n, seed)])
+    y = np.concatenate([sb, wide_values(n, seed + 1)])
+    y[len(sb)::3] = np.random.default_rng(seed + 2).integers(-5, 6, len(y[len(sb)::3]))
+    frame = lambda v: Val.frame(Frame([Column("a", v, ColType.NUM)]))  # noqa: E731
+    tx, ty = (torch.from_numpy(v).to(dev) for v in (x, y))
+    table = {}
+    for name, spec in sorted(FUSIBLE.items()):
+        if spec.kind == "binop":
+            got, ref = spec.emit(tx, ty), PRIMS[name](None, [frame(x), frame(y)])
+        elif spec.kind == "uniop":
+            got, ref = spec.emit(tx), PRIMS[name](None, [frame(x)])
+        elif spec.kind == "ifelse":
+            got = spec.emit(tx, ty, tx * 2)
+            ref = PRIMS[name](None, [frame(x), frame(y), frame(x * 2)])
+        else:
+            continue
+        ref, got = ref.value.col(0).data, got.cpu().numpy()
+        parted = (ref.view(np.uint64) != got.view(np.uint64)) & ~(np.isnan(ref) & np.isnan(got))
+        table[name] = {"parted": int(parted.sum()), "fuses": dev.type in spec.devices}
+    return table
+
+
+def _group_tolerances(dev_fr, host_fr, shift):
+    """The device group-by against the host engine: keys and counts equal;
+    min and max within one float32 rounding of the value less ``shift``
+    (the device rounds the centered values to float32); the moments at
+    the JAX package's device-against-host tolerances
+    (``tests/test_dist_munging.py``)."""
+    out = {}
+    for c in ("Origin", "Dest", "nrow"):
+        out[c] = bool(np.array_equal(dev_fr.col(c).data, host_fr.col(c).data))
+    for c in ("min_Distance", "max_Distance"):
+        d, h = dev_fr.col(c).data, host_fr.col(c).data
+        ulp = np.spacing(np.abs(h - shift).astype(np.float32)).astype(np.float64)
+        out[c] = bool(np.all((np.isnan(d) & np.isnan(h)) | (np.abs(d - h) <= ulp)))
+    for c, rtol, atol in (("mean_Distance", 1e-5, 1e-4), ("sum_Distance", 1e-4, 5e-2),
+                          ("sd_Distance", 5e-3, 1e-4), ("var_Distance", 1e-2, 1e-4)):
+        out[c] = bool(np.allclose(dev_fr.col(c).data, host_fr.col(c).data, rtol=rtol,
+                                  atol=atol, equal_nan=True))
+    return out
+
+
+#: fused pipelines over the HIGGS-shaped frame's columns
+RAPIDS_PIPELINES = (
+    "(ifelse (& (> (cols_py rapids_higgs 0) 0) (<= (cols_py rapids_higgs 1) 0.5)) "
+    "(%% (* (cols_py rapids_higgs 2) 7) 3) (%/% (cols_py rapids_higgs 3) 0.25))",
+    "(sqrt (abs (- (cols_py rapids_higgs [0 1 2 3 4 5]) (cols_py rapids_higgs 6))))",
+    "(sum (* (round (* (cols_py rapids_higgs 7) 10) 0) (cols_py rapids_higgs 8)))",
+    "(floor (/ (+ (cols rapids_higgs [9 10 11]) 1) (cols_py rapids_higgs 12)))",
+    "(mean (ifelse (is.na (/ (cols_py rapids_higgs 13) (cols_py rapids_higgs 14))) -1 "
+    "(sign (- (cols_py rapids_higgs 15) (trunc (cols_py rapids_higgs 16))))))",
+)
+
+
+def rapids_phase(higgs, airlines, dev, seed, emit_rows=1_000_000):
+    """The Rapids engine on ``dev`` (``Session(device=dev)``) against the
+    plain versions: the interpreter (``fusion=False``) and the host sort,
+    merge and group-by (``host_paths``). Returns the phase's record."""
+    import torch
+    from h2o3_tpu_torch import ColType, Column, Frame
+    from h2o3_tpu_torch.compute import mapreduce, quantile
+    from h2o3_tpu_torch.frame import devcache
+    from h2o3_tpu_torch.frame.rollups import compute_rollups, histogram
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.rapids import Session, dist, exec_rapids, fusion
+    from h2o3_tpu_torch.rapids.prims import FUSIBLE
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rec = {"card_s": {}, "host_s": {}}
+    sess = Session(device=dev)
+    plain = Session(device=dev, fusion=False)
+    keys = []
+
+    def put(key, fr):
+        sess.assign(key, fr)
+        keys.append(key)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def frame_table_counts():
+        c = devcache.DEVCACHE.stats()["kinds"].get("frame_table", {})
+        return c.get("hits", 0), c.get("misses", 0)
+
+    # 1. fused pipelines over the HIGGS columns, bitwise against the
+    # interpreter; a warm repeat plans nothing and uploads nothing
+    put("rapids_higgs", Frame(higgs.columns))
+    pipes = []
+    for i, expr in enumerate(RAPIDS_PIPELINES):
+        ref, host_s = timed(lambda: exec_rapids(expr, plain))
+        fused0 = fusion.COUNTS["fused"]
+        got, cold_s = timed(lambda: exec_rapids(expr, sess))
+        if fusion.COUNTS["fused"] <= fused0:
+            raise AssertionError(f"rapids pipeline {i}: did not fuse ({expr})")
+        if not vals_equal(ref, got):
+            raise AssertionError(f"rapids pipeline {i}: fused result is not the interpreter's bits")
+        hits, misses = frame_table_counts()
+        plans = mapreduce.plan_stats()["rapids_fusion"]["misses"]
+        again, warm_s = timed(lambda: exec_rapids(expr, sess))
+        hits2, misses2 = frame_table_counts()
+        regions = (fusion.COUNTS["fused"] - fused0) // 2  # regions a run
+        # one region reads the frame's own columns alone; an interpreted
+        # prim inside makes a new intermediate frame, uploaded each time
+        uploaded = regions == 1 and (misses2 != misses or hits2 <= hits)
+        if uploaded or mapreduce.plan_stats()["rapids_fusion"]["misses"] != plans:
+            raise AssertionError(f"rapids pipeline {i}: the warm repeat planned or uploaded")
+        if not vals_equal(got, again):
+            raise AssertionError(f"rapids pipeline {i}: warm repeat differs")
+        pipes.append({"host_s": host_s, "cold_s": cold_s, "warm_s": warm_s,
+                      "regions": regions})
+    rec["pipelines"] = pipes
+    rec["card_s"]["pipelines_warm"] = sum(p["warm_s"] for p in pipes)
+    rec["host_s"]["pipelines"] = sum(p["host_s"] for p in pipes)
+    # every fusible prim: its emit on the device against its host function,
+    # and its region through the session against the interpreter
+    table, rec["card_s"]["emit_table"] = timed(lambda: emit_bit_table(dev, seed, emit_rows))
+    sa, sb = special_values()
+    put("pf", Frame([Column("a", sa, ColType.NUM), Column("b", sb, ColType.NUM)]))
+    for name, spec in sorted(FUSIBLE.items()):
+        expr = parity_expr(name, spec.kind)
+        fused0 = fusion.COUNTS["fused"]
+        got = exec_rapids(expr, sess)
+        fused = fusion.COUNTS["fused"] > fused0
+        if not vals_equal(exec_rapids(expr, plain), got):
+            raise AssertionError(f"rapids prim {name}: fused region is not the interpreter's bits")
+        entry = table.setdefault(name, {"parted": 0, "fuses": True})
+        entry["region_fused"] = fused
+        if entry["fuses"] and entry["parted"]:
+            raise AssertionError(f"rapids prim {name} fuses on {dev.type} and parts from "
+                                 f"numpy on {entry['parted']} values")
+    rec["prims"] = table
+    rec["fuse_on_device"] = sorted(n for n, e in table.items() if e["fuses"])
+    rec["interpreted_on_device"] = sorted(n for n, e in table.items() if not e["fuses"])
+    print(f"rapids: prims fused on {dev.type}: {rec['fuse_on_device']}; "
+          f"interpreted: {rec['interpreted_on_device']}", flush=True)
+
+    # 2. sort by [Origin, Distance], Distance descending: the device order
+    # is the host lexsort's
+    n = airlines.nrows
+    air = Frame(airlines.columns + [Column("rid", np.arange(n, dtype=np.float64), ColType.NUM)])
+    put("rapids_air", air)
+    expr = "(sort rapids_air [8 10] [1 0])"
+    with call_counter(dist, "device_lexsort") as calls:
+        dev_sorted, rec["card_s"]["sort"] = timed(lambda: exec_rapids(expr, sess).value)
+    with host_paths():
+        host_sorted, rec["host_s"]["sort"] = timed(lambda: exec_rapids(expr, plain).value)
+    if calls.calls != 1 or not np.array_equal(dev_sorted.col("rid").data,
+                                              host_sorted.col("rid").data):
+        raise AssertionError(f"rapids sort: device order is not the host lexsort's "
+                             f"(device calls {calls.calls})")
+
+    # 3. merge all_left with a 300-row Origin lookup: every column equal
+    origin = airlines.col("Origin")
+    rng = np.random.default_rng(seed + 19)
+    weight = rng.normal(size=len(origin.domain))
+    weight[::7] = np.nan
+    put("rapids_lookup", Frame([
+        Column("Origin", np.arange(len(origin.domain), dtype=np.int32), ColType.CAT,
+               list(origin.domain)),
+        Column("OriginWeight", weight, ColType.NUM)]))
+    expr = '(merge rapids_air rapids_lookup 1 0 [] [] "auto")'
+    with call_counter(dist, "device_searchsorted_both") as calls:
+        dev_merged, rec["card_s"]["merge"] = timed(lambda: exec_rapids(expr, sess).value)
+    with host_paths():
+        host_merged, rec["host_s"]["merge"] = timed(lambda: exec_rapids(expr, plain).value)
+    if calls.calls != 1 or not frames_equal(dev_merged, host_merged):
+        raise AssertionError("rapids merge: the device join is not the host's")
+    rec["merge_rows"] = dev_merged.nrows
+
+    # 4. group-by [Origin, Dest] with NAs removed: twice the same bits; the
+    # host engine at the tolerances; the segment reduction on the card
+    # against the same on CPU tensors: counts, min and max equal
+    aggs = " ".join(f'"{a}" 10 "rm"' for a in ("nrow", "mean", "sum", "min", "max", "sd", "var"))
+    expr = f"(GB rapids_air [8 9] {aggs})"
+    with call_counter(dist, "device_group_aggregate") as calls:
+        dev_gb, rec["card_s"]["group_by"] = timed(lambda: exec_rapids(expr, sess).value)
+        if not frames_equal(dev_gb, exec_rapids(expr, sess).value):
+            raise AssertionError("rapids group-by: two calls give different bits")
+    with host_paths():
+        host_gb, rec["host_s"]["group_by"] = timed(lambda: exec_rapids(expr, plain).value)
+    shift = float(np.nanmean(airlines.col("Distance").data))
+    held = _group_tolerances(dev_gb, host_gb, shift)
+    if calls.calls != 2 or not all(held.values()):
+        raise AssertionError(f"rapids group-by against the host engine: {held} "
+                             f"(device calls {calls.calls})")
+    comp = (airlines.col("Origin").data.astype(np.int64) + 1) * 302 + airlines.col("Dest").data
+    inv = np.unique(comp, return_inverse=True)[1]
+    vals = airlines.col("Distance").data - shift
+    card = dist.device_group_aggregate(inv, vals, int(inv.max()) + 1, dev)
+    cpu = dist.device_group_aggregate(inv, vals, int(inv.max()) + 1, "cpu")
+    for k in ("count", "min", "max", "nacnt"):
+        if not bits_equal(card[k], cpu[k]):
+            raise AssertionError(f"rapids group aggregate: {k} differs card against CPU")
+    rec["group_by"] = {
+        "groups": dev_gb.nrows, "held": held,
+        "sum_max_rel_card_cpu": float(np.max(np.abs(card["sum"] - cpu["sum"])
+                                             / np.maximum(np.abs(cpu["sum"]), 1e-300))),
+        "sum_bits_card_cpu": bits_equal(card["sum"], cpu["sum"])}
+
+    # 5. quantiles of a 2M-row column with NaNs: card and CPU bit for bit
+    col = higgs.col("x0").data.copy()
+    col[::97] = np.nan
+    probs = [0.0, 0.001, 0.5, 0.999, 1.0]
+    q_card, rec["card_s"]["quantiles"] = timed(
+        lambda: quantile.quantiles(torch.from_numpy(col).to(dev), probs))
+    q_cpu, rec["host_s"]["quantiles"] = timed(lambda: quantile.quantiles(col, probs, device="cpu"))
+    if not bits_equal(q_card, q_cpu) or not np.allclose(q_card, np.nanquantile(col, probs),
+                                                        rtol=1e-12, atol=0):
+        raise AssertionError(f"rapids quantiles: card {q_card} CPU {q_cpu}")
+    rec["quantiles"] = q_card.tolist()
+
+    # 6. x: N x 28 by 28 x 4 in float32 against float64 numpy, each entry
+    # within 1e-4 of the size of its terms
+    feats = Frame([higgs.col(f"x{j}") for j in range(28)])
+    put("rapids_h28", feats)
+    w = rng.normal(size=(28, 4))
+    put("rapids_w", Frame([Column(f"w{j}", w[:, j], ColType.NUM) for j in range(4)]))
+    expr = "(x rapids_h28 rapids_w)"
+    out, rec["card_s"]["mmult_cold"] = timed(lambda: exec_rapids(expr, sess).value.to_numpy())
+    _, rec["card_s"]["mmult_warm"] = timed(lambda: exec_rapids(expr, sess).value)
+    A = feats.to_numpy()
+    ref, rec["host_s"]["mmult"] = timed(lambda: A @ w)
+    scale = np.abs(A) @ np.abs(w)
+    if not np.all(np.abs(out - ref) <= 1e-4 * scale):
+        raise AssertionError("rapids x: the float32 product parts from float64 numpy")
+    rec["mmult_max_rel"] = float(np.max(np.abs(out - ref) / scale))
+
+    # 7. rollups of every airlines column against map_reduce on the card
+    t0 = time.perf_counter()
+    host_roll = {c.name: (compute_rollups(c), histogram(c)) for c in airlines.columns}
+    rec["host_s"]["rollups"] = time.perf_counter() - t0
+    names = airlines.names
+
+    def moments(cols, mask):
+        out = {}
+        for name in names:
+            x = cols[name]
+            ok = mask & ~torch.isnan(x)
+            out[name] = torch.stack([
+                ok.sum().double(), (ok & (x == 0)).sum().double(),
+                torch.where(ok, x, 0.0).sum(),
+                torch.where(ok, x, float("inf")).min(),
+                torch.where(ok, x, float("-inf")).max(),
+                (ok & (torch.floor(x) != x)).sum().double()])
+        return out
+
+    def spread(cols, mask, means):
+        return {name: torch.where(mask & ~torch.isnan(cols[name]),
+                                  cols[name] - means[name], 0.0).square().sum()
+                for name in names}
+
+    def dev_histogram(x, lo, hi, nbins=64):
+        ok = ~torch.isnan(x)
+        # a device tensor divisor: PyTorch divides a CUDA tensor by a host
+        # scalar as a product with its reciprocal
+        span = torch.tensor(max(hi - lo, 1e-300), dtype=x.dtype, device=x.device)
+        idx = torch.clamp(((x[ok] - lo) / span * nbins).to(torch.int64), 0, nbins - 1)
+        return torch.bincount(idx, minlength=nbins).cpu().numpy()
+
+    t0 = time.perf_counter()
+    m = mapreduce.map_reduce_frame(moments, airlines, columns=names, device=dev)
+    table = mapreduce.FrameTable.from_frame(airlines, columns=names, device=dev,
+                                            dtype=torch.float64)
+    mom = mapreduce.map_reduce(moments, table)
+    means = {k: float(v[2] / v[0]) for k, v in mom.items()}
+    sq = mapreduce.map_reduce(spread, table, means)
+    dev_roll = {}
+    for name in names:
+        cnt, zero, total, lo, hi, frac = (float(v) for v in mom[name])
+        sigma = float(np.sqrt(float(sq[name]) / (cnt - 1)))
+        dev_roll[name] = (cnt, zero, means[name], sigma, lo, hi, frac == 0,
+                          dev_histogram(table.arrays[name], lo, hi))
+    sync()
+    rec["card_s"]["rollups"] = time.perf_counter() - t0
+    for name, (r, hist) in host_roll.items():
+        cnt, zero, mean, sigma, lo, hi, is_int, dhist = dev_roll[name]
+        exact = (cnt == n - r.na_count and zero == r.zero_count and lo == r.min
+                 and hi == r.max and is_int == r.is_int and np.array_equal(dhist, hist))
+        f32 = m[name]  # the float32 table's moments: counts exact, sums near
+        if (not exact or not np.isclose(mean, r.mean, rtol=1e-12, atol=0)
+                or not np.isclose(sigma, r.sigma, rtol=1e-10, atol=0)
+                or float(f32[0]) != cnt or not np.isclose(float(f32[2]) / cnt, r.mean, rtol=1e-4)):
+            raise AssertionError(f"rapids rollups of {name}: device {dev_roll[name][:7]} host {r}")
+    rec["rollup_columns"] = len(names)
+
+    for key in keys:
+        sess.remove(key)
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    rec["device_cache"] = devcache.DEVCACHE.stats()["kinds"].get("frame_table")
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -3523,6 +3973,19 @@ def main() -> int:
     breadth3_rec["card"] = smi
     print(json.dumps({"breadth3": breadth3_rec}), flush=True)
 
+    # the Rapids engine: fused column programs, the device sort, merge and
+    # group-by, quantiles, the matrix product and rollups against their
+    # plain versions; no histogram kernel runs in it
+    launches_before = dict(cuda_build.LAUNCHES)
+    t0 = time.time()
+    rapids_rec = rapids_phase(frame, synth_airlines(2_000_000, seed + 20), dev, seed)
+    rapids_rec["phase_s"] = time.time() - t0
+    rapids_rec["card"] = smi
+    print(json.dumps({"rapids": rapids_rec}), flush=True)
+    if cuda_build.LAUNCHES != launches_before:
+        raise AssertionError(f"a histogram kernel ran in the Rapids phase: "
+                             f"{cuda_build.LAUNCHES} (before: {launches_before})")
+
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
              profile_fit(XGBoost, frame, "xgboost_monotone", ntrees=args.trees,
@@ -3552,6 +4015,7 @@ def main() -> int:
                        "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
                        "automl": automl_rec, "breadth": breadth_rec,
                        "breadth2": breadth2_rec, "breadth3": breadth3_rec,
+                       "rapids": rapids_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,7 +18,8 @@ forests; GAM (with its C POJO), CoxPH, PSVM and Word2Vec; Aggregator,
 RuleFit, Generic (MOJO import), segment models, Assembly munging and
 scoring pipelines, and the reference-format MOJO (``models/mojo_ref.py``);
 grid search, target encoding, stacked ensembles and AutoML over those
-models.
+models; the map/reduce core (``compute``) and the Rapids munging engine
+(``rapids``: ``Session``, ``exec_rapids``) with its device paths.
 
 The top-level names load on first use (PEP 562), so importing
 ``h2o3_tpu_torch.genmodel`` loads numpy and nothing of torch.

@@ -20,8 +20,9 @@ default, as the JAX package's), so the least recently used placements go
 first. The cache counts its own hits, misses, evictions and bytes saved
 per placement kind (:meth:`DeviceFrameCache.stats`).
 
-Not part of this package yet: ``cached_host`` (chunk-homed training,
-ROADMAP A10), ``region_token`` (Rapids fusion, A9) and the telemetry
+:func:`region_token` combines the tokens of several ``(frame, columns)``
+inputs for the Rapids fusion pass. Not part of this package yet:
+``cached_host`` (chunk-homed training, ROADMAP A10) and the telemetry
 counters, ledger charges and flight records (A11).
 """
 
@@ -41,6 +42,7 @@ __all__ = [
     "device_fingerprint",
     "device_nbytes",
     "frame_token",
+    "region_token",
 ]
 
 _DEFAULT_BUDGET = 1 << 30  # 1 GiB of device-resident placements
@@ -78,9 +80,27 @@ def frame_token(frame, columns: Optional[Sequence[str]] = None) -> Optional[Tupl
     return ("frame", nrows, token)
 
 
+def region_token(inputs: Sequence[Tuple[Any, Sequence[str]]]) -> Optional[Tuple]:
+    """Combined data-identity token over several ``(frame, columns)`` inputs.
+
+    The fusion plan-cache entry point: a fused region reads column subsets
+    of one or more frames, and this token (a tuple of per-input
+    :func:`frame_token` stamps) identifies the exact device-input state of
+    one dispatch, so per-dispatch input validation can be memoized on it.
+    None if any input lacks version stamps (callers then re-validate)."""
+    parts = []
+    for frame, columns in inputs:
+        tok = frame_token(frame, list(columns))
+        if tok is None:
+            return None
+        parts.append(tok)
+    return ("region", tuple(parts))
+
+
 def device_nbytes(value: Any) -> int:
     """Bytes of every tensor reachable from ``value`` (dict/list/tuple
-    nesting, and objects that hold their tensors in an ``arrays`` dict)."""
+    nesting, and objects that hold their tensors in an ``arrays`` dict
+    beside an optional ``mask``, as a ``FrameTable`` does)."""
     total = 0
     stack = [value]
     while stack:
@@ -95,6 +115,7 @@ def device_nbytes(value: Any) -> int:
             stack.extend(v)
         elif isinstance(getattr(v, "arrays", None), dict):
             stack.extend(v.arrays.values())
+            stack.append(getattr(v, "mask", None))
     return total
 
 

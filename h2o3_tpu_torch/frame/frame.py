@@ -6,20 +6,19 @@ codes with -1 for CAT, object for STR). The model builders move what they
 need to the device themselves, so the frame itself holds no tensors.
 
 Kept from the JAX package: ``Column``, ``Frame``, ``from_dict``, row
-selection (``Frame.rows``), ``Frame.drop``, ``Frame.rbind`` (categorical domains merged
-in first-seen order, as the JAX package merges them), the column version
-stamps the device frame cache keys on, the type predicates
-``is_categorical`` and ``is_string``, and the rollups that trees need
-(min/max/mean/sigma), computed in numpy. CSV parsing, the native
-tokenizer, the chunk codecs and the rest of the munging surface (column
-selection, ``cbind``) are not part of this package yet.
+selection (``Frame.rows``), ``Frame.drop``, ``Frame.rbind`` (categorical
+domains merged in first-seen order, as the JAX package merges them),
+``rename``, ``cbind``, ``na_omit``, ``to_numpy``, the conversions
+``as_factor`` and ``as_numeric``, the column version stamps the device
+frame cache keys on, the type predicates, and the lazily cached rollups
+(``frame/rollups.py``, numpy). CSV parsing, the native tokenizer and the
+chunk codecs are not part of this package yet.
 """
 
 from __future__ import annotations
 
 import enum
 import itertools
-from dataclasses import dataclass
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -50,37 +49,6 @@ NA_CAT = np.int32(-1)  # categorical NA sentinel (codes); numeric NA is NaN
 _NA_STRINGS = frozenset({"", "NA"})
 
 
-@dataclass
-class RollupStats:
-    """Per-column summary (water/fvec/RollupStats.java), float64-exact."""
-
-    min: float
-    max: float
-    mean: float
-    sigma: float
-    na_count: int
-    is_int: bool
-
-
-def compute_rollups(col: "Column") -> RollupStats:
-    if col.type in (ColType.STR, ColType.UUID):
-        return RollupStats(np.nan, np.nan, np.nan, np.nan, col.na_count(), False)
-    x = col.numeric_view()
-    ok = ~np.isnan(x)
-    n = int(ok.sum())
-    if n == 0:
-        return RollupStats(np.nan, np.nan, np.nan, np.nan, x.size, True)
-    v = x[ok]
-    return RollupStats(
-        float(v.min()),
-        float(v.max()),
-        float(v.mean()),
-        float(v.std(ddof=1)) if n > 1 else 0.0,
-        x.size - n,
-        bool(np.all(np.floor(v) == v)),
-    )
-
-
 class Column:
     """One named, typed column with host-canonical numpy storage."""
 
@@ -101,7 +69,7 @@ class Column:
         self.type = type
         self.data = _canonicalize(data, type)
         self.domain = list(domain) if domain is not None else None
-        self._rollups: Optional[RollupStats] = None
+        self._rollups = None
         self.version = next(_COLUMN_VERSIONS)
         if self.type is ColType.CAT and self.domain is None:
             raise ValueError(f"CAT column {name!r} requires a domain")
@@ -130,9 +98,21 @@ class Column:
     def na_count(self) -> int:
         return int(self.isna().sum())
 
+    def is_numeric(self) -> bool:
+        return self.type in (ColType.NUM, ColType.TIME)
+
+    def is_time(self) -> bool:
+        return self.type is ColType.TIME
+
+    def cardinality(self) -> int:
+        """Domain size for CAT columns, -1 otherwise (Vec.cardinality())."""
+        return len(self.domain) if self.domain is not None else -1
+
     @property
-    def rollups(self) -> RollupStats:
+    def rollups(self):
         if self._rollups is None:
+            from h2o3_tpu_torch.frame.rollups import compute_rollups
+
             self._rollups = compute_rollups(self)
         return self._rollups
 
@@ -172,6 +152,17 @@ class Column:
         codes = np.full(len(vals), NA_CAT, dtype=np.int32)
         codes[mask] = np.searchsorted(uniq, vals[mask]).astype(np.int32)
         return Column(self.name, codes, ColType.CAT, domain)
+
+    def as_numeric(self) -> "Column":
+        """CAT -> NUM (rapids AstAsNumeric): parse levels, else codes."""
+        if self.type is not ColType.CAT:
+            return Column(self.name, self.numeric_view(), ColType.NUM)
+        try:
+            lv = np.array([float(d) for d in self.domain], dtype=np.float64)
+            out = np.where(self.data >= 0, lv[np.clip(self.data, 0, None)], np.nan)
+        except ValueError:
+            out = np.where(self.data >= 0, self.data.astype(np.float64), np.nan)
+        return Column(self.name, out, ColType.NUM)
 
     def copy(self) -> "Column":
         return Column(self.name, self.data.copy(), self.type, self.domain)
@@ -270,6 +261,14 @@ class Frame:
     def columns(self) -> List[Column]:
         return list(self._cols)
 
+    def col_types(self) -> List[ColType]:
+        """Column types in column order (the Rapids type predicates)."""
+        return [c.type for c in self._cols]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.nrows, self.ncols)
+
     @property
     def version(self) -> Tuple[int, ...]:
         """Per-column version stamps. Two frames with equal (names, version)
@@ -321,6 +320,41 @@ class Frame:
             names = [names]
         names = set(names)
         return Frame([c for c in self._cols if c.name not in names])
+
+    def rename(self, mapping: Dict[str, str]) -> "Frame":
+        cols = []
+        for c in self._cols:
+            c2 = c.copy()
+            c2.name = mapping.get(c.name, c.name)
+            cols.append(c2)
+        return Frame(cols)
+
+    def cbind(self, other: "Frame") -> "Frame":
+        """``self``'s columns then copies of ``other``'s, a clashing name
+        suffixed with the first free counter."""
+        cols = list(self._cols)
+        taken = set(self.names)
+        for c in other._cols:
+            name, i = c.name, 0
+            while name in taken:
+                name = f"{c.name}{i}"
+                i += 1
+            c2 = c.copy()
+            c2.name = name
+            taken.add(name)
+            cols.append(c2)
+        return Frame(cols)
+
+    def na_omit(self) -> "Frame":
+        mask = np.zeros(self.nrows, dtype=bool)
+        for c in self._cols:
+            mask |= c.isna()
+        return self.rows(~mask)
+
+    def to_numpy(self, columns: Optional[Sequence[str]] = None) -> np.ndarray:
+        """[N, C] float64 of the columns' numeric views."""
+        names = list(columns) if columns is not None else self.names
+        return np.stack([self.col(n).numeric_view() for n in names], axis=1)
 
     def rbind(self, other: "Frame") -> "Frame":
         """The rows of ``self`` then ``other``, as new Columns. A column that

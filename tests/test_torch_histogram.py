@@ -190,23 +190,6 @@ def test_inactive_rows_empty_nodes_and_count_weight(weighted):
         rw=None if rw is None else t(rw), impl="plain", dtype="bf16").numpy())
 
 
-def test_wrapper_on_cpu_tensors_is_the_plain_version():
-    bins, nodes, g, h, rw = _mk(777, 6, 5, 11, seed=11, frac_inactive=0.2,
-                                weighted=True)
-    args = (torch.from_numpy(np.ascontiguousarray(bins.T)), torch.from_numpy(nodes),
-            torch.from_numpy(g), torch.from_numpy(h), 5, 11)
-    before = dict(ch.LAUNCHES)
-    a = ch.hist_nodematmul(*args, rw=torch.from_numpy(rw))
-    b = ch.hist_nodematmul_reference(*args, rw=torch.from_numpy(rw))
-    assert torch.equal(a, b)
-    assert ch.LAUNCHES == before  # the plain version launches nothing
-    # counts are exact integers
-    bins, nodes, g, h, _ = _mk(700, 2, 3, 5, seed=3)
-    counts = _port(bins, nodes, g, h, 3, 5)[..., 2]
-    np.testing.assert_array_equal(counts, np.round(counts))
-    assert counts.sum() == 700 * 2
-
-
 def test_padded_node_bucket_is_bit_identical():
     # 5 nodes pad to the 8-bucket; 40 to the 64-bucket: slicing the real
     # nodes back out must equal the unpadded build bit for bit
@@ -226,6 +209,22 @@ def test_padded_node_bucket_is_bit_identical():
     # the node-count ladder is the JAX package's
     for k in range(1, 700):
         assert pad_nodes(k) == jax_pad_nodes(k)
+
+    # the wrapper on CPU tensors is the plain version
+    bins, nodes, g, h, rw = _mk(777, 6, 5, 11, seed=11, frac_inactive=0.2,
+                                weighted=True)
+    args = (torch.from_numpy(np.ascontiguousarray(bins.T)), torch.from_numpy(nodes),
+            torch.from_numpy(g), torch.from_numpy(h), 5, 11)
+    before = dict(ch.LAUNCHES)
+    a = ch.hist_nodematmul(*args, rw=torch.from_numpy(rw))
+    b = ch.hist_nodematmul_reference(*args, rw=torch.from_numpy(rw))
+    assert torch.equal(a, b)
+    assert ch.LAUNCHES == before  # the plain version launches nothing
+    # counts are exact integers
+    bins, nodes, g, h, _ = _mk(700, 2, 3, 5, seed=3)
+    counts = _port(bins, nodes, g, h, 3, 5)[..., 2]
+    np.testing.assert_array_equal(counts, np.round(counts))
+    assert counts.sum() == 700 * 2
 
 
 @pytest.mark.parametrize("weighted", [False, True])
@@ -426,6 +425,19 @@ def test_sorted_wrapper_on_cpu_tensors_is_the_plain_version():
     layout = cs.sorted_prep(nodes, 3)
     assert layout.order.tolist()[:4] == [3, 6, 0, 4]
     assert layout.counts.tolist() == [1, 1, 2]
+    # the factorized kernel's wrapper on CPU tensors is its plain version
+    bins, nodes, g, h, rw = _mk(800, 6, 5, 257, seed=13, frac_inactive=0.2,
+                                weighted=True)
+    t = torch.from_numpy
+    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 5, 257)
+    before = dict(ch.LAUNCHES)
+    a = cf.hist_factorized(*args, rw=t(rw))
+    assert torch.equal(a, cf.hist_factorized_reference(*args, rw=t(rw)))
+    assert ch.LAUNCHES == before  # the plain version launches nothing
+    # the factorized and the direct plain versions compute the same function
+    b = ch.hist_nodematmul_reference(*args, rw=t(rw))
+    assert torch.equal(a[..., 2], b[..., 2])
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 def _kernel_by_loops(bins_fm, nodes, g, h, k, b1, rw, tile_rows):
@@ -911,40 +923,6 @@ def test_factorized_inactive_rows_empty_nodes_and_count_weight(weighted, b1):
     assert np.all(bf16_ordered[2] == 0)
 
 
-def test_factorized_wrapper_on_cpu_tensors_is_the_plain_version():
-    bins, nodes, g, h, rw = _mk(800, 6, 5, 257, seed=13, frac_inactive=0.2,
-                                weighted=True)
-    t = torch.from_numpy
-    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 5, 257)
-    before = dict(ch.LAUNCHES)
-    a = cf.hist_factorized(*args, rw=t(rw))
-    assert torch.equal(a, cf.hist_factorized_reference(*args, rw=t(rw)))
-    assert ch.LAUNCHES == before  # the plain version launches nothing
-    # the factorized and the direct plain versions compute the same function
-    b = ch.hist_nodematmul_reference(*args, rw=t(rw))
-    assert torch.equal(a[..., 2], b[..., 2])
-    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
-    # the wrapper checks the row-major codes it is handed
-    bins, nodes, g, h, _ = _mk(300, 5, 130, 21, seed=3, frac_inactive=0.2)
-    t = torch.from_numpy
-    args = (t(np.ascontiguousarray(bins.T)), t(nodes), t(g), t(h), 130, 21)
-    good = cs.row_major_codes(args[0], 21)
-    assert good.shape == (300, 16) and good.dtype == torch.uint8
-    assert torch.equal(cs.hist_sorted(*args, codes_rm=good), cs.hist_sorted(*args))
-    with pytest.raises(TypeError, match="codes_rm"):
-        cs.hist_sorted(*args, codes_rm=good.to(torch.int32))
-    with pytest.raises(TypeError, match="codes_rm"):
-        cs.hist_sorted(*args, codes_rm=cs.row_major_codes(args[0], 257))
-    with pytest.raises(ValueError, match="codes_rm has shape"):
-        cs.hist_sorted(*args, codes_rm=good[:-1])
-    with pytest.raises(ValueError, match="codes_rm has shape"):
-        cs.hist_sorted(*args, codes_rm=good[:, :8].contiguous())
-    with pytest.raises(ValueError, match="codes_rm must be contiguous"):
-        cs.hist_sorted(*args, codes_rm=torch.zeros(16, 300, dtype=torch.uint8).T)
-    with pytest.raises(ValueError, match="codes_rm is on meta"):
-        cs.hist_sorted(*args, codes_rm=good.to("meta"))
-
-
 @pytest.mark.parametrize("fact_max_kc,want", [
     (0, ["nodematmul"] * 4 + ["sorted"] * 2),
     (32, ["factorized"] * 2 + ["nodematmul"] * 2 + ["sorted"] * 2),
@@ -1019,8 +997,6 @@ def test_dispatch_hands_the_operand_mode_to_every_kernel(monkeypatch):
         cf.launch_plan(1000, 4, 8, 2417)
     ch.launch_plan(1000, 4, 8, 2417)  # the node-matmul kernel takes it
 
-
-def test_bf16_operands_are_the_jax_casts():
     # the bf16 operand mode rounds each float32 value to nearest even, as
     # the JAX package's astype(bfloat16) does: ties (1 + 2^-8 goes down to
     # 1, 1 + 3·2^-8 up to 1 + 2^-6), subnormals, the largest floats, signed

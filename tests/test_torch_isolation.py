@@ -70,7 +70,11 @@ def test_no_jax_or_reference_imports_in_the_port():
                    "models/glrm.py", "models/gam.py", "models/coxph.py",
                    "models/psvm.py", "models/word2vec.py", "models/aggregator.py",
                    "models/rulefit.py", "models/generic.py", "models/assembly.py",
-                   "models/pipeline.py", "models/segments.py", "models/mojo_ref.py"):
+                   "models/pipeline.py", "models/segments.py", "models/mojo_ref.py",
+                   "compute/mapreduce.py", "compute/quantile.py", "frame/rollups.py",
+                   "rapids/runtime.py", "rapids/fusion.py", "rapids/dist.py",
+                   "rapids/merge.py", "rapids/groupby.py", "rapids/prims/mungers.py",
+                   "rapids/prims/matrix.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
@@ -92,6 +96,83 @@ def test_no_jax_or_reference_imports_in_the_port():
         builder, params = port[key]
         assert builder.__module__.startswith("h2o3_tpu_torch.models.")
         assert builder(params()).algo_name == key
+
+    # the entry points refuse the CPU unless asked (last: it skips where a
+    # card is present)
+    # use_device nests and restores
+    with ht.use_device("cpu") as dev:
+        assert ht.resolve_device() == dev == torch.device("cpu")
+        with ht.use_device("cpu"):
+            assert ht.resolve_device().type == "cpu"
+        assert ht.resolve_device().type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    fr = ht.Frame.from_dict({"a": np.arange(20.0), "y": np.arange(20.0) % 3})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.XGBoost(ntrees=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.GBM(ntrees=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.DRF(ntrees=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.GLM(response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.DeepLearning(hidden=[2], epochs=1, response_column="y").train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.resolve_device("cuda")
+    for builder in (ht.KMeans(k=2), ht.PCA(k=1), ht.SVD(nv=1), ht.GLRM(k=1),
+                    ht.NaiveBayes(response_column="y"), ht.IsolationForest(ntrees=1),
+                    ht.ExtendedIsolationForest(ntrees=1),
+                    ht.GAM(response_column="y", gam_columns=["a"]),
+                    ht.CoxPH(response_column="y", stop_column="a"),
+                    ht.PSVM(response_column="y"), ht.Aggregator(),
+                    ht.RuleFit(response_column="y")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            builder.train(fr)
+    words = ht.Frame([ht.Column("w", np.array(["a", "b", None] * 4, dtype=object),
+                                ht.ColType.STR)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Word2Vec(min_word_freq=1).train(words)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Generic(path="model.mojo").train()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.SegmentModelsBuilder(ht.GBM, ht.GBM(response_column="y").params, ["a"]).train(fr)
+    from h2o3_tpu_torch.entry import entry
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    from h2o3_tpu_torch.rapids import Session, exec_rapids
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Session()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        exec_rapids("(+ 1 2)")
+    assert Session(device="cpu").device.type == "cpu"
+    with ht.use_device("cpu"):
+        assert exec_rapids("(+ 1 2)").value == 3.0
+    m = ht.GBM(ntrees=1, max_depth=2, response_column="y", device="cpu").train(fr)
+    assert m.device == torch.device("cpu")
+    for builder in (ht.GLM(response_column="y", device="cpu"),
+                    ht.DeepLearning(hidden=[2], epochs=1, response_column="y",
+                                    device="cpu")):
+        assert builder.train(fr).device == torch.device("cpu")
+    with pytest.raises(RuntimeError):
+        ht.resolve_device()
+    # the AutoML slice resolves its device where a run starts
+    cat = fr.add_column(ht.Column("c", np.arange(20) % 4, ht.ColType.CAT,
+                                  ["a", "b", "c", "d"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.AutoML(max_models=1, include_algos=["glm"]).train(y="y", training_frame=fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.TargetEncoder(response_column="y").train(cat)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.GridSearch(ht.GBM, ht.GBM(ntrees=1, response_column="y").params,
+                      {"max_depth": [2, 3]}).train(fr)
+    base = ht.GBM(ntrees=1, max_depth=2, response_column="y", nfolds=2, device="cpu",
+                  keep_cross_validation_predictions=True).train(fr)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.StackedEnsemble(base_models=[base], response_column="y").train(fr)
+    assert ht.TargetEncoder(response_column="y", device="cpu").train(cat).device.type == "cpu"
 
 
 def test_port_runs_with_jax_and_reference_blocked():
@@ -143,6 +224,14 @@ def test_port_runs_with_jax_and_reference_blocked():
             rf = ht.RuleFit(response_column="y", rule_generation_ntrees=3, seed=1).train(fr)
             rf.predict(fr)
             ag = ht.Aggregator(target_num_exemplars=20).train(fr)
+            from h2o3_tpu_torch.rapids import Session, dist, exec_rapids
+            dist.DIST_SORT_MIN = 1
+            rs = Session()
+            rs.assign("rfr", fr)
+            total = exec_rapids("(sum (* (+ (cols_py rfr 0) 1) 2))", rs).value
+            srt = exec_rapids('(GB (sort rfr [3 0] [1 0]) [3] "mean" 0 "rm")', rs).value
+            rs.remove("rfr")
+        assert np.isclose(total, 2 * (X[:, 0].sum() + 300)) and srt.nrows == 2
         assert m.training_metrics.auc > 0.9
         assert f.training_metrics.auc > 0.9
         assert g.training_metrics.auc > 0.9 and g2.training_metrics.auc > 0.9
@@ -180,71 +269,3 @@ def test_port_runs_with_jax_and_reference_blocked():
                           text=True, timeout=120, cwd=str(ROOT), env=env)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "GENMODEL-NUMPY-ONLY" in proc.stdout
-
-
-def test_entry_points_refuse_the_cpu_unless_asked():
-    # use_device nests and restores
-    with ht.use_device("cpu") as dev:
-        assert ht.resolve_device() == dev == torch.device("cpu")
-        with ht.use_device("cpu"):
-            assert ht.resolve_device().type == "cpu"
-        assert ht.resolve_device().type == "cpu"
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present: the default device is valid")
-    fr = ht.Frame.from_dict({"a": np.arange(20.0), "y": np.arange(20.0) % 3})
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.XGBoost(ntrees=1, response_column="y").train(fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.GBM(ntrees=1, response_column="y").train(fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.DRF(ntrees=1, response_column="y").train(fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.GLM(response_column="y").train(fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.DeepLearning(hidden=[2], epochs=1, response_column="y").train(fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.resolve_device("cuda")
-    for builder in (ht.KMeans(k=2), ht.PCA(k=1), ht.SVD(nv=1), ht.GLRM(k=1),
-                    ht.NaiveBayes(response_column="y"), ht.IsolationForest(ntrees=1),
-                    ht.ExtendedIsolationForest(ntrees=1),
-                    ht.GAM(response_column="y", gam_columns=["a"]),
-                    ht.CoxPH(response_column="y", stop_column="a"),
-                    ht.PSVM(response_column="y"), ht.Aggregator(),
-                    ht.RuleFit(response_column="y")):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            builder.train(fr)
-    words = ht.Frame([ht.Column("w", np.array(["a", "b", None] * 4, dtype=object),
-                                ht.ColType.STR)])
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.Word2Vec(min_word_freq=1).train(words)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.Generic(path="model.mojo").train()
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.SegmentModelsBuilder(ht.GBM, ht.GBM(response_column="y").params, ["a"]).train(fr)
-    from h2o3_tpu_torch.entry import entry
-
-    with pytest.raises(RuntimeError, match="CUDA"):
-        entry()
-    m = ht.GBM(ntrees=1, max_depth=2, response_column="y", device="cpu").train(fr)
-    assert m.device == torch.device("cpu")
-    for builder in (ht.GLM(response_column="y", device="cpu"),
-                    ht.DeepLearning(hidden=[2], epochs=1, response_column="y",
-                                    device="cpu")):
-        assert builder.train(fr).device == torch.device("cpu")
-    with pytest.raises(RuntimeError):
-        ht.resolve_device()
-    # the AutoML slice resolves its device where a run starts
-    cat = fr.add_column(ht.Column("c", np.arange(20) % 4, ht.ColType.CAT,
-                                  ["a", "b", "c", "d"]))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.AutoML(max_models=1, include_algos=["glm"]).train(y="y", training_frame=fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.TargetEncoder(response_column="y").train(cat)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.GridSearch(ht.GBM, ht.GBM(ntrees=1, response_column="y").params,
-                      {"max_depth": [2, 3]}).train(fr)
-    base = ht.GBM(ntrees=1, max_depth=2, response_column="y", nfolds=2, device="cpu",
-                  keep_cross_validation_predictions=True).train(fr)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ht.StackedEnsemble(base_models=[base], response_column="y").train(fr)
-    assert ht.TargetEncoder(response_column="y", device="cpu").train(cat).device.type == "cpu"

@@ -15,7 +15,10 @@ kernel's node limit and its choice of pass-1 kernel) and the sorted
 kernel's plain prep are plain Python and run everywhere; its prep and
 gather kernels are held to their plain twins on the card, and the
 node-matmul and factorized kernels to the plain version that keeps their
-float order (``hist_chunked_ordered_reference``), bit for bit.
+float order (``hist_chunked_ordered_reference``), bit for bit. The card
+test also holds the Rapids device paths (``rapids/dist.py``: sort,
+searchsorted, group aggregation) to their host paths and the fused emits
+that fuse on the card to numpy.
 Each kernel is held in both operand modes (``"f32"`` and ``"bf16"``, the
 values rounded to bf16 before they are summed), each case named in its
 assertion. Tolerance on the card: rtol 1e-5 / atol 1e-4 on Σg/Σh in either
@@ -233,6 +236,7 @@ def test_kernels_match_their_plain_versions_on_card():
     dev = _card()
     _check_plain_versions(dev)
     _check_sorted_bits_prep_and_gather(dev)
+    _check_rapids_device_paths(dev)
 
 
 def _check_plain_versions(dev):
@@ -357,3 +361,77 @@ def _check_sorted_bits_prep_and_gather(dev):
                     for x, y in ((a.g, b.g), (a.h, b.h), (a.w, b.w)):
                         assert (x is None) == (y is None), name
                         assert x is None or torch.equal(x[:m], y[:m]), name
+
+
+def _check_rapids_device_paths(dev):
+    """The Rapids device paths (``rapids/dist.py``) on the card against
+    their host paths: the stable sort and the LSD multi-key sort equal
+    numpy's stable ``argsort`` and ``lexsort`` (NaN first, -0 tied with +0,
+    ties in row order, descending keys), ``searchsorted`` both sides equal
+    numpy's, and the group aggregation equals itself on CPU tensors and its
+    float64 numpy reading: counts, min and max exact, sums at 1e-12. And
+    every fusible prim's emit (``rapids/prims``) that fuses on the card
+    gives numpy's bits on the special values and 200,000 wide ones."""
+    from h2o3_tpu_torch.frame.frame import ColType, Column, Frame
+    from h2o3_tpu_torch.rapids import dist
+    from h2o3_tpu_torch.rapids.prims import FUSIBLE, PRIMS
+    from h2o3_tpu_torch.rapids.runtime import Val
+
+    rng = np.random.default_rng(17)
+    n = 300_001
+    x = rng.integers(-50, 50, n) * 0.25
+    x[rng.random(n) < 0.02] = np.nan
+    x[rng.random(n) < 0.02] = -0.0
+    x[::1001] = np.inf
+    y = rng.normal(size=n)
+    for asc in (True, False):
+        keys = dist.encode_f64(x, ascending=asc)
+        assert np.array_equal(dist.device_argsort_u64(keys, dev),
+                              np.argsort(keys, kind="stable")), asc
+    lex = [dist.encode_f64(y), dist.encode_f64(x, ascending=False)]
+    assert np.array_equal(dist.device_lexsort(lex, dev), np.lexsort(lex))
+    table = np.sort(rng.integers(0, 1 << 62, 200_000).astype(np.uint64))
+    q = rng.integers(0, 1 << 62, 100_001).astype(np.uint64)
+    q[:5000] = table[:5000]
+    lo, hi = dist.device_searchsorted_both(table, q, dev)
+    assert np.array_equal(lo, np.searchsorted(table, q, "left"))
+    assert np.array_equal(hi, np.searchsorted(table, q, "right"))
+    assert np.array_equal(dist.device_searchsorted(table, q, "right", dev), hi)
+    codes = rng.integers(0, 700, n)
+    card = dist.device_group_aggregate(codes, x, 701, dev)
+    again = dist.device_group_aggregate(codes, x, 701, dev)
+    cpu = dist.device_group_aggregate(codes, x, 701, "cpu")
+    ok = ~np.isnan(x)
+    v32 = x.astype(np.float32).astype(np.float64)
+    want_sum = np.bincount(codes[ok], weights=v32[ok], minlength=701)
+    for k in card:
+        assert np.array_equal(card[k], again[k]), k  # two calls, the same bits
+    for k in ("count", "min", "max", "nacnt"):
+        assert np.array_equal(card[k], cpu[k], equal_nan=True), k
+    assert np.array_equal(card["count"], np.bincount(codes[ok], minlength=701))
+    np.testing.assert_allclose(card["sum"], want_sum, rtol=1e-12, atol=1e-9)
+    np.testing.assert_allclose(card["sum"], cpu["sum"], rtol=1e-12, atol=1e-9)
+    assert card["min"][700] == np.inf and card["count"][700] == 0
+    # the emits of the fusible prims, on the card, against numpy
+    a = np.array([1.5, -2.5, np.nan, np.inf, -np.inf, 0.0, -0.0, 3.0, -3.0, 7.25,
+                  -7.25, 2.0, 1e300, -1e-300, 5.0, -5.5, -1.0, 0.5, -0.25, 9.0])
+    b = np.array([2.0, -3.0, 1.0, 2.0, 2.0, -0.0, 0.0, -2.0, np.nan, np.inf,
+                  -np.inf, 0.5, 1e-300, 1e300, -5.0, 5.5, np.inf, -0.0, 4.0, -9.0])
+    w = rng.uniform(-10, 10, (2, 200_000)) * 10.0 ** rng.uniform(-15, 15, (2, 200_000))
+    w[:, ::7] = np.round(w[:, ::7])
+    w[1, ::3] = rng.integers(-5, 6, w[1, ::3].size)
+    a, b = np.concatenate([a, w[0]]), np.concatenate([b, w[1]])
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    frame = lambda v: Val.frame(Frame([Column("a", v, ColType.NUM)]))  # noqa: E731
+    checked = 0
+    for name, spec in FUSIBLE.items():
+        if spec.kind not in ("binop", "uniop", "ifelse") or "cuda" not in spec.devices:
+            continue
+        args = {"binop": (a, b), "uniop": (a,), "ifelse": (a, b, a * 2)}[spec.kind]
+        targs = {"binop": (ta, tb), "uniop": (ta,), "ifelse": (ta, tb, ta * 2)}[spec.kind]
+        got = spec.emit(*targs).cpu().numpy()
+        want = PRIMS[name](None, [frame(v) for v in args]).value.col(0).data
+        bad = (got.view(np.uint64) != want.view(np.uint64)) & ~(np.isnan(got) & np.isnan(want))
+        assert not bad.any(), (name, a[bad][:3], b[bad][:3])
+        checked += 1
+    assert checked >= 30

@@ -286,15 +286,44 @@ Run from the root of a checkout. Phases, each of which must pass:
    histogram exact, mean 1e-12, sigma 1e-10). It prints each step's card
    and host seconds and the device memory peak in a ``{"rapids": ...}``
    line and launches no histogram kernel;
-24. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+24. the Rapids prims of ``search``, ``advmath``, ``strings``, ``times`` and
+   ``models`` (``rapids_prims_phase``), host numpy as in the JAX package,
+   each expression on ``Session(device="cuda")`` and on a CPU session
+   with the same bits, and where a region fused on the card feeds the prim
+   against the interpreter too: ``which``, ``which.max``, ``which.min``
+   and ``match`` fed by fused comparisons on the 2,000,000 airlines rows;
+   ``cor`` and ``var`` of the 28 HIGGS columns (against ``np.corrcoef``
+   and ``np.cov``), ``skewness``, ``kurtosis``, ``hist``, ``quantile`` and
+   ``difflag1`` of one, ``table`` and ``unique`` of Origin and Dest,
+   ``h2o.impute`` of Distance by Origin, the k-fold columns, ``h2o.runif``
+   and ``h2o.random_stratified_split`` at 2,000,000 rows, ``distance``
+   between 2,000 and 100 rows of 28 in all four measures, ``tf-idf`` and
+   ``isax`` on 20,000 rows; the string prims on the 200,000-row STR
+   columns ``as.character`` makes of Origin and Dest (``entropy``,
+   ``countmatches``, ``tokenize``, ``num_valid_substrings`` and
+   ``strDistance``, which loop over characters in Python, on 20,000) and
+   on the CAT Origin (its domain mapped, and re-coded where ``substring``
+   collapses levels); ``mktime`` of 200,000 airlines rows (exact against
+   numpy's datetime64), the UTC fields, ``as.Date`` of the same stamps as
+   strings, one America/New_York round on 20,000 rows and back to UTC;
+   ``perfectAUC`` of the XGBoost model's predictions, its threshold reset,
+   ``segment_models_as_frame`` of phase 22's segment run, and
+   ``PermutationVarImp`` (logloss, 100,000 sampled rows) on the card and
+   on the CPU (each variable within ``PVI_ATOL``). It prints each step's
+   card and CPU seconds, the prims run and the device memory peak in a
+   ``{"rapids_prims": ...}`` line and launches no histogram kernel (but
+   B1 for its own two-segment fit, made only where no segment run is left
+   in the DKV, counted on the kernels line);
+25. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
-those of phases 8-15, of phase 19's main AutoML run and of phase 22's
-RuleFit, serial segment and pipeline fits; phases 16-18, 20, 21 and 23
-launch no histogram kernel), then
+those of phases 8-15, of phase 19's main AutoML run, of phase 22's
+RuleFit, serial segment and pipeline fits and of phase 24's segment fit
+where it makes one; phases 16-18, 20, 21 and 23 launch no histogram
+kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -3315,6 +3344,8 @@ def vals_equal(a, b) -> bool:
         return False
     if a.is_frame():
         return frames_equal(a.value, b.value)
+    if a.kind in (a.STR, a.STRS):
+        return a.value == b.value
     return bits_equal(a.value, b.value)
 
 
@@ -3672,6 +3703,318 @@ def rapids_phase(higgs, airlines, dev, seed, emit_rows=1_000_000):
     return rec
 
 
+#: the importances' tolerance, card against CPU (the same model scoring on
+#: each device; both take the same rows and permutations from ``--seed``)
+PVI_ATOL = 1e-6
+
+
+def rapids_prims_phase(higgs, airlines, model, dev, seed, str_rows=200_000,
+                       small_rows=20_000, ref_rows=2_000, query_rows=100,
+                       pvi_rows=100_000):
+    """The Rapids prims of ``search``, ``advmath``, ``strings``, ``times``
+    and ``models``: host numpy, as in the JAX package, fed by regions that
+    fuse on ``dev``. Each expression runs on ``Session(device=dev)`` and on
+    a CPU session (``Session(device="cpu")``) with the same bits; where a
+    fused region feeds the prim, it fuses on ``dev`` and the interpreter
+    (``fusion=False``) gives the same bits too. Results are checked
+    against numpy where the check is cheap. ``PermutationVarImp`` of
+    ``model`` scores on the card and, for a CPU copy of the model, on the
+    CPU: each variable's importance within ``PVI_ATOL``. Returns the phase's
+    record, with the histogram launches of its own segment fit (made only
+    when no ``SegmentModels`` is left in the DKV) under ``launches``."""
+    import tempfile
+
+    import torch
+    from h2o3_tpu_torch import GBM, ColType, Column, Frame
+    from h2o3_tpu_torch.keyed import DKV
+    from h2o3_tpu_torch.models import persist
+    from h2o3_tpu_torch.models.segments import SegmentModels, SegmentModelsBuilder
+    from h2o3_tpu_torch.models.tree.gbm import GBMParameters
+    from h2o3_tpu_torch.ops import cuda_build
+    from h2o3_tpu_torch.rapids import Session, exec_rapids, fusion
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sess = Session(device=dev)
+    host = Session(device=torch.device("cpu"))
+    plain = Session(device=dev, fusion=False)
+    rec = {"card_s": {}, "cpu_s": {}, "prims": [], "checks": {}}
+    launches = {k: 0 for k in cuda_build.KERNELS}
+    keys, slowest = [], []
+
+    def put(key, fr):
+        sess.assign(key, fr)
+        keys.append(key)
+        return fr
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def run(step, expr, interpreted=False):
+        """``expr`` on the card's session and the CPU's: the same bits. With
+        ``interpreted``, a region fuses on the card and the interpreter
+        gives the same bits."""
+        fused0 = fusion.COUNTS["fused"]
+        got, card_s = timed(lambda: exec_rapids(expr, sess))
+        fused = fusion.COUNTS["fused"] - fused0
+        ref, cpu_s = timed(lambda: exec_rapids(expr, host))
+        rec["card_s"][step] = rec["card_s"].get(step, 0.0) + card_s
+        rec["cpu_s"][step] = rec["cpu_s"].get(step, 0.0) + cpu_s
+        slowest.append((card_s, cpu_s, expr[:72]))
+        if not vals_equal(got, ref):
+            raise AssertionError(f"rapids prims {step}: card and CPU sessions part on {expr}")
+        if interpreted and (fused < 1 or not vals_equal(got, exec_rapids(expr, plain))):
+            raise AssertionError(f"rapids prims {step}: {expr} fused {fused} regions on the "
+                                 f"card, or parts from the interpreter")
+        name = expr[1:].split(" ", 1)[0].rstrip(")")
+        if name not in rec["prims"]:
+            rec["prims"].append(name)
+        return got.value
+
+    def check(name, ok, detail=None):
+        rec["checks"][name] = detail if detail is not None else bool(ok)
+        if not ok:
+            raise AssertionError(f"rapids prims: {name} ({detail})")
+
+    n = airlines.nrows
+    air = put("rp_air", Frame(airlines.columns))
+    dist = airlines.col("Distance").data
+    dow = airlines.col("DayOfWeek").data
+
+    # search: each prim fed by a comparison fused on the card, 2M rows
+    got = run("search", "(which (& (> (cols_py rp_air 10) 1500) (== (cols_py rp_air 3) 5)))",
+              True)
+    check("which", np.array_equal(got.col(0).data, np.nonzero((dist > 1500) & (dow == 5))[0]))
+    run("search", "(which.max (* (- (cols rp_air [4 5 10]) 1) -1))", True)
+    got = run("search", "(which.max (* (cols rp_air [4 5 10]) 2) 1 1)", True)
+    check("which.max", got.nrows == n)
+    run("search", "(which.min (+ (cols rp_air [4 5 10]) (cols_py rp_air 7)) 1 0)", True)
+    run("search", "(which.min (- (cols rp_air [4 5 10]) (cols_py rp_air 7)) 1 1)", True)
+    got = run("search", "(match (ifelse (> (cols_py rp_air 10) 1000) (cols_py rp_air 3) -1) "
+                        "[5 6 7] 0 1)", True)
+    want = np.where(dist > 1000, dow, -1)
+    check("match", np.array_equal(got.col(0).data,
+                                  np.select([want == 5, want == 6, want == 7], [1.0, 2.0, 3.0],
+                                            0.0)))
+
+    # advmath: the HIGGS columns, Origin x Dest, impute by Origin, the
+    # random columns, distances, tf-idf and isax at small_rows
+    put("rp_higgs", Frame(higgs.columns))
+    got = run("advmath", "(cor (cols rp_higgs [0:28]) (cols rp_higgs [0:28]))")
+    X = np.stack([higgs.col(f"x{j}").data for j in range(28)], axis=1)
+    check("cor", np.allclose(got.to_numpy(), np.corrcoef(X, rowvar=False), rtol=0, atol=1e-12))
+    got = run("advmath", "(var (cols rp_higgs [0:28]))")
+    check("var", np.allclose(got.to_numpy(), np.cov(X, rowvar=False), rtol=1e-12, atol=1e-15))
+    del X
+    for expr in ("(skewness (cols_py rp_higgs 0) 1)", "(kurtosis (cols_py rp_higgs 0) 1)",
+                 '(hist (cols_py rp_higgs 0) "sturges")', "(hist (cols_py rp_higgs 0) 50)",
+                 '(quantile (cols_py rp_higgs 0) [0 0.001 0.25 0.5 0.75 0.999 1] '
+                 '"interpolate" _)', "(difflag1 (cols_py rp_higgs 0))",
+                 "(unique (cols_py rp_air 8) 1)", "(unique (cols_py rp_air 9) 0)",
+                 f"(kfold_column rp_air 5 {seed})", "(modulo_kfold_column rp_air 5)",
+                 f"(stratified_kfold_column (cols_py rp_air 11) 5 {seed})",
+                 f"(h2o.runif rp_air {seed})"):
+        run("advmath", expr)
+    got = run("advmath", "(table (cols rp_air [8 9]))")
+    ok = (airlines.col("Origin").data >= 0) & (airlines.col("Dest").data >= 0)
+    check("table", got.nrows == 300 and got.ncols == 301
+          and float(got.to_numpy()[:, 1:].sum()) == float(ok.sum()))
+    got = run("advmath", '(h2o.impute rp_air 10 "median" "interpolate" [8] _ _)')
+    check("impute", not np.isnan(got.col("Distance").data).any()
+          and bits_equal(got.col("Distance").data[~np.isnan(dist)], dist[~np.isnan(dist)]))
+    got = run("advmath", f"(h2o.random_stratified_split (cols_py rp_air 11) 0.2 {seed})")
+    late = airlines.col("IsDepDelayed").data
+    test = got.col(0).data == 1
+    check("random_stratified_split", all(abs(test[late == c].sum() - 0.2 * (late == c).sum())
+                                         <= 0.5 for c in (0, 1)))
+    put("rp_ref", Frame([higgs.col(f"x{j}").select(np.arange(ref_rows)) for j in range(28)]))
+    put("rp_query", Frame([Column(f"q{j}", higgs.col(f"x{j}").data[ref_rows:ref_rows
+                                                                  + query_rows], ColType.NUM)
+                           for j in range(28)]))
+    R, Q = sess.lookup("rp_ref").to_numpy(), sess.lookup("rp_query").to_numpy()
+    for measure in ("l1", "l2", "cosine", "cosine_sq"):
+        got = run("advmath", f'(distance rp_ref rp_query "{measure}")').to_numpy()
+        if measure == "l1":
+            want = np.abs(R[:, None] - Q[None]).sum(-1)
+        elif measure == "l2":
+            want = np.sqrt(((R[:, None] - Q[None]) ** 2).sum(-1))
+        else:
+            cos = (R @ Q.T) / np.outer(np.linalg.norm(R, axis=1), np.linalg.norm(Q, axis=1))
+            want = cos if measure == "cosine" else cos * cos
+        check(f"distance {measure}", got.shape == (ref_rows, query_rows)
+              and np.allclose(got, want, rtol=1e-9, atol=1e-9))
+    head = airlines.rows(slice(0, small_rows))
+    names = lambda c: np.asarray(c.domain + ["NA"], dtype=object)[c.data]  # noqa: E731
+    text = [f"{a} {b} {c} {a}" for a, b, c in zip(names(head.col("Origin")),
+                                                 names(head.col("Dest")),
+                                                 names(head.col("UniqueCarrier")))]
+    put("rp_docs", Frame([Column("doc", np.arange(small_rows, dtype=np.float64) // 10,
+                                 ColType.NUM),
+                          Column("text", np.array(text, dtype=object), ColType.STR)]))
+    got = run("advmath", "(tf-idf rp_docs 0 1 1 0)")
+    check("tf-idf", got.nrows > small_rows // 10 and got.names[2:] == ["TF", "IDF", "TF_IDF"])
+    put("rp_series", Frame([higgs.col(f"x{j}").select(np.arange(small_rows))
+                            for j in range(28)]))
+    got = run("advmath", "(isax rp_series 7 16 0)")
+    check("isax", got.nrows == small_rows and got.ncols == 8)
+
+    # strings: the STR columns as.character makes of Origin and Dest
+    # (str_rows rows), and Origin itself, where the CAT domain is mapped
+    put("rp_air_head", airlines.rows(slice(0, str_rows)))
+    strs = put("rp_str", run("strings", "(as.character (cols rp_air_head [8 9]))"))
+    for expr in ("(tolower rp_str)", "(toupper (tolower rp_str))", "(trim rp_str)",
+                 '(lstrip rp_str "A")', '(rstrip rp_str "AB")', '(replaceall rp_str "[AB]" "x" 1)',
+                 '(replacefirst rp_str "A" "")', '(strsplit (cols_py rp_str 0) "B")',
+                 "(substring rp_str 1 3)", "(length rp_str)", '(grep (cols_py rp_str 0) "^A" 0 0 0)',
+                 '(grep (cols_py rp_str 1) "b$" 1 1 1)'):
+        run("strings", expr)
+    got = run("strings", "(strlen (cols_py rp_str 0))").col(0).data
+    check("strlen", np.array_equal(got, np.where(strs.col(0).data == None, np.nan, 3.0),  # noqa: E711
+                                   equal_nan=True))
+    # the prims that loop over characters or substrings in Python, at small_rows
+    put("rp_str_small", strs.rows(slice(0, small_rows)))
+    with tempfile.TemporaryDirectory() as tmp:
+        words = os.path.join(tmp, "words.txt")
+        with open(words, "w") as fh:
+            fh.write("\n".join(d for d in airlines.col("Origin").domain[:40]) + "\nAA\nBA\n")
+        for expr in ("(entropy rp_str_small)", '(countmatches rp_str_small ["A" "B"])',
+                     '(tokenize rp_str_small "A")',
+                     f'(num_valid_substrings rp_str_small "{words}")'):
+            run("strings", expr)
+    for measure in ("lv", "jaccard", "jw"):
+        run("strings", f'(strDistance (cols_py rp_str_small 0) (cols_py rp_str_small 1) '
+                       f'"{measure}" 1)')
+    origin = airlines.col("Origin")
+    got = run("strings", "(tolower (cols_py rp_air 8))").col(0)
+    check("tolower domain", got.domain == [d.lower() for d in origin.domain])
+    got = run("strings", "(substring (cols_py rp_air 8) 0 1)").col(0)
+    first = sorted({d[0] for d in origin.domain})
+    check("substring collapse", got.domain == first and np.array_equal(
+        got.data, np.where(origin.data >= 0, np.searchsorted(
+            first, np.asarray([d[0] for d in origin.domain]))[np.maximum(origin.data, 0)], -1)))
+    run("strings", "(strlen (cols_py rp_air 8))")
+
+    # times: mktime of str_rows airlines rows (the day clipped to 28, as the
+    # synthetic days run to 31 in every month), the UTC fields, as.Date of
+    # the same stamps as strings; then one America/New_York round at
+    # small_rows and back to UTC
+    a = "rp_air_head"
+    mk = (f"(mktime (cols_py {a} 0) (- (cols_py {a} 1) 1) (- (ifelse (> (cols_py {a} 2) 28) 28 "
+          f"(cols_py {a} 2)) 1) (intDiv (cols_py {a} 4) 100) (%% (cols_py {a} 4) 100) 0 0)")
+    stamps = put("rp_time", run("times", mk))
+    hd = sess.lookup(a)
+    yy, mm = hd.col("Year").data.astype(np.int64), hd.col("Month").data.astype(np.int64)
+    dd = np.minimum(hd.col("DayofMonth").data, 28).astype(np.int64)
+    dep = hd.col("CRSDepTime").data.astype(np.int64)
+    days = ((yy - 1970) * 12 + mm - 1).astype("datetime64[M]").astype("datetime64[D]") + (dd - 1)
+    want = (days.astype(np.int64) * 86_400_000 + (dep // 100) * 3_600_000
+            + (dep % 100) * 60_000).astype(np.float64)
+    check("mktime", bits_equal(stamps.col(0).data, want))
+    fields = {"year": yy, "month": mm, "day": dd, "dayOfWeek": None, "hour": dep // 100,
+              "minute": dep % 100, "second": 0, "millis": 0, "week": None}
+    for field, expect in fields.items():
+        got = run("times", f"({field} rp_time)").col(0).data
+        if expect is not None:
+            check(f"{field} of mktime", bits_equal(got, np.broadcast_to(expect, got.shape)))
+    text = np.char.replace(np.datetime_as_string(
+        stamps.col(0).data.astype(np.int64).astype("datetime64[ms]").astype("datetime64[m]")),
+        "T", " ")
+    put("rp_dates", Frame([Column("when", text.astype(object), ColType.STR)]))
+    got = run("times", '(as.Date rp_dates "yyyy-MM-dd HH:mm")')
+    check("as.Date of the mktime strings", bits_equal(got.col(0).data, want))
+    put("rp_time_small", stamps.rows(slice(0, small_rows)))
+    put("rp_dates_small", sess.lookup("rp_dates").rows(slice(0, small_rows)))
+    put("rp_air_small", hd.rows(slice(0, small_rows)))
+    utc_hours = run("times", "(hour rp_time_small)").col(0).data
+    try:
+        run("times_zone", '(setTimeZone "America/New_York")')
+        for field in fields:
+            got = run("times_zone", f"({field} rp_time_small)")
+            if field == "hour":
+                shift = set(((utc_hours - got.col(0).data) % 24).astype(int).tolist())
+                check("New York's hours are UTC's less 4 or 5", shift == {4, 5}, sorted(shift))
+        run("times_zone", "(getTimeZone)")
+        run("times_zone", mk.replace(a, "rp_air_small"), True)
+        got = run("times_zone", '(as.Date rp_dates_small "yyyy-MM-dd HH:mm")').col(0).data
+        check("as.Date in New York is later than in UTC",
+              set(((got - want[:small_rows]) / 3_600_000).tolist()) <= {4.0, 5.0})
+    finally:
+        exec_rapids('(setTimeZone "UTC")', sess)
+    check("the zone is UTC again", exec_rapids("(getTimeZone)", host).value == "UTC")
+    run("times", "(listTimeZones)")
+    run("times", "(time rp_time)")
+
+    # models: perfectAUC of the model's predictions, its threshold, the
+    # segment models' frame, permutation importance card against CPU
+    pred = model.predict(higgs)
+    y = higgs.col("y").data.astype(np.float64)
+    put("rp_pred", Frame([Column("p1", pred.col("p1").data, ColType.NUM),
+                          Column("act", y, ColType.NUM)]))
+    auc = float(run("models", "(perfectAUC (cols_py rp_pred 0) (cols_py rp_pred 1))")
+                .col(0).data[0])
+    rec["perfect_auc"] = auc
+    check("perfectAUC near the training AUC", abs(auc - model.training_metrics.auc) < 1e-3,
+          auc - float(model.training_metrics.auc))
+    t0 = float(model.default_threshold())
+    old = exec_rapids(f"(model.reset.threshold {model.key} 0.3)", sess).value.col(0).data[0]
+    back = exec_rapids(f'(model.reset.threshold "{model.key}" {t0!r})', host).value
+    check("model.reset.threshold", old == t0 and back.col(0).data[0] == 0.3
+          and model.default_threshold() == t0)
+    rec["prims"].append("model.reset.threshold")
+    segs = [DKV.get(k) for k in DKV.keys() if isinstance(DKV.get(k), SegmentModels)]
+    if segs:
+        sm = segs[0]
+        rec["segment_models"] = "an earlier phase's"
+    else:
+        small = sess.lookup("rp_air_small")
+        wk = Column("Weekend", (small.col("DayOfWeek").data >= 6).astype(np.int32), ColType.CAT,
+                    ["no", "yes"])
+        before = dict(cuda_build.LAUNCHES)
+        sm = SegmentModelsBuilder(GBM, GBMParameters(response_column="IsDepDelayed", ntrees=5,
+                                                     seed=seed, device=str(dev)),
+                                  ["Weekend"]).train(small.add_column(wk))
+        launches = {k: cuda_build.LAUNCHES[k] - before[k] for k in launches}
+        rec["segment_models"] = "its own, two segments"
+    got = run("models", f"(segment_models_as_frame {sm.key})")
+    status = got.col("status")
+    check("segment_models_as_frame", got.nrows == len(sm.segments)
+          and {status.domain[c] for c in status.data} == {"succeeded"})
+    cpu_model = persist.loads_model(persist.dumps_model(model), key=f"{model.key}_cpu",
+                                    register=True, device="cpu")
+    pvi = f'"logloss" {pvi_rows} 1 [] {seed}'
+    with call_counter(type(model), "_predict_raw") as calls:
+        card, rec["card_s"]["pvi"] = timed(lambda: exec_rapids(
+            f"(PermutationVarImp {model.key} rp_higgs {pvi})", sess).value)
+    cpu, rec["cpu_s"]["pvi"] = timed(lambda: exec_rapids(
+        f"(PermutationVarImp {cpu_model.key} rp_higgs {pvi})", host).value)
+    DKV.remove(cpu_model.key)
+    rec["prims"].append("PermutationVarImp")
+    imp_card = dict(zip(card.col(0).data, card.col(1).data))
+    imp_cpu = dict(zip(cpu.col(0).data, cpu.col(1).data))
+    gap = max(abs(imp_card[v] - imp_cpu[v]) for v in imp_card) if imp_card.keys() == \
+        imp_cpu.keys() else np.inf
+    order = list(card.col(0).data)
+    ordered = all(imp_cpu[a] >= imp_cpu[b] - PVI_ATOL for a, b in zip(order, order[1:]))
+    rec["pvi"] = {"rows": pvi_rows, "scorings_on_card": calls.calls, "max_abs_gap": gap,
+                  "top": order[:5], "bits_equal": bits_equal(card.col(1).data,
+                                                             cpu.col(1).data)}
+    if not (calls.calls == 29 and len(order) == 28 and gap <= PVI_ATOL and ordered):
+        raise AssertionError(f"rapids prims: PermutationVarImp card against CPU {rec['pvi']}")
+
+    for key in keys:
+        sess.remove(key)
+    rec["slowest"] = sorted(slowest, reverse=True)[:8]  # (card s, CPU s, expression)
+    rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    rec["launches"] = launches
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -3978,13 +4321,28 @@ def main() -> int:
     # plain versions; no histogram kernel runs in it
     launches_before = dict(cuda_build.LAUNCHES)
     t0 = time.time()
-    rapids_rec = rapids_phase(frame, synth_airlines(2_000_000, seed + 20), dev, seed)
+    air2m = synth_airlines(2_000_000, seed + 20)
+    rapids_rec = rapids_phase(frame, air2m, dev, seed)
     rapids_rec["phase_s"] = time.time() - t0
     rapids_rec["card"] = smi
     print(json.dumps({"rapids": rapids_rec}), flush=True)
     if cuda_build.LAUNCHES != launches_before:
         raise AssertionError(f"a histogram kernel ran in the Rapids phase: "
                              f"{cuda_build.LAUNCHES} (before: {launches_before})")
+
+    # the host prims of search, advmath, strings, times and models, fed by
+    # regions fused on the card; no histogram kernel runs in it but the
+    # B1 of its own segment fit, made only when no earlier one is left
+    launches_before = dict(cuda_build.LAUNCHES)
+    t0 = time.time()
+    prims_rec = rapids_prims_phase(frame, air2m, xgb_model, dev, seed)
+    prims_rec["phase_s"] = time.time() - t0
+    prims_rec["card"] = smi
+    print(json.dumps({"rapids_prims": prims_rec}), flush=True)
+    ran = {k: cuda_build.LAUNCHES[k] - launches_before[k] for k in cuda_build.KERNELS}
+    if ran != prims_rec["launches"]:
+        raise AssertionError(f"the Rapids prims phase launched {ran}, its segment fit "
+                             f"{prims_rec['launches']}")
 
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
@@ -3993,7 +4351,7 @@ def main() -> int:
                          hist_fact_max_kc=32)]
             if args.profile else None)
 
-    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec, breadth3_rec])
+    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec, breadth3_rec, prims_rec])
              for k in cuda_build.KERNELS}
     kernels = [
         kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
@@ -4015,7 +4373,7 @@ def main() -> int:
                        "surface": surface, "glm": glm_rec, "deeplearning": dl_rec,
                        "automl": automl_rec, "breadth": breadth_rec,
                        "breadth2": breadth2_rec, "breadth3": breadth3_rec,
-                       "rapids": rapids_rec,
+                       "rapids": rapids_rec, "rapids_prims": prims_rec,
                        "profile": prof, "kernels": kernels}, fh, indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

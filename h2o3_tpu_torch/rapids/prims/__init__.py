@@ -15,10 +15,10 @@ fuses only on those; elsewhere it is a region leaf and runs through the
 interpreter. ``tests/test_torch_rapids.py`` holds every emit to numpy on
 the CPU, and ``chip_smoke.py`` on the card.
 
-Ported so far: the operators, math, reducers, assignment, mungers and
-matrix groups. The prims of ``strings``, ``times``, ``advmath``, ``models``
-and ``search`` (:data:`UNPORTED`) wait for the next slice (ROADMAP A9 part
-2); applying one raises ``RapidsError("unknown identifier ...")``.
+Every group is ported: the registry's names are the JAX package's. The
+prims of ``strings``, ``times``, ``advmath``, ``models`` and ``search``
+run on the host in numpy, as in the JAX package; a fused region among their
+arguments still runs on the session's device.
 """
 
 from __future__ import annotations
@@ -26,26 +26,6 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Tuple
 
 PRIMS: Dict[str, Callable] = {}
-
-#: prim groups of the JAX package not ported yet -> their rapids names
-UNPORTED: Dict[str, Tuple[str, ...]] = {
-    "strings": ("tolower", "toupper", "trim", "lstrip", "rstrip", "replaceall",
-                "replacefirst", "strsplit", "substring", "length", "strlen",
-                "entropy", "countmatches", "num_valid_substrings", "grep",
-                "strDistance", "tokenize"),
-    "times": ("year", "month", "day", "dayOfWeek", "hour", "minute", "second",
-              "millis", "week", "mktime", "moment", "as.Date", "time",
-              "getTimeZone", "setTimeZone", "listTimeZones"),
-    "advmath": ("cor", "spearman", "var", "skewness", "kurtosis", "mode", "hist",
-                "impute", "h2o.impute", "h2o.runif", "kfold_column",
-                "modulo_kfold_column", "stratified_kfold_column",
-                "h2o.random_stratified_split", "quantile", "table", "unique",
-                "tf-idf", "rep_len", "seq", "seq_len", "difflag1", "isax", "ls",
-                "setproperty", ",", "distance"),
-    "models": ("perfectAUC", "model.reset.threshold", "segment_models_as_frame",
-               "PermutationVarImp"),
-    "search": ("match", "which", "which.max", "which.min"),
-}
 
 #: every device type the port runs on
 ALL_DEVICES = ("cpu", "cuda")
@@ -120,10 +100,15 @@ def prim(*names: str, fusible: bool = False, kind: Optional[str] = None,
 
 # importing the groups populates PRIMS
 from h2o3_tpu_torch.rapids.prims import (  # noqa: E402,F401
+    advmath,
     assign,
     mathops,
     matrix,
+    models,
     mungers,
     operators,
     reducers,
+    search,
+    strings,
+    times,
 )

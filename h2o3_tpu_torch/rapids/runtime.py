@@ -305,13 +305,6 @@ def _eval_exec(node: AstExec, env: Env) -> Val:
             Val.frame(env.session.lookup(op_name)) if env.session.lookup(op_name) else None
         )
         if fn_val is None:
-            from h2o3_tpu_torch.rapids.prims import UNPORTED
-
-            for group, names in UNPORTED.items():
-                if op_name in names:
-                    raise RapidsError(
-                        f"unknown identifier {op_name!r}: the {group} prims "
-                        f"are not part of this package yet")
             raise RapidsError(f"unknown function {op_name!r}")
     else:
         fn_val = eval_ast(node.op, env)

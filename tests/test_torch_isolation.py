@@ -74,7 +74,9 @@ def test_no_jax_or_reference_imports_in_the_port():
                    "compute/mapreduce.py", "compute/quantile.py", "frame/rollups.py",
                    "rapids/runtime.py", "rapids/fusion.py", "rapids/dist.py",
                    "rapids/merge.py", "rapids/groupby.py", "rapids/prims/mungers.py",
-                   "rapids/prims/matrix.py"):
+                   "rapids/prims/matrix.py", "rapids/prims/search.py",
+                   "rapids/prims/strings.py", "rapids/prims/times.py",
+                   "rapids/prims/advmath.py", "rapids/prims/models.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
@@ -230,8 +232,19 @@ def test_port_runs_with_jax_and_reference_blocked():
             rs.assign("rfr", fr)
             total = exec_rapids("(sum (* (+ (cols_py rfr 0) 1) 2))", rs).value
             srt = exec_rapids('(GB (sort rfr [3 0] [1 0]) [3] "mean" 0 "rm")', rs).value
+            hits = exec_rapids("(which (> (cols_py rfr 0) 0))", rs).value
+            rs.assign("tfr", ht.Frame([ht.Column("t", np.array([1.6e12, np.nan]),
+                                                 ht.ColType.TIME),
+                                       ht.Column("s", np.array(["Ab", None], dtype=object),
+                                                 ht.ColType.STR)]))
+            years = exec_rapids("(year (cols_py tfr 0))", rs).value
+            lower = exec_rapids("(tolower (cols_py tfr 1))", rs).value
             rs.remove("rfr")
+            rs.remove("tfr")
         assert np.isclose(total, 2 * (X[:, 0].sum() + 300)) and srt.nrows == 2
+        assert np.array_equal(hits.col(0).data, np.nonzero(X[:, 0] > 0)[0])
+        assert np.array_equal(years.col(0).data, [2020.0, np.nan], equal_nan=True)
+        assert list(lower.col(0).data) == ["ab", None]
         assert m.training_metrics.auc > 0.9
         assert f.training_metrics.auc > 0.9
         assert g.training_metrics.auc > 0.9 and g2.training_metrics.auc > 0.9

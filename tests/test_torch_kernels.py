@@ -371,7 +371,9 @@ def _check_rapids_device_paths(dev):
     numpy's, and the group aggregation equals itself on CPU tensors and its
     float64 numpy reading: counts, min and max exact, sums at 1e-12. And
     every fusible prim's emit (``rapids/prims``) that fuses on the card
-    gives numpy's bits on the special values and 200,000 wide ones."""
+    gives numpy's bits on the special values and 200,000 wide ones; a
+    region fused on the card feeding ``which`` and ``h2o.impute`` by group
+    gives a CPU session's bits."""
     from h2o3_tpu_torch.frame.frame import ColType, Column, Frame
     from h2o3_tpu_torch.rapids import dist
     from h2o3_tpu_torch.rapids.prims import FUSIBLE, PRIMS
@@ -435,3 +437,30 @@ def _check_rapids_device_paths(dev):
         assert not bad.any(), (name, a[bad][:3], b[bad][:3])
         checked += 1
     assert checked >= 30
+    # host prims fed by a region fused on the card: which, and impute by
+    # group, the same bits as from a CPU session
+    from h2o3_tpu_torch.rapids import Session, exec_rapids, fusion
+
+    g = rng.integers(0, 40, n).astype(np.int32)
+    g[::53] = -1
+    fr = Frame([Column("x", x, ColType.NUM), Column("y", y, ColType.NUM),
+                Column("g", g, ColType.CAT, [f"g{i}" for i in range(40)])])
+    card_s, cpu_s = Session(device=dev), Session(device="cpu")
+    for sess in (card_s, cpu_s):
+        sess.assign("card_prims", fr)
+    try:
+        for expr in ("(which (& (> (cols_py card_prims 0) 0) (< (cols_py card_prims 1) 0.5)))",
+                     "(h2o.impute (cbind (ifelse (> (cols_py card_prims 1) 1) NaN "
+                     '(* (cols_py card_prims 0) 2)) (cols_py card_prims 2)) 0 "median" '
+                     '"interpolate" [1] _ _)'):
+            fused0 = fusion.COUNTS["fused"]
+            on_card = exec_rapids(expr, card_s).value
+            assert fusion.COUNTS["fused"] > fused0, expr
+            on_cpu = exec_rapids(expr, cpu_s).value
+            assert on_card.names == on_cpu.names, expr
+            for c, h in zip(on_card.columns, on_cpu.columns):
+                assert c.type == h.type and c.domain == h.domain, expr
+                assert np.array_equal(c.data, h.data, equal_nan=True), (expr, c.name)
+    finally:
+        card_s.remove("card_prims")
+        cpu_s.remove("card_prims")

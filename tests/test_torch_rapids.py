@@ -21,7 +21,20 @@ the same data, and holds:
   ``sketch_column``, ``merge_edges``, rollups of NUM, CAT, TIME and STR
   columns, and ``x`` above a lowered ``_DEVICE_MIN_ELEMS`` at rtol 1e-5;
 - a failure on a device path (a ``dist`` function or the fused dispatch
-  made to raise) propagates out of ``exec_rapids``: no host answer.
+  made to raise) propagates out of ``exec_rapids``: no host answer;
+- the registry: the port's prims are the JAX package's, and a name neither
+  registers raises ``unknown function``;
+- every prim of ``search``, ``strings``, ``times``, ``advmath`` and
+  ``models`` on one seeded frame (NUM with NaN, CAT with NAs whose levels
+  collapse under ``tolower``, STR with ``None``, date strings, TIME stamps
+  on both sides of New York's 2021 DST changes): the port's CPU session
+  and its interpreter bit for bit against the JAX package (values, types,
+  domains, names), fused comparisons feeding host prims, the time fields
+  in UTC and in America/New_York, ``impute`` by groups, every ``distance``
+  measure, the seeded random columns, and the JAX package's errors;
+  ``PermutationVarImp`` of a JAX GLM carried across by
+  ``convert.glm_from_numpy``, per variable at atol 1e-6 (its order only
+  where neighbours part by more).
 
 Under jax 0.9.0, ``jax.experimental`` has no ``enable_x64``, which the JAX
 package's ``rapids/fusion.py`` and ``rapids/dist_exec.py`` import. This
@@ -30,6 +43,8 @@ anything imports ``h2o3_tpu.rapids``, and only where the name is missing.
 """
 
 import contextlib
+import dataclasses
+import os
 
 import jax
 import jax.experimental
@@ -71,9 +86,7 @@ from h2o3_tpu_torch.rapids import fusion as t_fusion  # noqa: E402
 from h2o3_tpu_torch.rapids import parser as t_parser  # noqa: E402
 from h2o3_tpu_torch.rapids.prims import FUSIBLE as T_FUSIBLE  # noqa: E402
 from h2o3_tpu_torch.rapids.prims import PRIMS as T_PRIMS  # noqa: E402
-from h2o3_tpu_torch.rapids.prims import UNPORTED  # noqa: E402
 from h2o3_tpu_torch.rapids.prims import matrix as t_matrix  # noqa: E402
-from h2o3_tpu_torch.rapids.runtime import RapidsError  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -251,20 +264,20 @@ def test_parser_and_fusion_match_jax(monkeypatch):
             j_parser.parse(bad)
         with pytest.raises(t_parser.RapidsParseError):
             t_parser.parse(bad)
-    # -- the registries: the same fusible prims; the rest of the JAX
-    # package's prims are the unported groups, each raising unknown identifier
+    # -- the registries: the same prims and the same fusible prims; a name
+    # neither registers raises unknown function in both packages
+    assert set(T_PRIMS) == set(J_PRIMS)
     assert set(T_FUSIBLE) == set(J_FUSIBLE) == set(PARITY_CASES)
     for name, spec in T_FUSIBLE.items():
         assert spec.kind == J_FUSIBLE[name].kind, name
         assert (spec.emit is None) == (J_FUSIBLE[name].emit is None), name
-    unported = {n for names in UNPORTED.values() for n in names}
-    assert set(J_PRIMS) - set(T_PRIMS) == unported and not set(T_PRIMS) - set(J_PRIMS)
     s = Sessions()
     try:
         s.assign("pf", special_columns())
-        for name in ("strsplit", "which", "year", "quantile", "perfectAUC"):
-            with pytest.raises(RapidsError, match="unknown identifier"):
-                t_exec(f"({name} pf)", s.t)
+        for run in (lambda e: j_exec(e, s.j), lambda e: t_exec(e, s.t)):
+            with pytest.raises(ValueError, match="unknown function 'no_such_prim'") as ei:
+                run("(no_such_prim pf)")
+            assert type(ei.value).__name__ == "RapidsError"
         # -- every fusible prim, bitwise against the JAX package's fused run
         for name, expr in sorted(PARITY_CASES.items()):
             j0 = jax_fused()
@@ -449,6 +462,370 @@ def test_device_sort_merge_group_by_and_mungers_match_jax(monkeypatch):
             assert_same_val(jv, tv, expr)
     finally:
         s.close()
+    # -- a failure on a device path raises and gives no host answer: the
+    # JAX package answers from the host when its device sort, probe,
+    # aggregation or fused dispatch fails; the port raises
+    def down(*a, **kw):
+        raise RuntimeError("device path down")
+
+    sess = TSession(device="cpu")
+    cols = _munge_columns(200, 9)
+    sess.assign("fr", both(cols)[1])
+    sess.assign("lk", both([("g", np.array([0, 1], dtype=np.int32), "CAT", list("ab"))])[1])
+    try:
+        for name, expr in (("device_lexsort", "(sort fr [0] [1])"),
+                           ("device_searchsorted_both", '(merge fr lk 1 0 [] [] "auto")'),
+                           ("device_argsort_u64", '(merge fr lk 0 0 [] [] "auto")'),
+                           ("device_group_aggregate", '(GB fr [1] "sum" 2 "rm")')):
+            with monkeypatch.context() as m:
+                m.setattr(t_dist, name, down)
+                with pytest.raises(RuntimeError, match="device path down"):
+                    t_exec(expr, sess)
+        back = t_fusion.COUNTS["fallback"]
+        with monkeypatch.context() as m:
+            m.setattr(t_fusion, "map_batches", down)
+            with pytest.raises(RuntimeError, match="device path down"):
+                t_exec("(* (+ (cols_py fr 0) 1) 2)", sess)
+        assert t_fusion.COUNTS["fallback"] == back  # no replay on the host
+        # a decision made before any launch still takes the host: mode has
+        # no device path
+        out = t_exec('(GB fr [1] "mode" 2 "all")', sess).value
+        assert out.nrows == 6
+    finally:
+        sess.remove("fr")
+        sess.remove("lk")
+
+
+def _prim_columns(n, seed):
+    """NUM with NaN and ties, CAT with NAs whose levels collapse under
+    ``tolower``, STR with ``None``, date strings, TIME stamps on both sides
+    of the 2021 DST changes in America/New_York, a binary response."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=n) * 3
+    x[rng.random(n) < 0.05] = np.nan
+    y = 0.5 * np.nan_to_num(x) + rng.normal(size=n)
+    y[rng.random(n) < 0.04] = np.nan
+    k = rng.integers(0, 4, n).astype(np.float64)
+    k[rng.random(n) < 0.03] = np.nan
+    g = rng.integers(0, 4, n).astype(np.int32)
+    g[rng.random(n) < 0.05] = -1
+    words = np.array(["the quick fox", "a-b-c", "", "Hello World", "  pad me  ",
+                      "xxAxx", "aa bb aa", "Zebra"], dtype=object)
+    s = words[rng.integers(0, len(words), n)]
+    s[rng.random(n) < 0.06] = None
+    # around 2021-03-14 07:00 UTC and 2021-11-07 06:00 UTC (New York's changes)
+    base = np.where(rng.random(n) < 0.5, 1615680000000.0, 1636243200000.0)
+    t = base + rng.integers(0, 48 * 3600, n) * 1000.0 + rng.integers(0, 1000, n)
+    t[rng.random(n) < 0.04] = np.nan
+    dates = np.array([None if np.isnan(v) else
+                      str(np.datetime64(int(v), "ms").astype("datetime64[s]")).replace("T", " ")
+                      for v in t], dtype=object)
+    resp = (rng.random(n) < 0.4).astype(np.int32)
+    return [("x", x, "NUM", None), ("y", y, "NUM", None), ("k", k, "NUM", None),
+            ("g", g, "CAT", ["Ab", "ab", " cd ", "EF"]), ("s", s, "STR", None),
+            ("d", dates, "STR", None), ("t", t, "TIME", None),
+            ("r", resp, "CAT", ["no", "yes"])]
+
+
+def _same_error(s, expr, jexpr=None, message=True):
+    """Both packages raise the same exception type, with the same message
+    unless ``message`` is false (a message holding an object's repr)."""
+    errs = []
+    for run, e in ((lambda e: j_exec(e, s.j), jexpr or expr), (lambda e: t_exec(e, s.t), expr)):
+        with pytest.raises(Exception) as ei:
+            run(e)
+        errs.append((type(ei.value).__name__, str(ei.value) if message else ""))
+    assert errs[0] == errs[1], (expr, errs)
+    return errs[0]
+
+
+def _check_search_and_strings(s, tmp_path):
+    for expr in (
+            # a fused comparison on the session's device feeds a host prim
+            "(which (& (> (cols_py pp 0) 0) (< (cols_py pp 1) 1)))",
+            "(which (cols_py pp 7))", "(match (cols_py pp 2) [3 1 3] NaN 1)",
+            '(match (cols_py pp 3) ["ab" "EF" "ab" "zz"] -1 0)',
+            '(match (cols_py pp 4) ["Zebra" "" "a-b-c"])', "(which.max (cols pp [0 1]))",
+            "(which.min (cols pp [0 1]) 1 1)", "(which.max (* (cols pp [0 1]) -1) 1 1)",
+            # the CAT domain path (tolower collapses Ab/ab) and the STR path
+            "(tolower (cols pp [3 4]))", "(toupper (cols pp [3 4]))", "(trim (cols pp [3 4]))",
+            '(lstrip (cols pp [3 4]) " x")', '(rstrip (cols pp [3 4]) " x")',
+            "(lstrip (cols_py pp 4))", "(rstrip (cols_py pp 3))",
+            '(replaceall (cols pp [3 4]) "[ab]" "_" 1)', '(replaceall (cols_py pp 4) "a" "")',
+            '(replacefirst (cols pp [3 4]) "A" "#" 0)', '(replacefirst (cols_py pp 4) "X" "-" 1)',
+            '(strsplit (cols_py pp 4) "[ -]")', '(strsplit (cols_py pp 3) "b")',
+            "(substring (cols pp [3 4]) 1 3)", "(substring (cols_py pp 4) -2 NaN)",
+            "(substring (cols_py pp 4) 4 2)", "(length (cols pp [3 4]))", "(strlen (cols_py pp 4))",
+            "(entropy (cols pp [3 4]))", '(countmatches (cols pp [3 4]) ["a" "x"])',
+            '(countmatches (cols_py pp 4) "aa")', '(grep (cols_py pp 4) "a" 0 0 0)',
+            '(grep (cols_py pp 4) "^[a-z]" 1 1 1)', '(grep (cols_py pp 3) "b" 0 0 1)',
+            '(strDistance (cols_py pp 4) (cols_py pp 5) "lv" 1)',
+            '(strDistance (cols_py pp 3) (cols_py pp 4) "Jaccard" 0)',
+            '(strDistance (cols_py pp 4) (cols_py pp 3) "jw")',
+            '(strDistance (cols_py pp 4) (cols_py pp 4) "jaro_winkler" 0)',
+            '(tokenize (cols pp [4 3]) "[ -]")'):
+        jv, tv, pv, _ = s.run(expr)
+        assert_same_val(jv, tv, expr)
+        assert_same_val(pv, tv, expr)
+    path = tmp_path / "words.txt"
+    path.write_text("the\nfox\nbb\nab\n\nxx\n")
+    jv, tv, pv, _ = s.run(f'(num_valid_substrings (cols pp [3 4]) "{path}")')
+    assert_same_val(jv, tv)
+    assert_same_val(pv, tv)
+    for expr in ('(match (cols_py pp 0) ["a"])', '(strDistance (cols_py pp 4) (cols_py pp 4) "x")',
+                 '(grep (cols_py pp 0) "a")', "(tolower (cols_py pp 9))"):
+        _same_error(s, expr)
+
+
+def _check_times(s):
+    from h2o3_tpu.rapids.prims import times as j_times
+    from h2o3_tpu_torch.rapids.prims import times as t_times
+
+    fields = ("year", "month", "day", "dayOfWeek", "hour", "minute", "second", "millis",
+              "week")
+    s.assign("tp", [("Y", np.array([2021, 2021, np.nan, 1999, 2024, 2021]), "NUM", None),
+                    ("M", np.array([2.0, 10, 0, 11, 1, 2]), "NUM", None),
+                    ("D", np.array([13.0, 6, 0, 30, 28, 13]), "NUM", None),
+                    ("H", np.array([1.0, 1, 5, 23, 12, 2]), "NUM", None),
+                    ("Mi", np.array([59.0, 30, 0, 59, 0, 30]), "NUM", None)])
+    try:
+        for zone in ("UTC", "America/New_York"):
+            jv, tv, pv, _ = s.run(f'(setTimeZone "{zone}")')
+            assert_same_val(jv, tv, zone)
+            assert t_times._TIME_ZONE == j_times._TIME_ZONE == zone
+            for expr in ([f"({f} (cols_py pp 6))" for f in fields]
+                         + [f"({f} 1615705200123)" for f in fields]
+                         + ["(getTimeZone)", "(time (cols_py pp 6))", "(time 1615705200123)",
+                            "(mktime (cols_py tp 0) (cols_py tp 1) (cols_py tp 2) "
+                            "(cols_py tp 3) (cols_py tp 4) 0 0)",
+                            "(mktime 2021 2 13 6 30 15 250)", "(moment 2021 10 6 1 30)",
+                            "(year (mktime (cols_py tp 0) (cols_py tp 1) (cols_py tp 2)))",
+                            '(as.Date (cols_py pp 5) "yyyy-MM-dd HH:mm:ss")',
+                            '(as.Date (as.factor (cols_py pp 5)) "yyyy-MM-dd HH:mm:ss")']):
+                jv, tv, pv, _ = s.run(expr)
+                assert_same_val(jv, tv, (zone, expr))
+                assert_same_val(pv, tv, (zone, expr))
+        jv, tv, _, _ = s.run("(listTimeZones)")
+        assert_same_val(jv, tv)
+        assert "America/New_York" in list(tv.value.col(0).data)
+        kind, _ = _same_error(s, '(setTimeZone "Mars/Olympus_Mons")')
+        assert t_times._TIME_ZONE == "America/New_York"
+        _same_error(s, '(as.Date (cols_py pp 4) "yyyy-MM-dd")')
+    finally:
+        j_times._TIME_ZONE = t_times._TIME_ZONE = "UTC"
+        s.j.remove("tp")
+        s.t.remove("tp")
+        s.keys.remove("tp")
+
+
+def _check_advmath(s):
+    rng = np.random.default_rng(23)
+    s.assign("dr", [(f"c{j}", rng.normal(size=50), "NUM", None) for j in range(3)])
+    s.assign("dq", [(f"q{j}", rng.normal(size=7), "NUM", None) for j in range(3)])
+    s.assign("dn", [(f"c{j}", np.where(np.arange(7) == 3, np.nan, 1.0), "NUM", None)
+                    for j in range(3)])
+    docs = np.repeat(np.arange(6.0), 3)
+    text = np.array(["the cat sat", "The cat", None, "a dog", "dog dog cat", "sat",
+                     "x y", "y", "", "cat", "the", "Dog", "a b", "b a", "c", "q", "q q", None],
+                    dtype=object)
+    s.assign("tx", [("doc", docs, "NUM", None), ("text", text, "STR", None)])
+    series = np.cumsum(rng.normal(size=(12, 16)), axis=1)
+    series[2] = 5.0  # a flat row: sd 0
+    s.assign("ts", [(f"t{j}", series[:, j], "NUM", None) for j in range(16)])
+    os.environ.pop("H2O3_PRIM_PARITY_PROP", None)
+    try:
+        for expr in (
+                "(cor (cols pp [0 1]) (cols pp [0 1]))", '(cor (cols pp [0 1 2]) (cols pp [1]) '
+                '"complete.obs")', '(cor (cols_py pp 0) (cols_py pp 1) "complete.obs")',
+                "(cor (cols pp [0 1]) (cols pp [2]))", '(spearman pp "x" "y")',
+                "(spearman pp 0 2)", "(var (cols pp [0 1 2]))",
+                '(var (cols pp [0 1]) (cols pp [2]) "complete.obs")', "(var (cols_py pp 1))",
+                "(skewness (cols pp [0 1]) 1)", "(skewness (cols_py pp 0) 0)",
+                "(kurtosis (cols pp [0 2]) 1)", "(kurtosis (cols_py pp 2))", "(mode (cols_py pp 3))",
+                "(mode (cols_py pp 2))", "(hist (cols_py pp 0))", '(hist (cols_py pp 1) "rice")',
+                '(hist (cols_py pp 0) "fd")', '(hist (cols_py pp 2) "scott")',
+                "(hist (cols_py pp 1) 7)", "(hist (cols_py pp 0) [-4 -1 0 2 9])",
+                '(h2o.impute pp 0 "mean" "interpolate" [] _ _)',
+                '(impute pp 1 "median" "interpolate" [3] _ _)',
+                '(h2o.impute pp -1 "mode" "interpolate" [2 3] _ _)',
+                '(impute pp -1 "mean" "interpolate" [7] _ _)', '(impute pp 3 "mode")',
+                "(h2o.runif pp 42)", "(kfold_column pp 5 7)", "(kfold_column pp 3)",
+                "(modulo_kfold_column pp 4)", "(stratified_kfold_column (cols_py pp 7) 3 11)",
+                "(stratified_kfold_column (cols_py pp 2) 4)",
+                "(h2o.random_stratified_split (cols_py pp 7) 0.25 5)",
+                "(h2o.random_stratified_split (cols_py pp 2) 0.3 9)",
+                "(h2o.random_stratified_split (cols_py pp 3) 0.5 1)",
+                '(quantile (cols pp [0 1 2 4]) [0 0.1 0.25 0.5 0.99 1] "interpolate" _)',
+                '(quantile (cols_py pp 3) [0.5 0.75] "low" _)', "(table (cols_py pp 3))",
+                "(table (cols pp [3 7]))", "(table (cols_py pp 2) (cols_py pp 7))",
+                "(table (cols_py pp 0))", "(unique (cols_py pp 3) 1)", "(unique (cols_py pp 3))",
+                "(unique (cols_py pp 2) 1)", "(unique (cols_py pp 0) 0)",
+                "(tf-idf tx 0 1 1 0)", "(tf-idf tx 0 1 0 1)", "(tf-idf tx 0 1)",
+                "(rep_len (cols_py pp 3) 500)", "(rep_len 2.5 4)", "(seq 1 10 2)", "(seq 5 1 -1.5)",
+                "(seq 0 1)", "(seq_len 5)", "(difflag1 (cols_py pp 0))", "(isax ts 4 8 0)",
+                "(isax ts 3 4 0)", '(setproperty "H2O3_PRIM_PARITY_PROP" "on")',
+                '(distance dr dq "l1")', '(distance dr dq "L2")', '(distance dr dq "cosine")',
+                '(distance dr dq "cosine_sq")', '(distance dq dq "l2")'):
+            jv, tv, pv, _ = s.run(expr)
+            assert_same_val(jv, tv, expr)
+            assert_same_val(pv, tv, expr)
+        assert os.environ["H2O3_PRIM_PARITY_PROP"] == "on"
+        # "," (the parser reads a comma as a separator): the last value
+        for exprs in ([], ["1", "(cols_py pp 1)"]):
+            assert_same_val(J_PRIMS[","](None, [j_exec(e, s.j) for e in exprs]),
+                            T_PRIMS[","](None, [t_exec(e, s.t) for e in exprs]), exprs)
+        # ls: each package's own store, sorted
+        from h2o3_tpu.keyed import DKV as JDKV_
+        from h2o3_tpu_torch.keyed import DKV as TDKV
+
+        jv, tv, _, _ = s.run("(ls)")
+        assert list(jv.value.col(0).data) == sorted(JDKV_.keys())
+        assert list(tv.value.col(0).data) == sorted(TDKV.keys())
+        assert {"pp", "dr", "tx"} <= set(tv.value.col(0).data)
+        for expr in ('(cor (cols pp [0 1]) (cols pp [0 1]) "all.obs")',
+                     '(impute pp 3 "mean")', '(impute pp 0 "mid")',
+                     '(distance dr dq "manhattan")', '(distance dr (cols dq [0 1]) "l1")',
+                     '(distance dr dn "l2")'):
+            _same_error(s, expr)
+    finally:
+        os.environ.pop("H2O3_PRIM_PARITY_PROP", None)
+        for key in ("dr", "dq", "dn", "tx", "ts"):
+            s.j.remove(key)
+            s.t.remove(key)
+            s.keys.remove(key)
+
+
+@contextlib.contextmanager
+def _jax_keys_removed():
+    from h2o3_tpu.keyed import DKV as JDKV_
+    from h2o3_tpu.models.framework import Job as JJob
+
+    before = set(JDKV_.keys())
+    try:
+        yield
+    finally:
+        for k in set(JDKV_.keys()) - before:
+            if not isinstance(JDKV_.peek(k), JJob):
+                JDKV_.remove(k)
+
+
+def _assert_same_importances(jf, tf, ctx, atol=1e-6):
+    """The same variables, each importance within ``atol``; the order only
+    where neighbours part by more than ``atol`` (near-equal ones may swap)."""
+    assert jf.names == tf.names, ctx
+    jvars, tvars = list(jf.col(0).data), list(tf.col(0).data)
+    assert set(jvars) == set(tvars) and len(jvars) == len(tvars), ctx
+    for name in jf.names[1:]:
+        jmap = dict(zip(jvars, jf.col(name).data))
+        tmap = dict(zip(tvars, tf.col(name).data))
+        for v in jvars:
+            assert abs(jmap[v] - tmap[v]) <= atol, (ctx, name, v, jmap[v], tmap[v])
+    key = dict(zip(jvars, jf.col(1).data))
+    for a, b in zip(tvars, tvars[1:]):
+        assert key[a] >= key[b] - atol, (ctx, tvars)
+
+
+def _check_model_prims(s):
+    from h2o3_tpu.models.glm import GLM as JGLM
+    from h2o3_tpu.models.segments import SegmentModels as JSegmentModels
+    from h2o3_tpu_torch.convert import glm_from_numpy
+    from h2o3_tpu_torch.keyed import DKV as TDKV
+    from h2o3_tpu_torch.models.segments import SegmentModels as TSegmentModels
+
+    rng = np.random.default_rng(1)
+    n = 400
+    X = rng.normal(size=(n, 4))
+    yv = (rng.random(n) < 1 / (1 + np.exp(-(X @ np.array([2.0, -1.0, 0.5, 0.0]))))).astype(
+        np.int32)
+    cols = [(f"x{j}", X[:, j], "NUM", None) for j in range(4)] + [
+        ("y", yv, "CAT", ["0", "1"])]
+    probs = np.round(rng.random(500), 2)  # ties
+    acts = (rng.random(500) < probs).astype(np.float64)
+    s.assign("pa", [("p", probs, "NUM", None), ("a", acts, "NUM", None)])
+    s.assign("bad", [("p", np.array([0.1, 1.5]), "NUM", None),
+                     ("a", np.array([0.0, 2.0]), "NUM", None)])
+    with _jax_keys_removed():
+        jfr, _ = s.assign("mf", cols)
+        jm = JGLM(family="binomial", response_column="y").train(jfr)
+        arrays = {"beta_std": jm.beta_std, "coefficients": jm.coefficients}
+        pm = glm_from_numpy(arrays, dataclasses.asdict(jm.data_info),
+                            dataclasses.asdict(jm.params), device="cpu")
+        jsm, tsm = JSegmentModels(), TSegmentModels()
+        for sm, model in ((jsm, jm), (tsm, pm)):
+            sm.segments = [{"g": "a"}, {"g": "b"}, {"g": "c"}]
+            sm.models = [model, None, model]
+            sm.errors = [None, "ValueError: too few rows", None]
+            sm.run_times = [0.1, 0.0, 0.1]
+        try:
+            for expr in ("(perfectAUC (cols_py pa 0) (cols_py pa 1))",
+                         "(perfectAUC (cols_py pa 1) (cols_py pa 1))"):
+                jv, tv, pv, _ = s.run(expr)
+                assert_same_val(jv, tv, expr)
+                assert_same_val(pv, tv, expr)
+            for expr in ("(perfectAUC (cols_py bad 0) (cols_py pa 1))",
+                         "(perfectAUC (cols_py pa 0) (cols_py bad 1))",
+                         "(perfectAUC pa (cols_py pa 1))"):
+                _same_error(s, expr)
+            # the threshold: each model's own first, then the value set
+            old = (jm.default_threshold(), pm.default_threshold())
+            firsts = []
+            for e, sess, m in ((j_exec, s.j, jm), (t_exec, s.t, pm)):
+                firsts.append(e(f"(model.reset.threshold {m.key} 0.75)", sess))
+                again = e(f'(model.reset.threshold "{m.key}" 0.25)', sess)
+                assert m.default_threshold() == 0.25
+                assert again.value.col(0).data[0] == 0.75
+            assert [float(v.value.col(0).data[0]) for v in firsts] == list(old)
+            assert_same_val(j_exec(f"(model.reset.threshold {jm.key} 0.5)", s.j),
+                            t_exec(f"(model.reset.threshold {pm.key} 0.5)", s.t))
+            assert _same_error(s, "(model.reset.threshold pa 0.5)",
+                               message=False)[0] == "TypeError"
+            # the segment models' frame, by id and by key string
+            for jexpr, texpr in ((f"(segment_models_as_frame {jsm.key})",
+                                  f"(segment_models_as_frame {tsm.key})"),
+                                 (f'(segment_models_as_frame "{jsm.key}")',
+                                  f'(segment_models_as_frame "{tsm.key}")')):
+                jf, tf = j_exec(jexpr, s.j).value, t_exec(texpr, s.t).value
+                assert tf.col("model").domain == [pm.key, ""]
+                assert jf.col("model").domain == [jm.key, ""]
+                tf.col("model").domain = jf.col("model").domain
+                assert_same_frame(jf, tf, texpr)
+            err = _same_error(s, f"(segment_models_as_frame {pm.key})",
+                              f"(segment_models_as_frame {jm.key})", message=False)
+            assert err[0] == "TypeError"
+            # permutation importance: features empty, STRS and STR, the
+            # sampled and repeated runs, every metric branch's errors
+            for args in ('"auc" -1 1 [] 42', '"logloss" 200 2 ["x0" "x1"] 7',
+                         '"auto" -1 1 "x2" 3', '"mse" 150 1 [] 5', '"AUTO" -1 3 [] 11'):
+                jv = j_exec(f"(PermutationVarImp {jm.key} mf {args})", s.j)
+                tv = t_exec(f"(PermutationVarImp {pm.key} mf {args})", s.t)
+                _assert_same_importances(jv.value, tv.value, args)
+            for args in ('"auc" 1 1 [] 42', '"auc" -1 1 ["zz"] 42', '"auc" -1 0 [] 42',
+                         '"r2x" -1 1 [] 42', '"auc" -1 1 ["y"] 42', '"mae" 500 1 [] 1'):
+                _same_error(s, f"(PermutationVarImp {pm.key} mf {args})",
+                            f"(PermutationVarImp {jm.key} mf {args})")
+        finally:
+            for key in ("mf", "pa", "bad"):
+                s.j.remove(key)
+                s.t.remove(key)
+                s.keys.remove(key)
+            TDKV.remove(pm.key)
+            TDKV.remove(tsm.key)
+
+
+def test_string_time_math_search_and_model_prims_match_jax(tmp_path):
+    """Every prim of ``strings``, ``times``, ``advmath``, ``models`` and
+    ``search``: the port's CPU session (fused and interpreted) bit for bit
+    against the JAX package, errors alike; ``PermutationVarImp`` per
+    variable at 1e-6."""
+    s = Sessions()
+    try:
+        s.assign("pp", _prim_columns(300, 21))
+        _check_search_and_strings(s, tmp_path)
+        _check_times(s)
+        _check_advmath(s)
+        _check_model_prims(s)
+    finally:
+        s.close()
 
 
 def test_compute_core_matches_jax(monkeypatch):
@@ -551,39 +928,3 @@ def test_compute_core_matches_jax(monkeypatch):
         assert_same_val(jv, tv)
     finally:
         s.close()
-
-
-def test_a_device_path_failure_raises_and_gives_no_host_answer(monkeypatch):
-    """The JAX package answers from the host when its device sort, probe,
-    aggregation or fused dispatch fails; the port raises."""
-    monkeypatch.setattr(t_dist, "DIST_SORT_MIN", 1)
-
-    def down(*a, **kw):
-        raise RuntimeError("device path down")
-
-    sess = TSession(device="cpu")
-    cols = _munge_columns(200, 9)
-    sess.assign("fr", both(cols)[1])
-    sess.assign("lk", both([("g", np.array([0, 1], dtype=np.int32), "CAT", list("ab"))])[1])
-    try:
-        for name, expr in (("device_lexsort", "(sort fr [0] [1])"),
-                           ("device_searchsorted_both", '(merge fr lk 1 0 [] [] "auto")'),
-                           ("device_argsort_u64", '(merge fr lk 0 0 [] [] "auto")'),
-                           ("device_group_aggregate", '(GB fr [1] "sum" 2 "rm")')):
-            with monkeypatch.context() as m:
-                m.setattr(t_dist, name, down)
-                with pytest.raises(RuntimeError, match="device path down"):
-                    t_exec(expr, sess)
-        back = t_fusion.COUNTS["fallback"]
-        with monkeypatch.context() as m:
-            m.setattr(t_fusion, "map_batches", down)
-            with pytest.raises(RuntimeError, match="device path down"):
-                t_exec("(* (+ (cols_py fr 0) 1) 2)", sess)
-        assert t_fusion.COUNTS["fallback"] == back  # no replay on the host
-        # a decision made before any launch still takes the host: mode has
-        # no device path
-        out = t_exec('(GB fr [1] "mode" 2 "all")', sess).value
-        assert out.nrows == 6
-    finally:
-        sess.remove("fr")
-        sess.remove("lk")

@@ -225,7 +225,8 @@ Run from the root of a checkout. Phases, each of which must pass:
    line and launches no histogram kernel;
 22. Aggregator, RuleFit, segment models, Generic, Assembly with the scoring
    pipeline, and the reference-format MOJO (``breadth3_phase``): the
-   Aggregator at its defaults on the N x 28 features (counts summing to
+   Aggregator at its defaults on the first 200,000 rows of the N x 28
+   features (cut from N for the script's time; counts summing to
    N, distinct exemplar rows, an output frame with ``counts`` and every
    predictor); RuleFit at its defaults (GBM rules of length 3 from 50
    trees, ``rules_and_linear``) on the frame's first 100,000 rows (cut
@@ -314,16 +315,34 @@ Run from the root of a checkout. Phases, each of which must pass:
    ``{"rapids_prims": ...}`` line and launches no histogram kernel (but
    B1 for its own two-segment fit, made only where no segment run is left
    in the DKV, counted on the kernels line);
-25. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
+25. row sharding over ``torch.distributed`` (``mesh_phase``, the port's
+   ``parallel/mesh.py``) in spawned ranks on this card: (a) one rank with
+   NCCL at world size 1 fits phase 8's XGBoost through ``.train()`` with
+   the group live, its trees and predictions bit for bit phase 8's, and
+   prints its collectives, while ``entry.dryrun_multichip(1,
+   device="cuda")`` runs beside it; then (b) two gloo ranks sharing ``cuda:0`` (host-staged) fit the same
+   XGBoost (the same trees as phase 8, or AUC within 1e-4), build the
+   merged root histogram (counts exact, sums at rtol 1e-5 / atol 1e-4 of
+   one build over every row), fit a 5-tree DRF (B2 at levels 8-11,
+   sharded), sort 2,000,000 airlines-shaped rows by [Origin, Dest] with
+   the sample sort (the host lexsort's order bit for bit) and group them
+   (counts exact), and run one sharded GLM Gram pass (each entry within
+   1e-5 of the size of its terms of one pass over every row); both ranks'
+   trees, gathered predictions, orders, groups and Grams the same bits;
+   each fit's launches exact. It prints the seconds of each part, merges
+   per fit, ms per merge (CUDA events), bytes gathered per level and the
+   device memory peak in a ``{"mesh": ...}`` line with the card's name
+   and power limit;
+26. with ``--profile``, one more XGBoost, DRF and monotone XGBoost fit
    each under ``torch.profiler``: device time by kernel, and the device's
    idle share of the fit.
 
 It prints the whole run's seconds, one ``{"kernels": [...]}`` line (each
 kernel's f32 record and, under ``"bf16"``, its bf16 one; its launches are
 those of phases 8-15, of phase 19's main AutoML run, of phase 22's
-RuleFit, serial segment and pipeline fits and of phase 24's segment fit
-where it makes one; phases 16-18, 20, 21 and 23 launch no histogram
-kernel), then
+RuleFit, serial segment and pipeline fits, of phase 24's segment fit
+where it makes one and of phase 25's ranks' fits; phases 16-18, 20, 21
+and 23 launch no histogram kernel), then
 the card's name and power limit, then as the last line ``{"ok": true,
 "device": {...}}``. Any failure exits nonzero before those lines. Imports
 nothing of JAX. Matmuls stay true float32: the port never enables TF32,
@@ -1441,16 +1460,16 @@ class GramTimer:
     def __enter__(self):
         import torch
 
-        def timed(Xd, wz, w):
+        def timed(Xd, wz, w, mesh=None):
             if Xd.device.type != "cuda":
                 t0 = time.perf_counter()
-                out = self.orig(Xd, wz, w)
+                out = self.orig(Xd, wz, w, mesh)
                 self.ms.append((time.perf_counter() - t0) * 1e3)
                 return out
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = self.orig(Xd, wz, w)
+            out = self.orig(Xd, wz, w, mesh)
             end.record()
             end.synchronize()
             self.ms.append(start.elapsed_time(end))
@@ -2819,6 +2838,7 @@ def replay_parted_segments(frame, segments, models, params):
     from h2o3_tpu_torch.models.segments import SegmentModelsBuilder
     from h2o3_tpu_torch.models.tree import booster
     from h2o3_tpu_torch.ops import cuda_build
+    from h2o3_tpu_torch.ops import histogram as hmod
     from h2o3_tpu_torch.ops.cuda_histogram import hist_chunked_ordered_reference
 
     def host(v):
@@ -2829,7 +2849,9 @@ def replay_parted_segments(frame, segments, models, params):
              "max_tie_gain_gap": 0.0, "first_tie": None}
     codes = {}
     grad_hess = booster.grad_hess_device
-    build_histogram, split_search = booster.build_histogram, booster._split_search
+    # the booster builds each level through build_histogram_sharded, which
+    # calls ops/histogram.build_histogram
+    build_histogram, split_search = hmod.build_histogram, booster._split_search
 
     def checked_gradients(objective, y, margin):
         out = grad_hess(objective, y, margin)
@@ -2884,11 +2906,11 @@ def replay_parted_segments(frame, segments, models, params):
     for seg in segments:
         rows |= builder._segment_mask(frame, seg)
     hooks = (checked_gradients, checked_histogram, checked_split)
-    booster.grad_hess_device, booster.build_histogram, booster._split_search = hooks
+    booster.grad_hess_device, hmod.build_histogram, booster._split_search = hooks
     try:
         again = builder.train(frame.rows(rows))
     finally:
-        booster.grad_hess_device, booster.build_histogram, booster._split_search = (
+        booster.grad_hess_device, hmod.build_histogram, booster._split_search = (
             grad_hess, build_histogram, split_search)
     if any(again.errors):  # a segment's fit keeps its error, a check's too
         raise AssertionError(f"breadth3 segments replay: {again.errors}")
@@ -2905,14 +2927,18 @@ def replay_parted_segments(frame, segments, models, params):
 
 
 def breadth3_phase(higgs, airlines, dev, seed, rf_rows=100_000, rf_sub=20_000,
-                   seg_sub=100_000, pipe_rows=200_000, ref_rows=2_000, seg_trees=10):
+                   seg_sub=100_000, pipe_rows=200_000, ref_rows=2_000, seg_trees=10,
+                   agg_rows=200_000):
     """Aggregator, RuleFit, segment models, Generic, Assembly with the
     scoring pipeline, and the reference-format MOJO on ``dev``, through the
     port's entry points.
 
-    Aggregator at its defaults on the HIGGS-shaped features (``higgs``
-    without its response): the counts sum to the rows, the exemplar rows
-    are distinct, the output frame holds ``counts`` and every predictor.
+    Aggregator at its defaults on the first ``agg_rows`` rows of the
+    HIGGS-shaped features (``higgs`` without its response; cut from every
+    row for the script's time: the exemplars stop at the same radius from
+    100,000 rows up, ROADMAP C8): the counts sum to the rows, the exemplar
+    rows are distinct, the output frame holds ``counts`` and every
+    predictor.
     RuleFit at its defaults (GBM rules of length 3, 50 trees,
     ``rules_and_linear``) on the first ``rf_rows`` rows, then again with
     ``algorithm="drf"``: each fit launches B1 exactly once per level of
@@ -3023,8 +3049,8 @@ def breadth3_phase(higgs, airlines, dev, seed, rf_rows=100_000, rf_sub=20_000,
             raise AssertionError(f"breadth3 {label}: max abs difference {err}")
         return err
 
-    # Aggregator at its defaults on the HIGGS-shaped features
-    feats = higgs.drop("y")
+    # Aggregator at its defaults on the first agg_rows HIGGS-shaped rows
+    feats = head(higgs, agg_rows).drop("y")
     with part("aggregator") as r:
         agg = Aggregator(device=str(dev)).train(feats)
     rows = agg.exemplar_rows
@@ -4015,6 +4041,403 @@ def rapids_prims_phase(higgs, airlines, model, dev, seed, str_rows=200_000,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: row sharding over torch.distributed (parallel/mesh.py)
+
+
+def _trees_of(booster):
+    """A booster's tree arrays per class and field, as host arrays."""
+    return {f: [np.stack(getattr(t, f)) for t in booster.trees_per_class]
+            for f in ("feat", "split_bin", "default_left", "is_split", "leaf")}
+
+
+def _trees_bits_equal(a, b) -> bool:
+    return all(len(a[f]) == len(b[f]) and all(
+        x.shape == y.shape and x.tobytes() == y.tobytes() for x, y in zip(a[f], b[f]))
+        for f in a)
+
+
+def _splits_equal(a, b) -> bool:
+    """Whether two boosters' trees split alike (leaf values aside)."""
+    return _trees_bits_equal({f: a[f] for f in a if f != "leaf"},
+                             {f: b[f] for f in b if f != "leaf"})
+
+
+def _merge_ms(pm, mesh, dev, reps=20):
+    """ms per float merge (``mesh.psum``) of a level histogram of 32 nodes x
+    28 features x 257 bins x 3 on the card, CUDA events around ``reps``."""
+    import torch
+
+    h = torch.randn((32, 28, 257, 3), device=dev)
+    pm.psum(h, mesh)
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        pm.psum(h, mesh)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _mesh_fit(builder, frame, X, pm, cuda_build, **kw):
+    """One fit through ``.train()`` with the group live, its launches, the
+    collectives it issued, and its margins gathered in row order."""
+    import torch
+
+    cuda_build.reset_launch_counts()
+    pm.reset_counts()
+    t0 = time.time()
+    model = builder(response_column="y", **kw).train(frame)
+    torch.cuda.synchronize()
+    rec = {"train_s": time.time() - t0, "launches": dict(cuda_build.LAUNCHES),
+           "collectives": dict(pm.COUNTS), "auc": model.training_metrics.auc}
+    t0 = time.time()
+    margin = model.booster.predict_margin(X)
+    rec["predict_s"] = time.time() - t0
+    return model, rec, margin
+
+
+def mesh_part_a(mesh, seed, n_rows, trees):
+    """(a), NCCL at world size 1: the XGBoost fit of phase 8 through
+    ``.train()`` with the group live."""
+    import torch
+
+    from h2o3_tpu_torch import XGBoost
+    from h2o3_tpu_torch.ops import cuda_build
+    from h2o3_tpu_torch.parallel import mesh as pm
+
+    X, y, _ = synth_higgs(n_rows, 28, seed)
+    frame = make_frame(X, y)
+    torch.cuda.reset_peak_memory_stats()
+    model, rec, margin = _mesh_fit(XGBoost, frame, X, pm, cuda_build, ntrees=trees,
+                                   seed=seed)
+    rec["merge_ms"] = _merge_ms(pm, mesh, mesh.device)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return {"xgboost": rec, "trees": _trees_of(model.booster), "margin": margin}
+
+
+def mesh_part_b(mesh, seed, n_rows, trees, drf_trees, air_rows):
+    """(b), two gloo ranks sharing the card (host-staged): the same XGBoost
+    fit, its merged root histogram (B1) and a merged level of 128 nodes at
+    DRF's 21 bins (B2) against one build over every row, a DRF whose levels
+    8-11 take B2 sharded, the sample sort and group-by of the airlines rows
+    by [Origin, Dest], and one sharded GLM Gram pass."""
+    import hashlib
+
+    import torch
+
+    from h2o3_tpu_torch import DRF, XGBoost
+    from h2o3_tpu_torch.models import glm
+    from h2o3_tpu_torch.models.tree import booster
+    from h2o3_tpu_torch.ops import cuda_build
+    from h2o3_tpu_torch.ops.histogram import (apply_bins_device, build_histogram,
+                                              build_histogram_sharded, make_bins)
+    from h2o3_tpu_torch.parallel import mesh as pm
+    from h2o3_tpu_torch.rapids import dist
+    from h2o3_tpu_torch.rapids.groupby import group_by
+
+    dev = mesh.device
+    out, parts = {}, {}
+    X, y, logit = synth_higgs(n_rows, 28, seed)
+    frame = make_frame(X, y)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    model, rec, margin = _mesh_fit(XGBoost, frame, X, pm, cuda_build, ntrees=trees,
+                                   seed=seed)
+    levels = trees * (model.booster.trees_per_class[0].max_depth + 1)
+    rec["bytes_gathered_per_level"] = rec["collectives"]["bytes_gathered"] / levels
+    out.update(trees=_trees_of(model.booster),
+               margin_sha1=hashlib.sha1(margin.tobytes()).hexdigest())
+    if mesh.rank == 0:
+        out["margin"] = margin
+    out["xgboost"] = rec
+    parts["xgboost_s"] = time.time() - t0
+
+    # the merged root histogram (B1 at one node) against one build of every row
+    t0 = time.time()
+    edges = make_bins(X, 256, seed=seed)
+    f0 = float(np.log(y.mean() / (1 - y.mean())))
+    S = mesh.rows(n_rows)[2]
+    codes = booster._local_codes(X, edges, dev, mesh)
+    yl = torch.from_numpy(pm.local_rows(y.astype(np.float32), mesh)).to(dev)
+    g, h = booster.grad_hess_device("bernoulli", yl, torch.full((S, 1), f0, device=dev))
+    nodes = torch.where(pm.row_mask(n_rows, S * mesh.size, mesh, dev), 0, -1).int()
+    merged = build_histogram_sharded(codes, nodes, g[:, 0].contiguous(),
+                                     h[:, 0].contiguous(), 1, 257, mesh)
+    yall = torch.from_numpy(y.astype(np.float32)).to(dev)
+    ga, ha = booster.grad_hess_device("bernoulli", yall,
+                                      torch.full((n_rows, 1), f0, device=dev))
+    whole = build_histogram(apply_bins_device(X, edges, dev),
+                            torch.zeros(n_rows, dtype=torch.int32, device=dev),
+                            ga[:, 0].contiguous(), ha[:, 0].contiguous(), 1, 257)
+    m, w_ = merged.cpu().numpy(), whole.cpu().numpy()
+    out["root"] = {"counts_equal": bool(np.array_equal(m[..., 2], w_[..., 2])),
+                   "max_abs_err": float(np.abs(m - w_).max()),
+                   "close": bool(np.allclose(m, w_, rtol=RTOL, atol=ATOL))}
+    parts["root_s"] = time.time() - t0
+
+    # a level of the sharded DRF's sorted range: 128 nodes (some rows
+    # inactive) at its 21 bins, merged, against one build over every row
+    t0 = time.time()
+    edges20 = make_bins(X, 20, seed=seed)
+    node_all = np.random.default_rng(seed + 30).integers(-1, 128, n_rows).astype(np.int32)
+    nodes_l = torch.from_numpy(pm.local_rows(node_all, mesh, fill=-1)).to(dev)
+    cuda_build.reset_launch_counts()
+    merged = build_histogram_sharded(booster._local_codes(X, edges20, dev, mesh), nodes_l,
+                                     g[:, 0].contiguous(), h[:, 0].contiguous(), 128, 21,
+                                     mesh)
+    whole = build_histogram(apply_bins_device(X, edges20, dev),
+                            torch.from_numpy(node_all).to(dev), ga[:, 0].contiguous(),
+                            ha[:, 0].contiguous(), 128, 21)
+    m, w_ = merged.cpu().numpy(), whole.cpu().numpy()
+    out["level"] = {"nodes": 128, "bins": 21, "launches": dict(cuda_build.LAUNCHES),
+                    "counts_equal": bool(np.array_equal(m[..., 2], w_[..., 2])),
+                    "max_abs_err": float(np.abs(m - w_).max()),
+                    "close": bool(np.allclose(m, w_, rtol=RTOL, atol=ATOL))}
+    del merged, whole, ga, ha
+    parts["level_s"] = time.time() - t0
+
+    t0 = time.time()
+    drf, drec, dmargin = _mesh_fit(DRF, frame, X, pm, cuda_build, ntrees=drf_trees,
+                                   seed=seed)
+    out["drf"] = drec
+    out["drf_trees"] = _trees_of(drf.booster)
+    out["drf_margin_sha1"] = hashlib.sha1(dmargin.tobytes()).hexdigest()
+    parts["drf_s"] = time.time() - t0
+
+    # the sample sort and the group-by of 2,000,000 airlines rows
+    t0 = time.time()
+    air = synth_airlines(air_rows, seed + 20)
+    parts["airlines_synth_s"] = time.time() - t0
+    origin, dest = air.col("Origin").data, air.col("Dest").data
+    keys = [dist.encode_f64(dest.astype(np.float64)), dist.encode_f64(origin.astype(np.float64))]
+    pm.reset_counts()
+    t0 = time.time()
+    order = dist.device_lexsort(keys)
+    parts["sort_s"] = time.time() - t0
+    out["sort"] = {"equal": bool(np.array_equal(order, np.lexsort(keys))),
+                   "collectives": dict(pm.COUNTS),
+                   "sha1": hashlib.sha1(order.tobytes()).hexdigest()}
+    names = air.names
+    t0 = time.time()
+    gb = group_by(air, [names.index("Origin"), names.index("Dest")],
+                  [("nrow", 0, "all"), ("mean", names.index("Distance"), "rm"),
+                   ("min", names.index("Distance"), "rm"),
+                   ("max", names.index("Distance"), "rm")])
+    parts["group_by_s"] = time.time() - t0
+    pairs = (origin.astype(np.int64) + 1) * 302 + dest.astype(np.int64) + 1
+    _, counts = np.unique(pairs, return_counts=True)
+    nrow = gb.col("nrow").data
+    out["group_by"] = {"groups": int(gb.nrows),
+                       "counts_equal": bool(np.array_equal(nrow, counts.astype(np.float64))),
+                       "sha1": hashlib.sha1(b"".join(
+                           np.ascontiguousarray(c.data).tobytes() for c in gb.columns[2:]))
+                       .hexdigest()}
+
+    # one sharded GLM Gram pass against one pass over every row
+    t0 = time.time()
+    Xi = np.concatenate([X, np.ones((n_rows, 1), np.float32)], axis=1)
+    w = np.full(n_rows, 0.25)
+    wz = logit + (y - 0.5) * 4.0
+    Xd, _ = pm.shard_rows(Xi, mesh)
+    G, q = glm._gram(Xd, pm.local_rows(wz, mesh), pm.local_rows(w, mesh), mesh)
+    parts["gram_s"] = time.time() - t0
+    del Xd
+    Xall = torch.from_numpy(Xi).to(dev)
+    G1, q1 = glm._gram(Xall, wz, w)
+    absX = np.abs(Xi.astype(np.float64))
+    G_terms, q_terms = absX.T @ (absX * w[:, None]), absX.T @ np.abs(w * wz)
+    out["gram"] = {"ok": bool(np.all(np.abs(G - G1) <= RTOL * G_terms)
+                              and np.all(np.abs(q - q1) <= RTOL * q_terms)),
+                   "max_rel_err": float(max((np.abs(G - G1) / G_terms).max(),
+                                            (np.abs(q - q1) / q_terms).max())),
+                   "sha1": hashlib.sha1(G.tobytes() + q.tobytes()).hexdigest()}
+    out["merge_ms"] = _merge_ms(pm, mesh, dev)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["parts"] = parts
+    return out
+
+
+def mesh_rank(part, rank, world, backend, device, work, args):
+    """One rank of the mesh phase on ``device`` (every rank on the one
+    card): join the group, run its part, write the result (or the
+    traceback) under ``work``."""
+    import pickle
+    import traceback
+
+    from h2o3_tpu_torch.parallel import mesh as pm
+
+    t0 = time.time()
+    try:
+        pm.distributed_initialize(backend=backend, init_method=f"file://{work}/store_{part}",
+                                  rank=rank, world_size=world, device=device,
+                                  timeout=300)
+        body = mesh_part_a if part == "a" else mesh_part_b
+        res = {"ok": body(pm.default_mesh(), *args)}
+        res["ok"]["rank_s"] = time.time() - t0
+    except BaseException:
+        res = {"error": traceback.format_exc()}
+    finally:
+        pm.destroy()
+    with open(os.path.join(work, f"{part}_{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def start_mesh_part(part, world, backend, device, work, args):
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(part, r, world, backend, device, work, args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return part, procs
+
+
+def join_mesh_part(started, work, timeout_s=300):
+    """Every rank's result of a started part, in rank order; raises with
+    the failed ranks' tracebacks. Stops every rank it started."""
+    import pickle
+
+    part, procs = started
+    deadline = time.time() + timeout_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.time()))
+    errors, results = [], []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            errors.append(f"rank {r}: still running after {timeout_s} s")
+            continue
+        path = os.path.join(work, f"{part}_{r}.pkl")
+        if not os.path.exists(path):
+            errors.append(f"rank {r}: exit code {p.exitcode}, no result")
+            continue
+        with open(path, "rb") as fh:  # written by this script's own ranks
+            res = pickle.load(fh)
+        if "error" in res:
+            errors.append(f"rank {r}:\n{res['error']}")
+        else:
+            results.append(res["ok"])
+    if errors:
+        raise AssertionError(f"mesh part ({part}) failed:\n" + "\n".join(errors))
+    return results
+
+
+def mesh_phase(xgb_model, frame, X, smi, seed, n_rows, trees, drf_trees=5,
+               air_rows=2_000_000, device="cuda:0"):
+    """Row sharding over ``torch.distributed`` on the one card: (a) one
+    rank with NCCL at world size 1, with ``entry.dryrun_multichip(1,
+    device="cuda")`` and the one-device DRF that (b)'s is held to running
+    beside it in this process (for the script's time), then (b) two gloo
+    ranks sharing ``cuda:0`` (host-staged), each rank a spawned process.
+    Returns the phase's record, with the kernel launches of the ranks' fits
+    and of this process's DRF fit under ``launches``."""
+    import tempfile
+
+    import torch
+
+    from h2o3_tpu_torch import DRF
+    from h2o3_tpu_torch.entry import dryrun_multichip
+    from h2o3_tpu_torch.ops import cuda_build
+
+    t_phase = time.time()
+    work = tempfile.mkdtemp(prefix="mesh_phase_")
+    rec = {"card": smi, "rows": n_rows, "parts_s": {}}
+    one_trees = _trees_of(xgb_model.booster)
+    one_margin = xgb_model.booster.predict_margin(X)
+    one_auc = xgb_model.training_metrics.auc
+
+    # (a) and, beside it in its own spawned rank, the dry run
+    t0 = time.time()
+    backend_a = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    started = start_mesh_part("a", 1, backend_a, device, work, (seed, n_rows, trees))
+    dryrun_multichip(1, device=torch.device(device).type)
+    rec["parts_s"]["dryrun_multichip_1"] = time.time() - t0
+    before = dict(cuda_build.LAUNCHES)
+    one_drf = DRF(response_column="y", ntrees=drf_trees, seed=seed).train(frame)
+    torch.cuda.synchronize()
+    one_drf_launches = {k: cuda_build.LAUNCHES[k] - before[k] for k in cuda_build.KERNELS}
+    one_drf_trees = _trees_of(one_drf.booster)
+    one_drf_auc = one_drf.training_metrics.auc
+    rec["parts_s"]["one_device_drf"] = time.time() - t0
+    a = join_mesh_part(started, work)[0]
+    rec["parts_s"]["nccl_world_1"] = time.time() - t0
+    want = {"hist_nodematmul": 6 * trees, "hist_sorted": 0, "hist_factorized": 0}
+    if a["xgboost"]["launches"] != want:
+        raise AssertionError(f"mesh (a): launches {a['xgboost']['launches']}, expected {want}")
+    if not _trees_bits_equal(a["trees"], one_trees):
+        raise AssertionError("mesh (a): trees at world size 1 differ from the one-device fit")
+    if a["margin"].tobytes() != one_margin.tobytes():
+        raise AssertionError("mesh (a): predictions differ from the one-device fit's bits")
+    rec["nccl_world_1"] = {**a["xgboost"], "rank_s": a["rank_s"],
+                           "trees_bits_equal": True, "predictions_bits_equal": True}
+
+    t0 = time.time()
+    b = join_mesh_part(start_mesh_part("b", 2, "gloo", device, work,
+                                       (seed, n_rows, trees, drf_trees, air_rows)), work)
+    rec["parts_s"]["gloo_world_2"] = time.time() - t0
+    b0 = b[0]
+    for r, o in enumerate(b):
+        if o["xgboost"]["launches"] != want:
+            raise AssertionError(f"mesh (b) rank {r}: XGBoost launches "
+                                 f"{o['xgboost']['launches']}, expected {want}")
+        dwant = {"hist_nodematmul": 8 * drf_trees, "hist_sorted": 4 * drf_trees,
+                 "hist_factorized": 0}
+        if o["drf"]["launches"] != dwant:
+            raise AssertionError(f"mesh (b) rank {r}: DRF launches "
+                                 f"{o['drf']['launches']}, expected {dwant}")
+        for key in ("margin_sha1", "drf_margin_sha1"):
+            if o[key] != b0[key]:
+                raise AssertionError(f"mesh (b): rank {r}'s {key} differs from rank 0's")
+        if not (_trees_bits_equal(o["trees"], b0["trees"])
+                and _trees_bits_equal(o["drf_trees"], b0["drf_trees"])):
+            raise AssertionError(f"mesh (b): rank {r}'s trees differ from rank 0's")
+        for key in ("sort", "group_by", "gram"):
+            if o[key]["sha1"] != b0[key]["sha1"]:
+                raise AssertionError(f"mesh (b): rank {r}'s {key} differs from rank 0's")
+    if not (b0["root"]["counts_equal"] and b0["root"]["close"]):
+        raise AssertionError(f"mesh (b): merged root histogram {b0['root']}")
+    level = b0["level"]
+    if not (level["counts_equal"] and level["close"]
+            and level["launches"]["hist_sorted"] == 2):
+        raise AssertionError(f"mesh (b): merged B2 level histogram {level}")
+    # each fit held to its one-device twin by the C3 rule: the same trees,
+    # or else the AUC within 1e-4
+    same, drf_same = (_trees_bits_equal(b0["trees"], one_trees),
+                      _trees_bits_equal(b0["drf_trees"], one_drf_trees))
+    auc, drf_auc = b0["xgboost"]["auc"], b0["drf"]["auc"]
+    if not same and abs(auc - one_auc) > 1e-4:
+        raise AssertionError(f"mesh (b): trees differ and AUC {auc} vs {one_auc}")
+    if not drf_same and not abs(drf_auc - one_drf_auc) <= 1e-4:
+        raise AssertionError(f"mesh (b): DRF trees differ and AUC {drf_auc} vs "
+                             f"{one_drf_auc}")
+    if not (b0["sort"]["equal"] and b0["group_by"]["counts_equal"] and b0["gram"]["ok"]):
+        raise AssertionError(f"mesh (b): sort {b0['sort']}, group-by {b0['group_by']}, "
+                             f"gram {b0['gram']}")
+    rec["gloo_world_2"] = {
+        "xgboost": b0["xgboost"], "trees_equal_one_device": same,
+        "auc_one_device": one_auc,
+        "max_abs_margin_diff": float(np.abs(b0["margin"] - one_margin).max()),
+        "root": b0["root"], "level": level, "drf": b0["drf"],
+        "drf_trees_equal_one_device": drf_same,
+        "drf_splits_equal_one_device": _splits_equal(b0["drf_trees"], one_drf_trees),
+        "drf_auc_one_device": one_drf_auc,
+        "drf_one_device_launches": one_drf_launches, "sort": b0["sort"],
+        "group_by": b0["group_by"], "gram": b0["gram"], "merge_ms": b0["merge_ms"],
+        "peak_bytes": [o["peak_bytes"] for o in b], "parts_s": b0["parts"],
+        "rank_s": [o["rank_s"] for o in b]}
+    launches = {k: a["xgboost"]["launches"][k] + one_drf_launches[k] + sum(
+        o["xgboost"]["launches"][k] + o["drf"]["launches"][k] for o in b)
+        for k in cuda_build.KERNELS}
+    rec["launches"] = launches
+    rec["phase_s"] = time.time() - t_phase
+    return rec
+
+
 def kernel_record(name, source, replaces, checks, main_case, bf16_case, launches):
     return {
         "name": name,
@@ -4344,6 +4767,15 @@ def main() -> int:
         raise AssertionError(f"the Rapids prims phase launched {ran}, its segment fit "
                              f"{prims_rec['launches']}")
 
+    # row sharding over torch.distributed: spawned ranks on this card; the
+    # launches of their fits come back in the record; this process launches
+    # only those of the one-device DRF that the ranks' DRF is held to
+    mesh_rec = mesh_phase(xgb_model, frame, X, smi, seed, n, args.base_trees)
+    print(json.dumps({"mesh": mesh_rec}), flush=True)
+    one_drf = mesh_rec["gloo_world_2"]["drf_one_device_launches"]
+    if one_drf != expect(5 * 8, 5 * 4):
+        raise AssertionError(f"the mesh phase's one-device DRF launched {one_drf}")
+
     prof = ([profile_fit(XGBoost, frame, "xgboost", ntrees=args.base_trees, seed=seed),
              profile_fit(DRF, frame, "drf", ntrees=args.drf_trees, seed=seed),
              profile_fit(XGBoost, frame, "xgboost_monotone", ntrees=args.trees,
@@ -4351,7 +4783,8 @@ def main() -> int:
                          hist_fact_max_kc=32)]
             if args.profile else None)
 
-    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec, breadth3_rec, prims_rec])
+    total = {k: sum(f["launches"][k] for f in fits + [cv, automl_rec, breadth3_rec, prims_rec,
+                                                       mesh_rec])
              for k in cuda_build.KERNELS}
     kernels = [
         kernel_record("hist_nodematmul", "h2o3_tpu_torch/csrc/hist_nodematmul.cu",
@@ -4374,7 +4807,8 @@ def main() -> int:
                        "automl": automl_rec, "breadth": breadth_rec,
                        "breadth2": breadth2_rec, "breadth3": breadth3_rec,
                        "rapids": rapids_rec, "rapids_prims": prims_rec,
-                       "profile": prof, "kernels": kernels}, fh, indent=1)
+                       "mesh": mesh_rec, "profile": prof, "kernels": kernels}, fh,
+                      indent=1)
     print(f"chip_smoke: whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

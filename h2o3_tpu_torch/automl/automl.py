@@ -38,6 +38,7 @@ from h2o3_tpu_torch.frame.frame import ColType, Frame
 from h2o3_tpu_torch.keyed import DKV
 from h2o3_tpu_torch.models.framework import Model
 from h2o3_tpu_torch.models.grid import metric_value
+from h2o3_tpu_torch.parallel.mesh import pmin
 
 
 class EventLog:
@@ -159,10 +160,17 @@ class AutoML:
         ])
         return bool(self.max_models) and n >= self.max_models
 
+    def _remaining(self) -> float:
+        """Seconds left of ``max_runtime_secs``: the least over the ranks
+        of a live process group, so every rank takes the same budget
+        decisions (a rank's clock is its own) and every rank's fits issue
+        the same collectives."""
+        left = torch.tensor([self.max_runtime_secs - (time.time() - self._t0)],
+                            dtype=torch.float64)
+        return float(pmin(left)[0])
+
     def _out_of_time(self) -> bool:
-        return bool(self.max_runtime_secs) and (
-            time.time() - self._t0
-        ) >= self.max_runtime_secs
+        return bool(self.max_runtime_secs) and self._remaining() <= 0
 
     def _algo_allowed(self, algo: str) -> bool:
         algo = algo.lower()
@@ -188,7 +196,7 @@ class AutoML:
         if self.max_runtime_secs and "max_runtime_secs" in getattr(
             builder_cls, "SUPPORTED_COMMON", ()
         ):
-            remaining = self.max_runtime_secs - (time.time() - self._t0)
+            remaining = self._remaining()
             if remaining > 0:
                 extra.setdefault("max_runtime_secs", remaining)
         p = params_cls(**self._common(extra))
@@ -297,10 +305,7 @@ class AutoML:
             budget_models = max(
                 1, min(3, self.max_models - len(self.leaderboard.models) - 2)
             )
-        remaining = (
-            self.max_runtime_secs - (time.time() - self._t0)
-            if self.max_runtime_secs else 0.0
-        )
+        remaining = self._remaining() if self.max_runtime_secs else 0.0
         crit = SearchCriteria(
             strategy="RandomDiscrete",
             max_models=budget_models,
@@ -341,7 +346,7 @@ class AutoML:
             learn_rate=max(getattr(p, "learn_rate", 0.1) * 0.75, 0.01),
         )
         if self.max_runtime_secs:
-            remaining = self.max_runtime_secs - (time.time() - self._t0)
+            remaining = self._remaining()
             if remaining <= 0:
                 return []
             kw["max_runtime_secs"] = remaining

@@ -5,12 +5,16 @@ Reference: ``new MRTask(){ map(Chunk[]); reduce(T); }.doAll(frame)``
 home chunk, reduce partials pairwise back up the tree.
 
 The JAX package runs a user map function per device shard under
-``shard_map`` and combines partials with ``psum``/``pmax``/``pmin``. This
-package runs on one card: a table's columns are whole tensors on one
-``torch.device``, the map runs once over all rows, and the reduction over
-one shard is the map's own output. Rows are not padded (``n_padded ==
-n_valid``); the validity ``mask`` is all true and is kept because the user
-functions take it.
+``shard_map`` and combines partials with ``psum``/``pmax``/``pmin``. Here
+the shards are the ranks of the data mesh (``parallel/mesh.py``): with a
+process group live, a table's columns hold this rank's range of the rows,
+padded to the world size with NaN, and the validity ``mask`` is false on
+the pad rows; ``map_reduce`` reduces the rank partials over the mesh (sums
+by the mesh's merge rule, max and min exactly) and ``map_batches`` gathers
+the per-row outputs in row order, the same on every rank. With no group a
+table's columns are whole tensors on one ``torch.device``, rows are not
+padded (``n_padded == n_valid``), the mask is all true, and the reduction
+over the one shard is the map's own output.
 
 Two entry points, as in the JAX package:
   * ``map_reduce(fn, table)``  — fn: (cols, mask) -> pytree of partials;
@@ -41,6 +45,14 @@ import torch
 from h2o3_tpu_torch.device import DeviceLike, resolve_device
 from h2o3_tpu_torch.frame.devcache import DEVCACHE, device_fingerprint, frame_token
 from h2o3_tpu_torch.frame.frame import ColType, Frame
+from h2o3_tpu_torch.parallel.mesh import (
+    Mesh,
+    default_mesh,
+    gather_tree_rows,
+    local_rows,
+    row_mask,
+    tree_reduce,
+)
 
 #: entries the dispatch plan cache keeps (the JAX package's default)
 PLAN_CACHE_SIZE = 128
@@ -88,17 +100,21 @@ def plan_memo(namespace: str, key: Tuple, build: Callable[[], object]):
 
 
 class FrameTable:
-    """Device-resident view of (a subset of) a Frame's columns on one device.
+    """Device-resident view of (a subset of) a Frame's columns: this rank's
+    padded rows of each (every row with no process group).
 
     Columns are float32 by default (float64 on request, e.g. for the Rapids
-    fusion pass), one tensor each, with an all-true boolean ``mask``."""
+    fusion pass), one tensor each, with a boolean ``mask`` of the real rows.
+    ``mesh`` is the data mesh the rows shard over (None: one device)."""
 
     def __init__(self, arrays: Dict[str, torch.Tensor], mask: torch.Tensor,
-                 n_valid: int, device: torch.device) -> None:
+                 n_valid: int, device: torch.device,
+                 mesh: Optional[Mesh] = None) -> None:
         self.arrays = arrays
         self.mask = mask
         self.n_valid = n_valid
         self.device = torch.device(device)
+        self.mesh = mesh or default_mesh()
         self._matrix_lock = threading.Lock()
         self._matrix_cache: Dict[Tuple[str, ...], torch.Tensor] = {}
         #: devcache key when this table is cache-resident: stacked matrices
@@ -114,9 +130,12 @@ class FrameTable:
         cache: bool = True,
     ) -> "FrameTable":
         """Device-resident view of ``frame``, memoized process-wide under
-        (column versions, dtype, device): repeat calls on an unmutated frame
-        return the same resident table. ``cache=False`` forces an upload."""
+        (column versions, dtype, device, world size, rank): repeat calls on
+        an unmutated frame return the same resident table. ``cache=False``
+        forces an upload. With a process group live the table holds this
+        rank's rows, padded with NaN (``parallel/mesh.shard_rows``)."""
         dev = resolve_device(device)
+        mesh = default_mesh()
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         names = list(columns) if columns is not None else [
             c.name for c in frame.columns if c.type not in (ColType.STR, ColType.UUID)
@@ -125,19 +144,21 @@ class FrameTable:
             raise ValueError("no device-shardable (numeric/categorical/time) columns")
 
         def build() -> "FrameTable":
+            n = frame.nrows
             arrays = {
-                name: torch.from_numpy(np.ascontiguousarray(
-                    frame.col(name).numeric_view(), dtype=np_dtype)).to(dev)
+                name: torch.from_numpy(np.ascontiguousarray(local_rows(
+                    np.asarray(frame.col(name).numeric_view(), dtype=np_dtype),
+                    mesh, np.nan))).to(dev)
                 for name in names
             }
-            n = frame.nrows
-            mask = torch.ones(n, dtype=torch.bool, device=dev)
-            return FrameTable(arrays, mask, n, dev)
+            mask = row_mask(n, mesh.rows(n)[2] * mesh.size, mesh, dev)
+            return FrameTable(arrays, mask, n, dev, mesh)
 
         token = frame_token(frame, names) if cache else None
         if token is None:
             return build()
-        key = ("frame_table", token, str(dtype), device_fingerprint(dev))
+        key = ("frame_table", token, str(dtype), device_fingerprint(dev),
+               mesh.size, mesh.rank)
         table = DEVCACHE.get_or_put(
             key, build, frame_key=getattr(frame, "key", None), kind="frame_table")
         table._devcache_key = key
@@ -145,11 +166,13 @@ class FrameTable:
 
     @property
     def n_padded(self) -> int:
-        return int(next(iter(self.arrays.values())).shape[0])
+        """Rows of the padded table, over every rank."""
+        return int(next(iter(self.arrays.values())).shape[0]) * self.mesh.size
 
     def matrix(self, columns: Optional[Sequence[str]] = None) -> torch.Tensor:
-        """[N, F] feature matrix (column-stacked), cached per column tuple:
-        with the table itself cached, repeat fits stack nothing."""
+        """[S, F] feature matrix of this rank's rows (column-stacked), cached
+        per column tuple: with the table itself cached, repeat fits stack
+        nothing."""
         names = tuple(columns) if columns is not None else tuple(self.arrays)
         with self._matrix_lock:
             cached = self._matrix_cache.get(names)
@@ -171,25 +194,30 @@ _REDUCERS = ("max", "min", "sum")
 
 
 def map_reduce(fn: Callable, table: FrameTable, *extra_args, reduce: str = "sum"):
-    """Run ``fn(cols_dict, mask, *extra)`` over the table and return its
-    partials. With one device the partials are already the reduction
-    (``sum``, ``max`` or ``min`` over one shard); ``reduce`` is checked as
-    the JAX package checks it."""
+    """Run ``fn(cols_dict, mask, *extra)`` over this rank's rows and reduce
+    the pytree of partials over the table's mesh (``sum``, ``max`` or
+    ``min``; with one device the partials are already the reduction). The
+    result is the same on every rank. ``reduce`` is checked as the JAX
+    package checks it."""
     if reduce not in _REDUCERS:
         raise ValueError(
             f"unknown reduce {reduce!r}; valid choices: {sorted(_REDUCERS)}")
-    return fn(table.arrays, table.mask, *extra_args)
+    return tree_reduce(fn(table.arrays, table.mask, *extra_args), reduce, table.mesh)
 
 
 def map_batches(fn: Callable, table: FrameTable, *extra_args):
-    """Run ``fn(cols_dict, mask, *extra)`` over the table and keep its
-    per-row outputs on the device (an MRTask writing an output Frame,
-    ``water/MRTask.java:558-559``)."""
-    return fn(table.arrays, table.mask, *extra_args)
+    """Run ``fn(cols_dict, mask, *extra)`` over this rank's rows and keep
+    its per-row outputs on the device, gathered in row order over the mesh
+    (an MRTask writing an output Frame, ``water/MRTask.java:558-559``)."""
+    out = fn(table.arrays, table.mask, *extra_args)
+    if not table.mesh.live:
+        return out
+    return gather_tree_rows(out, table.n_padded, table.mesh)
 
 
 def gather_rows(x: torch.Tensor, n_valid: int) -> np.ndarray:
-    """Pull a per-row device result back to the host."""
+    """Pull a per-row device result (``map_batches``'s, every row in row
+    order) back to the host, without the pad rows."""
     return x[:n_valid].cpu().numpy()
 
 

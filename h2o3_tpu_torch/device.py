@@ -1,16 +1,17 @@
-"""Device choice — the port of ``h2o3_tpu/parallel/mesh.py``.
+"""Device choice.
 
-The JAX package shards rows over a mesh of devices and reduces per-shard
-partials with ``psum``. This package runs on one card: every tensor of a fit
-lives on one ``torch.device`` and there is no sharding (multi-GPU NCCL is a
-later step). Rows are not padded either: ``pad_rows`` (:119) and
-``row_mask`` (:156) exist for the mesh's shard multiple, and the histogram
-kernel here takes any row count.
+Every tensor of one rank's share of a fit lives on one ``torch.device``.
+Rows are sharded over ranks by ``parallel/mesh.py`` (the port of
+``h2o3_tpu/parallel/mesh.py``): with a process group live, each rank holds
+its own range of the padded rows on its device and partials merge over the
+group; with none, one device holds every row, unpadded.
 
 Device policy: entry points run on ``cuda`` unless the caller asks for the
 CPU, either with an explicit ``device=`` argument or inside
-``use_device("cpu")``. Without a card and without that request they raise:
-a fit never carries on quietly on the CPU.
+``use_device("cpu")``. With a process group live and neither given, they
+run on the group's device for this rank (``cuda:<local rank>`` under NCCL).
+Without a card and without a request for the CPU they raise: a fit never
+carries on quietly on the CPU.
 """
 
 from __future__ import annotations
@@ -47,11 +48,17 @@ def use_device(device: DeviceLike) -> Iterator[torch.device]:
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on: the explicit argument, else the
-    innermost ``use_device`` block, else ``cuda``. Asking for ``cuda`` (or
-    asking for nothing) on a host without a card raises."""
+    innermost ``use_device`` block, else the live process group's device
+    for this rank, else ``cuda``. Asking for ``cuda`` (or asking for
+    nothing) on a host without a card raises."""
     if device is None:
         stack = _stack()
-        dev = stack[-1] if stack else torch.device("cuda")
+        if stack:
+            dev = stack[-1]
+        else:
+            from h2o3_tpu_torch.parallel.mesh import group_device
+
+            dev = group_device() or torch.device("cuda")
     else:
         dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -63,7 +70,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
 
 
 def to_device_f32(a: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -46,6 +46,7 @@ from h2o3_tpu_torch.frame.frame import ColType, Column, Frame
 from h2o3_tpu_torch.models import metrics as M
 from h2o3_tpu_torch.models.data_info import build_data_info, expand_matrix, response_vector
 from h2o3_tpu_torch.models.framework import Model, ModelBuilder, ModelParameters
+from h2o3_tpu_torch.parallel.mesh import any_rank
 from h2o3_tpu_torch.util import jrandom as jr
 from h2o3_tpu_torch.util import optim
 
@@ -392,7 +393,9 @@ class DeepLearning(ModelBuilder):
                 torch.cuda.synchronize(device)
             model.timings["epoch_s"].append(time.time() - t_epoch)
             model.epochs_trained = epoch + 1
-            if deadline is not None and time.time() >= deadline:
+            # a wall-clock budget is rank-local: with a process group live,
+            # every rank (each fitting whole) stops where any rank stops
+            if deadline is not None and any_rank(time.time() >= deadline):
                 break
             if p.stopping_rounds > 0 and (epoch + 1) % p.score_interval == 0:
                 history.append(float(loss))

@@ -20,9 +20,15 @@ ordinal families and p-values, with the JAX package's arithmetic:
   ``glm_multinomial_x``, ``glm_ordinal_x``).
 
 The JAX package row-shards the matrix over its mesh and sums the shards'
-Grams with ``psum``; here one card sums once, so the two agree to float32
-rounding, not bit for bit. One device holds every row, so there are no pad
-rows and the row padder is the identity.
+Grams with ``psum`` (``glm.py:166-178``). Here the IRLSM design is
+row-sharded over the data mesh (``parallel/mesh.py``) when a process group
+is live: each rank places its range of the padded rows, computes its
+``X.T @ (X * w)`` and ``X.T @ (w * z)`` and the partials merge by the
+mesh's float64 rule, so every rank's host IRLSM runs on the same Gram.
+Pad rows carry zero weight. With no group one card sums once and the row
+padder is the identity; either way the Gram agrees with the JAX package's
+to float32 rounding, not bit for bit. L-BFGS and the ordinal fit run
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 
 from h2o3_tpu_torch.device import to_device_f32
 from h2o3_tpu_torch.frame.frame import ColType, Frame
+from h2o3_tpu_torch.parallel.mesh import Mesh, default_mesh, local_rows, psum
 from h2o3_tpu_torch.models.data_info import (
     DataInfo,
     build_data_info,
@@ -177,9 +184,14 @@ def _gram_kernel(Xw: torch.Tensor, wz: torch.Tensor, w: torch.Tensor):
     return g, q
 
 
-def _gram(Xd: torch.Tensor, wz: np.ndarray, w: np.ndarray):
-    """The Gram pass on ``Xd``'s device, back on the host as float64."""
+def _gram(Xd: torch.Tensor, wz: np.ndarray, w: np.ndarray,
+          mesh: Optional[Mesh] = None):
+    """The Gram pass on ``Xd``'s device, back on the host as float64. With
+    ``mesh``, ``Xd``, ``wz`` and ``w`` are this rank's rows and the rank
+    partials merge over it; without, they are every row."""
     g, q = _gram_kernel(Xd, to_device_f32(wz, Xd.device), to_device_f32(w, Xd.device))
+    if mesh is not None:
+        g, q = psum(g, mesh), psum(q, mesh)
     return (g.cpu().numpy().astype(np.float64), q.cpu().numpy().astype(np.float64))
 
 
@@ -508,22 +520,27 @@ class GLM(ModelBuilder):
         if p.compute_p_values and p.lambda_ == 0 and not p.lambda_search:
             self._p_values(model, X, y, mu, obs_w, offset, link, p, info)
 
-    def _cached_upload(self, kind: str, build):
+    def _cached_upload(self, kind: str, build, extra=()):
         """Memoize a device placement through the process-wide devcache,
-        keyed on (placement kind, frame token, design params, device). Falls
-        through to a plain upload when the frame has no version stamps."""
+        keyed on (placement kind, frame token, design params and ``extra``,
+        device). Falls through to a plain upload when the frame has no
+        version stamps."""
         from h2o3_tpu_torch.frame import devcache as _devcache
 
+        sig = getattr(self, "_design_sig", None)
         return _devcache.cached(
             kind, getattr(self, "_design_token", None),
-            getattr(self, "_design_sig", None), self._device, build,
+            None if sig is None else sig + tuple(extra), self._device, build,
             frame_key=getattr(self, "_train_frame_key", None),
         )
 
     def _device_design(self, X: np.ndarray):
-        """The design matrix [N, P(+1 intercept col)] on the device, and the
-        row padder (the identity: one device, no pad rows)."""
+        """This rank's rows of the design matrix [S, P(+1 intercept col)] on
+        the device, and the row padder that cuts a host vector of every row
+        to the same rows (pad rows 0). With no process group: every row,
+        and the identity. The IRLSM Gram merges over ``self._mesh``."""
         p: GLMParameters = self.params
+        mesh = self._mesh = default_mesh()
 
         def build():
             Xi = (
@@ -533,9 +550,10 @@ class GLM(ModelBuilder):
                 if p.intercept
                 else X
             )
-            return to_device_f32(Xi, self._device)
+            return to_device_f32(local_rows(Xi, mesh), self._device)
 
-        return self._cached_upload("glm_design", build), (lambda a: a)
+        Xd = self._cached_upload("glm_design", build, (mesh.size, mesh.rank))
+        return Xd, (lambda a: local_rows(a, mesh))
 
     def _run_lambda_path(
         self, model, lambdas, solve, dev_train, dev_valid, nonzeros, null_dev, state0
@@ -596,7 +614,7 @@ class GLM(ModelBuilder):
             w = obs_w / np.maximum(v * d * d, 1e-12)
             wz = (eta - offset) + (y - mu) * d
 
-            G, q = _gram(Xd, pad(wz), pad(w))
+            G, q = _gram(Xd, pad(wz), pad(w), self._mesh)
             free = 1 if p.intercept else 0
             if l1 > 0:
                 solved = _solve_admm(G / wsum, q / wsum, l1, l2, free=free)
@@ -793,7 +811,7 @@ class GLM(ModelBuilder):
                 vc = muc * (1 - muc)
                 w = obs_w * vc
                 wz = (eta[:, c] - offset) + (Y[:, c] - muc) / vc
-                G, q = _gram(Xd, pad(wz), pad(w))
+                G, q = _gram(Xd, pad(wz), pad(w), self._mesh)
                 if l1 > 0:
                     solved = _solve_admm(G / wsum, q / wsum, l1, l2, free=free)
                 else:

@@ -11,7 +11,11 @@ Each cell is one model build on the device the search resolved when it
 started (``device.resolve_device`` of the base parameters' ``device``);
 every cell's parameters carry that device, so cells built on the worker
 threads of ``parallelism > 1`` run where the caller asked, although
-``use_device`` blocks are per thread. A failed cell is recorded in
+``use_device`` blocks are per thread. With a process group live the cells
+run one after another on every rank, and the stop before each cell (the
+wall-clock budget, a stop request) is taken where any rank takes it
+(``parallel/mesh.any_rank``), so every rank builds the same cells and their
+fits issue their collectives in the same order. A failed cell is recorded in
 ``Grid.failures``, not raised (GridSearch.java's failed-params tracking).
 
 Not part of this package yet: ``recovery_dir`` (auto-recovery snapshots,
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from h2o3_tpu_torch.device import DeviceLike, resolve_device
+from h2o3_tpu_torch.parallel.mesh import any_rank, default_mesh
 from h2o3_tpu_torch.frame.frame import Frame
 from h2o3_tpu_torch.keyed import DKV
 from h2o3_tpu_torch.models.framework import Model, ModelBuilder
@@ -332,11 +337,11 @@ class GridSearch:
         def stopped_early() -> bool:
             return self._stopped_early(scores, direction)
 
-        if self.parallelism == 1:
+        if self.parallelism == 1 or default_mesh().live:
             for hp in walker:
-                if out_of_budget() or stopped_early():
-                    break
-                if job is not None and job.stop_requested:
+                stop = (out_of_budget() or stopped_early()
+                        or (job is not None and job.stop_requested))
+                if any_rank(stop):
                     break
                 self._build_into(grid, hp, build_one, scores, c, direction)
                 if job is not None and n_hint:

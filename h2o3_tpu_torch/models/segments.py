@@ -11,7 +11,9 @@ The builder resolves its device once, when ``train`` starts (the
 parameters' ``device``, else the caller's ``use_device`` block, else
 ``cuda``), and every segment's parameters carry it: segments built on the
 worker threads of ``parallelism > 1`` fit where the caller asked, although
-``use_device`` blocks are per thread. A failed segment records its error
+``use_device`` blocks are per thread. With a process group live the
+segments fit one after another on every rank, so every rank's fits issue
+their collectives in the same order. A failed segment records its error
 and the others go on, as in the reference.
 """
 
@@ -25,6 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Type
 import numpy as np
 
 from h2o3_tpu_torch.device import resolve_device
+from h2o3_tpu_torch.parallel.mesh import default_mesh
 from h2o3_tpu_torch.frame.frame import ColType, Column, Frame
 from h2o3_tpu_torch.keyed import DKV
 from h2o3_tpu_torch.models.framework import Model, ModelBuilder
@@ -167,7 +170,7 @@ class SegmentModelsBuilder:
             except Exception as e:
                 return seg, None, f"{type(e).__name__}: {e}", time.time() - t0
 
-        if self.parallelism == 1:
+        if self.parallelism == 1 or default_mesh().live:
             outs = [run_one(s) for s in segments]
         else:
             with ThreadPoolExecutor(max_workers=self.parallelism) as pool:

@@ -1,7 +1,7 @@
 """The histogram GBDT booster — the port of ``h2o3_tpu/models/tree/booster.py``.
 
 Shared by GBM and XGBoost. The design is the JAX package's, written as
-eager PyTorch on one device:
+eager PyTorch on each rank's device:
 
 * global quantile binning once per fit (``ops/histogram.make_bins`` on the
   host), then the bin codes are made on the device once
@@ -29,7 +29,17 @@ eager PyTorch on one device:
   by the absolute tree index, so a seeded fit samples what the JAX
   package samples, on any device, and a fit continued from a checkpoint
   draws what one longer fit draws;
-* monotone constraints carry per-node leaf-value bounds down the levels.
+* monotone constraints carry per-node leaf-value bounds down the levels;
+* rows shard over the data mesh (``parallel/mesh.py``) when a process
+  group is live, as the JAX package's fit shards them over its mesh: the
+  rows are padded to the world size and each rank bins and places only its
+  own range, computes g/h, routes its rows and updates its margin; every
+  level's histogram (and the terminal totals) merge over the group
+  (``build_histogram_sharded``), so the split search, the trees and every
+  decision made from them are the same on every rank; a rank draws only
+  its own rows' share of the row-sampling stream (``jrandom.uniform``'s
+  offset), while the column and mtries draws stay replicated; the monitor
+  and ``predict_margin`` see the margin gathered in row order.
 
 Not part of this package yet, each raising ``NotImplementedError``: the
 custom objective (ROADMAP A11) and chunk-homed distributed training
@@ -53,11 +63,19 @@ from h2o3_tpu_torch.ops.histogram import (
     HIST_IMPLS,
     FitCache,
     apply_bins_device,
-    build_histogram,
+    build_histogram_sharded,
     check_hist_dtype,
     default_hist_impl,
     make_bins,
-    node_totals,
+    node_totals_sharded,
+)
+from h2o3_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_rows,
+    any_rank,
+    default_mesh,
+    local_rows,
+    row_mask,
 )
 from h2o3_tpu_torch.util import jrandom
 
@@ -310,6 +328,7 @@ def _build_one_tree(
     rw: Optional[torch.Tensor], subtract: bool, hist_impl: str,
     constraints: Optional[torch.Tensor] = None, fact_max_kc: int = 0,
     cache: Optional[FitCache] = None, hist_dtype: str = "f32",
+    mesh: Optional[Mesh] = None,
 ):
     """Grow one tree to max_depth with per-level node capacity 2^d.
 
@@ -326,7 +345,9 @@ def _build_one_tree(
     ``fact_max_kc`` is ``build_histogram``'s factorized-kernel limit,
     ``cache`` the fit's ``FitCache``, which it hands every level, and
     ``hist_dtype`` its operand mode; the subtraction flow subtracts
-    histograms built in that mode, as the JAX package does.
+    histograms built in that mode, as the JAX package does. ``mesh``: the
+    rows are this rank's, and every histogram and the terminal totals merge
+    over the mesh, so the tree is the same on every rank.
     Returns (heap arrays [M] x5, per-row leaf value [N])."""
     D = p.max_depth
     n_bins1 = p.nbins + 1
@@ -354,7 +375,7 @@ def _build_one_tree(
                 # stats: child(2k) = wl[k], child(2k+1) = wr[k]
                 raw_leaf = torch.stack([prev_wl, prev_wr], dim=1).reshape(K)
             else:
-                tot = node_totals(hist_nodes, g, h, K, rw=rw)
+                tot = node_totals_sharded(hist_nodes, g, h, K, rw=rw, mesh=mesh)
                 G, H = tot[:, 0], tot[:, 1]
                 t = torch.sign(G) * torch.clamp(torch.abs(G) - alpha, min=0.0)
                 raw_leaf = -t / torch.clamp(H + lam, min=1e-12)
@@ -377,8 +398,8 @@ def _build_one_tree(
             small_parity = torch.where(prev_left_small, 0, 1)  # [Kp]
             half_nodes = torch.where(
                 in_hist & (parity == small_parity[par]), par, -1).int()
-            hist_small = build_histogram(
-                bins_fm, half_nodes, g, h, Kp, n_bins1, rw=rw, impl=hist_impl,
+            hist_small = build_histogram_sharded(
+                bins_fm, half_nodes, g, h, Kp, n_bins1, mesh, rw=rw, impl=hist_impl,
                 fact_max_kc=fact_max_kc, cache=cache, dtype=hist_dtype)
             can_m = prev_can[:, None, None, None]
             hist_big = torch.where(can_m, prev_hist - hist_small, 0.0)
@@ -387,8 +408,8 @@ def _build_one_tree(
             right = torch.where(ls_m, hist_big, hist_small)
             hist = torch.stack([left, right], dim=1).reshape(K, *hist_small.shape[1:])
         else:
-            hist = build_histogram(
-                bins_fm, hist_nodes, g, h, K, n_bins1, rw=rw, impl=hist_impl,
+            hist = build_histogram_sharded(
+                bins_fm, hist_nodes, g, h, K, n_bins1, mesh, rw=rw, impl=hist_impl,
                 fact_max_kc=fact_max_kc, cache=cache, dtype=hist_dtype)
         node_feat_mask = feat_mask
         if p.mtries > 0:
@@ -465,20 +486,36 @@ class BoostedTrees:
 
     def predict_margin(self, X: np.ndarray) -> np.ndarray:
         """Raw margins [N, C] float64 from raw features, re-binned with the
-        stored edges and the trees walked, on the device."""
-        bins_fm = apply_bins_device(X, self.trees_per_class[0].edges, self.device)
+        stored edges and the trees walked, on the device. With a process
+        group live each rank walks its own rows and the margins are
+        gathered in row order (each row's sum does not depend on the
+        others, so the bits are the one-device ones)."""
+        mesh = default_mesh()
+        n = X.shape[0]
+        bins_fm = _local_codes(X, self.trees_per_class[0].edges, self.device, mesh)
         cols = []
         for c, trees in enumerate(self.trees_per_class):
             if trees.ntrees == 0:
-                cols.append(np.full(X.shape[0], self.init_margin[c], dtype=np.float64))
+                cols.append(np.full(n, self.init_margin[c], dtype=np.float64))
                 continue
             s = _predict_stacked(bins_fm, *trees.stacked(self.device),
                                  max_depth=trees.max_depth, n_bins1=trees.n_bins1)
-            s = s.cpu().numpy().astype(np.float64)
+            s = all_gather_rows(s, n, mesh).cpu().numpy().astype(np.float64)
             if self.average:
                 s = s / trees.ntrees
             cols.append(self.init_margin[c] + s)
         return np.stack(cols, axis=1)
+
+
+def _local_codes(X: np.ndarray, edges: np.ndarray, dev: torch.device,
+                 mesh: Mesh) -> torch.Tensor:
+    """Bin codes [F, S] of this rank's S padded rows of X (code 0 in the
+    pad rows; every row of X, unpadded, on the one-device mesh)."""
+    lo, hi, s = mesh.rows(X.shape[0])
+    codes = apply_bins_device(X[lo:hi], edges, dev)
+    if hi - lo < s:
+        codes = torch.cat([codes, codes.new_zeros((codes.shape[0], s - (hi - lo)))], 1)
+    return codes
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -508,6 +545,7 @@ def train_boosted(
     hist_dtype: str = "f32",
     cache_token=None,
     cache_frame_key: Optional[str] = None,
+    mesh: Optional[Mesh] = None,
 ) -> BoostedTrees:
     """Device-resident booster loop.
 
@@ -541,11 +579,17 @@ def train_boosted(
     frame cache under (token, edges, nbins, device), so a repeat GBM, DRF
     or XGBoost fit on the same unmutated frame reuses the resident codes
     instead of binning again. cache_frame_key links the entry to a DKV
-    frame for eviction. None bypasses the cache."""
+    frame for eviction. None bypasses the cache.
+    mesh: the data mesh the rows shard over (default ``default_mesh()``:
+    every rank of a live process group, else one device). Every rank calls
+    with the same arguments; rows are padded to the world size, rank r
+    bins and places rows [r S, (r + 1) S) and the fit's histograms merge
+    over the mesh. The device cache key holds the world size and rank."""
     if getattr(X, "is_dist_hist", False):
         raise _not_ported("chunk-homed distributed training",
                           "ROADMAP A10: cluster-side compute")
     p = params
+    mesh = mesh or default_mesh()
     dev = resolve_device(device)
     hist_impl = hist_impl or default_hist_impl(dev)
     if hist_impl not in HIST_IMPLS:
@@ -570,11 +614,11 @@ def train_boosted(
     # binning spec. A hit must not change a tree: nothing on the fit's or
     # the scoring path writes into bins_fm or codes_rm in place.
     extra_key = (hashlib.sha1(np.ascontiguousarray(edges).tobytes()).hexdigest(),
-                 p.nbins)
+                 p.nbins, mesh.size, mesh.rank)
     entry = devcache.cache_key("tree_bins", cache_token, extra_key, dev)
 
     def _place():
-        return FitCache(apply_bins_device(X, edges, dev), n_bins1,
+        return FitCache(_local_codes(X, edges, dev, mesh), n_bins1,
                         on_grow=functools.partial(devcache.DEVCACHE.grow_entry, entry))
 
     cache = devcache.cached("tree_bins", cache_token, extra_key, dev, _place,
@@ -585,7 +629,14 @@ def train_boosted(
     _t_place = time.time()
 
     C = n_class_trees
-    y_d = torch.from_numpy(np.ascontiguousarray(y, dtype=np.float32)).to(dev)
+    # this rank's padded rows [lo, lo + S), real up to hi; pad rows carry
+    # zero targets and weights and never reach a histogram
+    lo, hi, S = mesh.rows(n)
+
+    def _rows(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(local_rows(a, mesh))).to(dev)
+
+    y_d = _rows(np.asarray(y, dtype=np.float32))
 
     if resume_from is not None and objective != "fixed":
         margin_host = resume_from.predict_margin(X).astype(np.float32)  # [n, C]
@@ -595,11 +646,12 @@ def train_boosted(
         if C != 1:
             raise ValueError("offset_column requires a single-margin objective")
         margin_host[:, 0] += np.asarray(offset, dtype=np.float32)
-    margin = torch.from_numpy(margin_host).to(dev)
+    margin = _rows(margin_host)
 
+    valid = row_mask(n, S * mesh.size, mesh, dev) if hi - lo < S else None
     w_d = None
     if weights is not None:
-        w_d = torch.from_numpy(np.asarray(weights, dtype=np.float32)).to(dev)
+        w_d = _rows(np.asarray(weights, dtype=np.float32))
     mono_d = None
     if monotone is not None and np.any(np.asarray(monotone) != 0):
         mono_d = torch.from_numpy(np.asarray(monotone, dtype=np.int32)).to(dev)
@@ -632,9 +684,12 @@ def train_boosted(
                 h_all = h_all * w_d[:, None]
             # one key per absolute tree index, split as the JAX block does
             kr, kc, kt = jrandom.split(jrandom.fold_in(key, tree_offset + t), 3)
-            sample = None
+            sample = valid
             if p.sample_rate < 1.0:
-                sample = jrandom.uniform(kr, (n,), dev) < sample_rate
+                # this rank's share of the global draw over the padded rows
+                sample = jrandom.uniform(kr, (S,), dev, offset=mesh.rank * S) < sample_rate
+                if valid is not None:
+                    sample = sample & valid
             feat_mask = all_feats
             if p.col_sample_rate_per_tree < 1.0:
                 ncols = max(1, int(round(p.col_sample_rate_per_tree * F)))
@@ -648,7 +703,7 @@ def train_boosted(
                     jrandom.fold_in(kt, c), p,
                     rw=w_d, subtract=subtract_on, hist_impl=hist_impl,
                     constraints=mono_d, fact_max_kc=hist_fact_max_kc,
-                    cache=cache, hist_dtype=hist_dtype,
+                    cache=cache, hist_dtype=hist_dtype, mesh=mesh,
                 )
                 margin[:, c] += pred
                 outs.append(tree)
@@ -664,8 +719,9 @@ def train_boosted(
                 trees_per_class[c].append(*(f[t, c] for f in fields))
         built += block
         if monitor is not None:
-            margin_host = margin.cpu().numpy().astype(np.float64)
-            if monitor(built - 1, margin_host):
+            margin_host = all_gather_rows(margin, n, mesh).cpu().numpy().astype(np.float64)
+            # a wall-clock budget is rank-local: stop where any rank stops
+            if any_rank(monitor(built - 1, margin_host), mesh):
                 break
 
     if timings is not None:

@@ -26,6 +26,12 @@
   frame share it too.
 - ``node_totals`` (:280): the terminal level's per-node totals, a scatter
   (``index_add_``) as in the JAX package.
+- ``build_histogram_sharded`` (:364) and ``node_totals_sharded`` (:304):
+  each rank builds its own rows' histogram or totals with the functions
+  above (the same dispatch, the same kernels), and the rank partials merge
+  over the data mesh (``parallel/mesh.psum``: float64 in rank order, the
+  same bits on every rank). With no process group they are the functions
+  above.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from h2o3_tpu_torch.ops.cuda_histogram import (
     hist_nodematmul_reference,
 )
 from h2o3_tpu_torch.ops.cuda_sorted_histogram import hist_sorted, row_major_codes
+from h2o3_tpu_torch.parallel.mesh import Mesh, psum
 
 #: the node-capacity ladder (``_DEFAULT_NODE_BUCKETS``)
 NODE_BUCKETS: Tuple[int, ...] = (8, 64, 512)
@@ -312,3 +319,22 @@ def node_totals(
         for v in (g.double() * w, h.double() * w, cw)
     ]
     return torch.stack(chans, dim=1).float()
+
+
+def build_histogram_sharded(
+    bins_fm: torch.Tensor, nodes: torch.Tensor, g: torch.Tensor,
+    h: torch.Tensor, n_nodes: int, n_bins1: int, mesh: Optional[Mesh] = None,
+    **kw,
+) -> torch.Tensor:
+    """``build_histogram`` of this rank's rows (its keyword arguments in
+    ``kw``), merged over ``mesh``: the histogram of every rank's rows, the
+    same bits on every rank."""
+    return psum(build_histogram(bins_fm, nodes, g, h, n_nodes, n_bins1, **kw), mesh)
+
+
+def node_totals_sharded(
+    nodes: torch.Tensor, g: torch.Tensor, h: torch.Tensor, n_nodes: int,
+    rw: Optional[torch.Tensor] = None, mesh: Optional[Mesh] = None,
+) -> torch.Tensor:
+    """``node_totals`` of this rank's rows, merged over ``mesh``."""
+    return psum(node_totals(nodes, g, h, n_nodes, rw=rw), mesh)

@@ -520,7 +520,7 @@ def _dispatch(plan: "_Plan", prep: Dict[str, Any], env) -> Val:
             for name in prep["by_leaf"][li]:
                 merged[_akey(li, name)] = t.arrays[name]
             mask = t.mask
-        table = FrameTable(merged, mask, n_valid, dev)
+        table = FrameTable(merged, mask, n_valid, dev, t.mesh)
         slots = torch.tensor(prep["svals"], dtype=torch.float64, device=dev)
         outs = map_batches(plan.fn, table, *slots.unbind())
         dev_host = [gather_rows(o, n_valid).copy() for o in outs]

@@ -16,7 +16,9 @@ rows and features as the JAX package:
   flat index) hashes the counter (j >> 32, j mod 2**32), XORs the two words,
   keeps the top 23 bits as the mantissa of a float in [1, 2) and subtracts
   1. A draw of n values is therefore the first n values of any longer draw
-  with the same key, and a (K, F) draw is the (K*F,) draw reshaped. With
+  with the same key, and a (K, F) draw is the (K*F,) draw reshaped; with
+  ``offset=o`` the draw is elements [o, o + n) of that stream, which is how
+  a rank draws only its own rows' share of a row-sharded fit. With
   ``minval``/``maxval`` (DeepLearning's weight init) the draw u becomes
   ``max(minval, u * (maxval - minval) + minval)`` in float32, the product
   and the sum fused into one rounding as XLA fuses them (``addcmul``);
@@ -82,19 +84,22 @@ def split(key: Key, num: int = 2) -> List[Key]:
 
 
 def random_bits(key: Key, shape: Sequence[int],
-                device: Union[str, torch.device]) -> torch.Tensor:
-    """32 random bits per element, as int64 in [0, 2**32), on ``device``."""
+                device: Union[str, torch.device], offset: int = 0) -> torch.Tensor:
+    """32 random bits per element, as int64 in [0, 2**32), on ``device``:
+    elements [offset, offset + prod(shape)) of the key's stream."""
     n = math.prod(shape)
-    j = torch.arange(n, dtype=torch.int64, device=device)
+    j = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(key[0], key[1], j >> 32, j & _MASK)
     return (y0 ^ y1).reshape(tuple(shape))
 
 
 def uniform(key: Key, shape: Sequence[int], device: Union[str, torch.device],
-            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+            minval: float = 0.0, maxval: float = 1.0, offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` on
-    ``device``: float32 in [0, 1) by default."""
-    bits = random_bits(key, shape, device)
+    ``device``: float32 in [0, 1) by default. With ``offset`` it is elements
+    [offset, offset + prod(shape)) of the flat draw (a slice of any draw
+    long enough to hold them)."""
+    bits = random_bits(key, shape, device, offset)
     # < 2**31, so the int32 cast keeps every bit
     one_to_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     u = one_to_two - 1.0

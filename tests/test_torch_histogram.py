@@ -589,8 +589,10 @@ def test_fit_makes_codes_rm_once_for_its_sorted_levels(
     make = hmod.row_major_codes
     monkeypatch.setattr(hmod, "row_major_codes",
                         lambda *a: made.append(make(*a)) or made[-1])
-    real_build = pb.build_histogram
-    monkeypatch.setattr(pb, "build_histogram",
+    # the booster builds each level through build_histogram_sharded, which
+    # calls build_histogram (and merges over the mesh)
+    real_build = hmod.build_histogram
+    monkeypatch.setattr(hmod, "build_histogram",
                         lambda *a, **kw: caches.append(kw["cache"]) or real_build(*a, **kw))
     real = hmod.hist_sorted
     monkeypatch.setattr(hmod, "hist_sorted",

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: ``h2o3_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor ``optax`` (an H100 host without JAX has no
+"""The PyTorch port stands alone: ``h2o3_tpu_torch`` (``parallel/`` too),
+``chip_smoke.py`` and the rank bodies its sharded tests spawn
+(``tests/torch_mesh_ranks.py``) import neither ``jax`` nor ``optax`` (an H100 host without JAX has no
 optax; the port keeps its own copy of the updates DeepLearning uses, in
 ``util/optim.py``) nor anything of ``h2o3_tpu``, its MOJO scorer
 ``h2o3_tpu_torch.genmodel`` imports numpy and not even ``torch``, and the
@@ -17,6 +18,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import textwrap
 from pathlib import Path
 
@@ -32,7 +34,7 @@ FORBIDDEN = re.compile(r"^(jax|jaxlib|optax|h2o3_tpu)(\.|\s|$)")
 
 def _port_files():
     files = sorted((ROOT / "h2o3_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py"]
 
 
 def _imported_modules(path: Path):
@@ -76,7 +78,8 @@ def test_no_jax_or_reference_imports_in_the_port():
                    "rapids/merge.py", "rapids/groupby.py", "rapids/prims/mungers.py",
                    "rapids/prims/matrix.py", "rapids/prims/search.py",
                    "rapids/prims/strings.py", "rapids/prims/times.py",
-                   "rapids/prims/advmath.py", "rapids/prims/models.py"):
+                   "rapids/prims/advmath.py", "rapids/prims/models.py",
+                   "parallel/__init__.py", "parallel/mesh.py"):
         assert f"h2o3_tpu_torch/{module}" in names, module
     bad = [(str(p.relative_to(ROOT)), m) for p in files
            for m in _imported_modules(p) if FORBIDDEN.match(m)]
@@ -175,6 +178,24 @@ def test_no_jax_or_reference_imports_in_the_port():
     with pytest.raises(RuntimeError, match="CUDA"):
         ht.StackedEnsemble(base_models=[base], response_column="y").train(fr)
     assert ht.TargetEncoder(response_column="y", device="cpu").train(cat).device.type == "cpu"
+    # a process group joined with no device= puts its rank on
+    # cuda:<local rank> whatever the backend, so a fit in a gloo group on a
+    # host without a card raises too
+    from h2o3_tpu_torch.parallel import mesh as pm
+
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            pm.distributed_initialize(backend="gloo", init_method=f"file://{work}/store",
+                                      rank=0, world_size=1, timeout=30)
+            assert pm.default_mesh().live
+            assert pm.default_mesh().device == torch.device("cuda:0")
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ht.resolve_device()
+            with pytest.raises(RuntimeError, match="CUDA"):
+                ht.GBM(ntrees=1, response_column="y").train(fr)
+        finally:
+            pm.destroy()
+    assert not pm.default_mesh().live
 
 
 def test_port_runs_with_jax_and_reference_blocked():

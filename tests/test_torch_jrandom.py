@@ -53,6 +53,12 @@ def test_jax_runs_the_configuration_ported():
         want = np.asarray(jax.random.uniform(jsub, (4, 6)))
         np.testing.assert_array_equal(
             jr.uniform(psub, (4, 6), "cpu").numpy().view(np.int32), want.view(np.int32))
+    # a rank's row draw: elements [o, o + S) of the draw over the padded
+    # rows, bit for bit the slice of the whole draw (JAX's and the port's)
+    whole = np.asarray(jax.random.uniform(jkr, (1003,)))
+    for o, size in ((0, 335), (335, 335), (670, 333), (1000, 3)):
+        part = jr.uniform(pkr, (size,), "cpu", offset=o).numpy()
+        np.testing.assert_array_equal(part.view(np.int32), whole[o:o + size].view(np.int32))
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -20,6 +20,20 @@ the same data, and holds:
   ``quantiles`` bit for bit (an outlier-dominated range too),
   ``sketch_column``, ``merge_edges``, rollups of NUM, CAT, TIME and STR
   columns, and ``x`` above a lowered ``_DEVICE_MIN_ELEMS`` at rtol 1e-5;
+- row sharding over a process group (``parallel/mesh.py``), with gloo
+  ranks on the CPU at world sizes 2 and 3 (``tests/torch_mesh_ranks.py``)
+  on 10,001 rows: ``map_reduce`` sum (rtol 1e-5), max and min (exact)
+  against the JAX package's on its 8-device mesh, ``map_batches`` bit for
+  bit; the sample sort's order (duplicate keys, NaN) bit for bit the JAX
+  package's ``device_argsort_u64(u, mesh_size=8)`` and the port's
+  one-device sort, ``lexsort`` too; ``searchsorted`` exact; group counts
+  exact, min and max bit-equal to the JAX package's, sums at
+  ``tests/test_dist_munging.py``'s tolerances; the GLM Gram against the
+  JAX package's ``_gram`` on its sharded design, each entry within 1e-5
+  of the size of its float32 terms (rtol 1e-5 where the terms do not
+  cancel), and a sharded IRLSM binomial fit with the JAX package's iterations and its
+  coefficients at rtol 1e-4; ``entry.dryrun_multichip(2, device="cpu")``
+  passes, and ``dryrun_multichip(2)`` without a card raises;
 - a failure on a device path (a ``dist`` function or the fused dispatch
   made to raise) propagates out of ``exec_rapids``: no host answer;
 - the registry: the port's prims are the JAX package's, and a name neither
@@ -87,6 +101,7 @@ from h2o3_tpu_torch.rapids import parser as t_parser  # noqa: E402
 from h2o3_tpu_torch.rapids.prims import FUSIBLE as T_FUSIBLE  # noqa: E402
 from h2o3_tpu_torch.rapids.prims import PRIMS as T_PRIMS  # noqa: E402
 from h2o3_tpu_torch.rapids.prims import matrix as t_matrix  # noqa: E402
+import torch_mesh_ranks as ranks  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -828,9 +843,38 @@ def test_string_time_math_search_and_model_prims_match_jax(tmp_path):
         s.close()
 
 
-def test_compute_core_matches_jax(monkeypatch):
+def _mesh_inputs(rng, n):
+    """The sharded compute body's inputs: the frame, sort keys with
+    duplicates and NaN, group codes and values, a GLM design and a
+    binomial GLM fit's frame and arguments."""
+    x = rng.normal(size=n)
+    x[::97] = np.nan
+    d = {"x": x, "y": rng.normal(2.0, size=n)}
+    k = np.round(rng.normal(size=n), 1)
+    k[::53] = np.nan
+    u = t_dist.encode_f64(k)
+    lex = [t_dist.encode_f64(rng.integers(0, 5, n).astype(float)), u]
+    codes = rng.integers(0, 40, n).astype(np.int32)
+    vals = rng.normal(size=n) * 10
+    vals[::31] = np.nan
+    X = rng.normal(size=(n, 5)).astype(np.float32)
+    Xi = np.concatenate([X, np.ones((n, 1), np.float32)], axis=1)
+    w = rng.uniform(0.5, 1.5, n)
+    wz = X[:, 0] - 0.5 * X[:, 1] + rng.normal(size=n)
+    logit = 1.5 * X[:, 0] - X[:, 1] + 0.5 * X[:, 2]
+    glm_frame = {f"x{j}": X[:, j].astype(np.float64) for j in range(5)}
+    glm_frame["y"] = np.where(rng.random(n) < 1 / (1 + np.exp(-logit)), "yes", "no")
+    glm_kw = dict(response_column="y", family="binomial", solver="irlsm", lambda_=0.0)
+    return (d, {"u": u, "lex": lex}, codes, vals, 40, Xi, wz, w, glm_frame, glm_kw)
+
+
+def test_compute_core_matches_jax(monkeypatch, mesh, tmp_path):
     rng = np.random.default_rng(7)
     n = 10_001
+    # the sharded compute paths run in gloo ranks at world sizes 2 and 3
+    # while the one-device checks below run
+    mesh_in = _mesh_inputs(np.random.default_rng(17), n)
+    runs = {w: ranks.start_ranks(ranks.compute_body, w, tmp_path, *mesh_in) for w in (2, 3)}
     cols = [("x", rng.normal(size=n), "NUM", None), ("y", rng.normal(2.0, size=n), "NUM", None)]
     jf, tf = both(cols)
     # -- map_reduce (sum, max, min) and map_batches on the resident table
@@ -928,3 +972,103 @@ def test_compute_core_matches_jax(monkeypatch):
         assert_same_val(jv, tv)
     finally:
         s.close()
+    _check_sharded_compute(mesh_in, runs, mesh)
+
+
+def _check_sharded_compute(mesh_in, runs, mesh):
+    """The gloo ranks' results against the JAX package on its 8-device mesh
+    and against the port with no group."""
+    from h2o3_tpu import Frame as JFrame
+    from h2o3_tpu.keyed import DKV as JDKV
+    from h2o3_tpu.models.glm import GLM as JGLM, _gram as j_gram
+    from h2o3_tpu.parallel.mesh import DATA_AXIS as J_DATA_AXIS
+    from h2o3_tpu.parallel.mesh import pad_rows as j_pad_rows, shard_rows as j_shard_rows
+    from h2o3_tpu_torch.entry import dryrun_multichip
+    from h2o3_tpu_torch.parallel import mesh as t_pm
+
+    d, keys, codes, vals, n_groups, Xi, wz, w, glm_frame, glm_kw = mesh_in
+    n = len(codes)
+    jf, _ = both([(k, v, "NUM", None) for k, v in d.items()])
+    jt = j_mr.FrameTable.from_frame(jf)
+    ok = lambda c, m: m & ~jnp.isnan(c["x"])  # noqa: E731
+    jsum = j_mr.map_reduce(lambda c, m: {"n": jnp.sum(ok(c, m)),
+                                         "sum": jnp.sum(jnp.where(ok(c, m), c["x"], 0.0))}, jt)
+    jmax = j_mr.map_reduce(lambda c, m: jnp.max(jnp.where(m, c["y"], -jnp.inf)), jt,
+                           reduce="max")
+    jmin = j_mr.map_reduce(lambda c, m: jnp.min(jnp.where(m, c["y"], jnp.inf)), jt,
+                           reduce="min")
+    jbatch = j_mr.gather_rows(j_mr.map_batches(lambda c, m: c["x"] * 2.0 + c["y"], jt), n)
+    jorder = j_dist.device_argsort_u64(keys["u"], mesh_size=8)
+    one = t_dist.device_argsort_u64(keys["u"], "cpu")
+    assert np.array_equal(jorder, one)
+    assert np.array_equal(one, np.argsort(keys["u"], kind="stable"))
+    jlex = j_dist.device_lexsort(keys["lex"], mesh_size=8)
+    jagg = j_dist.device_group_aggregate(codes, vals, n_groups, mesh_size=8)
+    Xd, _ = j_shard_rows(Xi, mesh)
+    jG, jq = j_gram(Xd, j_pad_rows(wz, 8)[0], j_pad_rows(w, 8)[0])
+    absX = np.abs(Xi.astype(np.float64))
+    G_terms, q_terms = absX.T @ (absX * w[:, None]), absX.T @ np.abs(w * wz)
+    jglm = JGLM(**glm_kw).train(JFrame.from_dict(glm_frame))
+    JDKV.remove(jglm.key)
+    table = np.sort(keys["u"])
+    # the mesh's helpers with no group: one device, every row, the flag itself
+    solo = t_pm.default_mesh()
+    assert t_pm.device_count() == 1 and t_pm.row_sharding(solo, n) == slice(0, n)
+    assert t_pm.any_rank(True) and not t_pm.any_rank(False)
+    for x, mult in ((np.arange(5.0), 4), (np.ones((6, 2), np.float32), 3)):
+        (a, na), (b, nb) = t_pm.pad_rows(x, mult), j_pad_rows(x, mult)
+        assert na == nb and bits_equal(a, np.asarray(b)) and a.shape == np.shape(b)
+    # the dry run: two gloo ranks; no card here, so cuda raises
+    dryrun_multichip(2, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    for w_, run in runs.items():
+        out = ranks.join_ranks(run)
+        # each rank's table holds its range of the padded rows
+        assert sum(o["table"][2] for o in out) == n
+        # row_sharding splits the rows in rank order; shard_table places
+        # each rank's range with its mask; any_rank is the same on every rank
+        spans = [o["mesh_api"][2] for o in out]
+        assert spans[0].start == 0 and spans[-1].stop == n
+        assert all(a.stop == b.start for a, b in zip(spans, spans[1:]))
+        for o in out:
+            axis, count, span, cols, mask, n_tab, one_true, none_true = o["mesh_api"]
+            assert axis == J_DATA_AXIS and count == w_ and n_tab == n
+            assert one_true is True and none_true is False
+            real = span.stop - span.start
+            assert len(mask) == -(-n // w_) and int(mask.sum()) == real and mask[:real].all()
+            for k, v in cols.items():
+                assert bits_equal(v[:real], d[k][span]), k
+        for o in out:
+            assert o["table"][:2] == (n, n + (-n) % w_)
+            assert int(o["sum"]["n"]) == int(jsum["n"])
+            np.testing.assert_allclose(float(o["sum"]["sum"]), float(jsum["sum"]), rtol=1e-5)
+            assert float(o["max"]) == float(jmax) and float(o["min"]) == float(jmin)
+            assert bits_equal(o["batches"], jbatch)
+            assert np.array_equal(o["argsort"], jorder)
+            assert np.array_equal(o["lexsort"], jlex)
+            left, right, (lo, hi) = o["search"]
+            assert np.array_equal(left, np.searchsorted(table, keys["u"], "left"))
+            assert np.array_equal(right, np.searchsorted(table, keys["u"], "right"))
+            assert np.array_equal(lo, left) and np.array_equal(hi, right)
+            g = o["groups"]
+            assert np.array_equal(g["count"], jagg["count"])
+            assert np.array_equal(g["nacnt"], jagg["nacnt"])
+            assert bits_equal(g["min"], jagg["min"]) and bits_equal(g["max"], jagg["max"])
+            for k in ("sum", "sumsq"):
+                np.testing.assert_allclose(g[k], jagg[k], rtol=1e-4, atol=5e-2, err_msg=k)
+            # float32 sums: each entry within 1e-5 of the size of its terms
+            G, q = o["gram"]
+            assert np.all(np.abs(G - jG) <= 1e-5 * G_terms), np.abs(G - jG) / G_terms
+            assert np.all(np.abs(q - jq) <= 1e-5 * q_terms), np.abs(q - jq) / q_terms
+            iters, coefs = o["glm"]
+            assert iters == jglm.iterations
+            assert coefs.keys() == jglm.coefficients.keys()
+            for name, v in jglm.coefficients.items():
+                np.testing.assert_allclose(coefs[name], v, rtol=1e-4, err_msg=name)
+            assert o["collectives"] > 0
+        for o in out[1:]:  # every rank the same bits
+            for k in ("batches", "argsort", "lexsort"):
+                assert bits_equal(o[k], out[0][k]), k
+            assert all(bits_equal(o["groups"][k], out[0]["groups"][k]) for k in o["groups"])
+            assert bits_equal(o["gram"][0], out[0]["gram"][0])

@@ -46,6 +46,23 @@ same checks): the case's own depth-8 fit is not cross-validated, because on
 two thirds of the rows its fold fits meet the ties of ROADMAP C2 on the
 NA-bearing feature, where the two packages keep different splits of equal
 gain; at depth 4 the fixture has no such tie.
+
+Row sharding over a process group (``parallel/mesh.py``), in the body of
+``test_early_stopping_matches_jax``: gloo ranks on the CPU
+(``tests/torch_mesh_ranks.py``) at world sizes 2 and 3, with rows that
+neither divides, fit XGBoost with ``sample_rate=0.7`` in both subtraction
+modes, DRF with ``mtries``, the monotone case with
+``hist_fact_max_kc=32`` (``train_boosted``) and the early-stopping GBM
+(the builder, sharded because the group is live). Each is held to the
+JAX package's ``train_boosted`` on the 8-device mesh and to the port with
+no group: equal tree structure, leaf values and margins at rtol 1e-5 /
+atol 1e-6, every rank the same bits, the same stopping tree; the merged
+root histogram's counts exact and its sums at rtol 1e-5 / atol 1e-4 of
+the one-device build; a grid whose wall-clock budget runs out on one
+rank's clock stopping at the same cell on every rank; a repeat
+``distributed_initialize`` benign, wrong arguments raising with them in
+the message, and a collective that one rank never joins raising at its
+group's timeout.
 """
 
 import contextlib
@@ -65,6 +82,8 @@ import h2o3_tpu_torch as ht
 from h2o3_tpu_torch.models.tree.common import tree_matrix as p_tree_matrix
 from h2o3_tpu_torch.ops.histogram import build_histogram
 from h2o3_tpu_torch.keyed import DKV as PDKV
+from h2o3_tpu_torch.models.tree.common import init_margin as p_init_margin
+import torch_mesh_ranks as ranks
 
 torch.set_num_threads(1)
 
@@ -412,13 +431,68 @@ def test_checkpoint_errors_match_jax(case):
     assert want in msgs[1]
 
 
-def test_early_stopping_matches_jax():
+def _mesh_cases():
+    """``train_boosted`` cases of the sharded fits: XGBoost sampled in both
+    subtraction modes, DRF with mtries, monotone with the factorized
+    limit; 2,500 rows (not a multiple of 2 or 3)."""
+    def xy(dist, seed):
+        d = _data(dist, 2500, seed)
+        X = np.stack([d[f"x{j}"] for j in range(4)], 1).astype(np.float32)
+        return X, (d["y"] == "yes").astype(np.float64) if dist == "bernoulli" else d["y"]
+
+    X, y = xy("bernoulli", 7)
+    base = dict(X=X, y=y, objective="bernoulli", n_class_trees=1,
+                init_margin=p_init_margin("bernoulli", y, 1))
+    xgb = dict(ntrees=3, max_depth=3, nbins=256, sample_rate=0.7, seed=5)
+    Xg, yg = xy("gaussian", 8)
+    return {
+        "xgboost": dict(base, kw=dict(params=xgb, subtract=False)),
+        "xgboost_subtract": dict(base, kw=dict(params=xgb, subtract=True)),
+        "drf": dict(base, X=Xg, objective="fixed", y=yg[:, None], init_margin=np.zeros(1),
+                    kw=dict(params=dict(ntrees=2, max_depth=8, nbins=20, learn_rate=1.0,
+                                        reg_lambda=0.0, sample_rate=0.632, mtries=1,
+                                        seed=5),
+                            average=True, subtract=False)),
+        "monotone": dict(base, kw=dict(params=dict(ntrees=3, max_depth=3, nbins=256, seed=5),
+                                       subtract=True, monotone=np.array([0, 0, 1, -1]),
+                                       hist_fact_max_kc=32, hist_impl="kernel")),
+    }
+
+
+def _jax_boosted(case, mesh, monkeypatch):
+    monkeypatch.setenv("H2O3_TPU_TREE_SUBTRACT", "1" if case["kw"]["subtract"] else "0")
+    kw = case["kw"]
+    return jb.train_boosted(
+        case["X"], case["objective"], case["y"], case["n_class_trees"],
+        case["init_margin"], jb.TreeParams(**kw["params"]), mesh=mesh,
+        average=kw.get("average", False), monotone=kw.get("monotone"))
+
+
+def _assert_same_fit(want, got, what):
+    """Tree structure equal; leaf values and margins at rtol 1e-5 / atol 1e-6."""
+    (wt, wm), (gt, gm) = want, got
+    for f in ("feat", "split_bin", "default_left", "is_split"):
+        for a, b in zip(wt[f], gt[f], strict=True):
+            np.testing.assert_array_equal(a, b, err_msg=f"{what}: {f}")
+    for a, b in zip(wt["leaf"], gt["leaf"], strict=True):
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6, err_msg=f"{what}: leaf")
+    np.testing.assert_allclose(gm, wm, rtol=1e-5, atol=1e-6, err_msg=f"{what}: margin")
+
+
+def test_early_stopping_matches_jax(mesh, tmp_path, monkeypatch):
     # stopping_rounds scores the training margin every tree on the host
     # (ScoreKeeper.stopEarly): both packages must stop at the same tree
     d = _data("gaussian", 2000, seed=31)
     kw = dict(response_column="y", ntrees=40, max_depth=2, learn_rate=0.5,
               seed=5, ignored_columns=["w", "off"], stopping_rounds=2,
               stopping_tolerance=0.05)
+    # the sharded fits run in gloo ranks at world sizes 2 and 3 meanwhile
+    cases = _mesh_cases()
+    runs = {}
+    for w in (2, 3):
+        (tmp_path / f"w{w}").mkdir()
+        runs[w] = ranks.start_ranks(ranks.boost_body, w, tmp_path / f"w{w}", cases, (d, kw))
+    gbm_X = np.stack([d[f"x{j}"] for j in range(4)], 1)
     jmodel = JGBM(**kw).train(JFrame.from_dict(d))
     JDKV.remove(jmodel.key)
     with ht.use_device("cpu"):
@@ -458,6 +532,65 @@ def test_early_stopping_matches_jax():
     with ht.use_device("cpu"), pytest.raises(ValueError) as perr:
         ht.DRF(**kw).train(ht.Frame.from_dict(d))
     assert str(perr.value) == str(jerr.value) == "checkpoint model 'drf_0' not found"
+
+    # -- row sharding (ROADMAP A12): the JAX package on its 8-device mesh,
+    # the port with no group, and the port's gloo ranks at world sizes 2, 3
+    want = {}
+    for name, case in cases.items():
+        jfit = _jax_boosted(case, mesh, monkeypatch)
+        want[name] = (ranks.trees_of(jfit), jfit.predict_margin(case["X"]))
+        one = ranks.fit_boosted(case)
+        _assert_same_fit(want[name], (ranks.trees_of(one), one.predict_margin(case["X"])),
+                         f"{name} with no group")
+    root = ranks.root_histogram(cases["xgboost"])
+    jtrees = ranks.trees_of(jmodel.booster)
+    jpred = jmodel.booster.predict_margin(gbm_X)
+    # wrong arguments raise with them in the message (a process with no group)
+    msgs = ranks.init_failures(str(tmp_path))
+    assert not torch.distributed.is_initialized()
+    assert msgs[0].startswith("RuntimeError: torch.distributed.init_process_group(") and \
+        "rank=5" in msgs[0] and "world_size=2" in msgs[0], msgs[0]
+    assert msgs[1].startswith("ValueError: ") and "no_size" in msgs[1], msgs[1]
+    assert msgs[2].startswith("TypeError: ") and "color='blue'" in msgs[2], msgs[2]
+    for w, run in runs.items():
+        out = ranks.join_ranks(run)
+        assert [o["rank"] for o in out] == list(range(w)) and out[0]["size"] == w
+        for name in cases:
+            _assert_same_fit(want[name], out[0][name], f"{name} at world size {w}")
+        for o in out[1:]:  # every rank the same bits
+            for name in cases:
+                for f in out[0][name][0]:
+                    for a, b in zip(out[0][name][0][f], o[name][0][f]):
+                        assert np.array_equal(a, b), (w, name, f)
+                assert np.array_equal(out[0][name][1], o[name][1]), (w, name)
+            assert np.array_equal(o["root_hist"], out[0]["root_hist"])
+            assert bits_equal_tree(o["gbm"], out[0]["gbm"]), w
+        for o in out:
+            ntrees, trees, scores, pred = o["gbm"]
+            assert ntrees == jmodel.ntrees_built, (w, ntrees)
+            _assert_same_fit((jtrees, jpred), (trees, pred), f"early-stopping GBM at {w}")
+            np.testing.assert_allclose(scores, [h["score"] for h in jmodel.scoring_history],
+                                       rtol=1e-5)
+            np.testing.assert_array_equal(o["root_hist"][..., 2], root[..., 2])
+            np.testing.assert_allclose(o["root_hist"], root, rtol=1e-5, atol=1e-4)
+            assert o["collectives"] > 0
+            # the budget ran out on the last rank's clock: all stop together
+            assert o["grid_cells"] == 1, (w, o["grid_cells"])
+            assert o["dl_epochs"] == 1, (w, o["dl_epochs"])
+        # the rank left out of a collective's group raised at its timeout
+        elapsed, err = out[0]["timeout"]
+        assert 1.5 <= elapsed < 30 and "imed out" in err, (elapsed, err)
+
+
+def bits_equal_tree(a, b) -> bool:
+    """Two nested results (tuples, lists, dicts, arrays) with equal bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(bits_equal_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(bits_equal_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    return a == b
 
 
 def _row_leaves(model, frame, tree_matrix):
